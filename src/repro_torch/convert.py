@@ -1,0 +1,45 @@
+"""Carry weights across: numpy arrays -> the port's ``MemhdModel``.
+
+The parity tests build a model in the JAX package, pull its arrays to
+numpy on that side, and hand them here, so the port never sees a jax
+object:
+
+    model = model_from_numpy(
+        {"projection": proj},                                # (f, D)
+        {"fp": fp, "binary": binary, "centroid_class": cc},  # (C, D), (C,)
+        dataclasses.asdict(enc_cfg), dataclasses.asdict(am_cfg),
+        device="cpu")
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.memhd import MemhdModel
+from repro_torch.core.types import EncoderConfig, MemhdConfig
+
+
+def model_from_numpy(enc_params: Mapping[str, np.ndarray],
+                     am_state: Mapping[str, np.ndarray],
+                     enc_cfg: Mapping, am_cfg: Mapping, *,
+                     device=None) -> MemhdModel:
+    """Build the port's model from numpy weights and plain-dict configs.
+
+    ``enc_params`` holds the (f, D) float32 ``projection``; ``am_state``
+    the (C, D) float32 ``fp`` and ``binary`` AMs and the (C,) int32
+    ``centroid_class``.
+    """
+    device = resolve_device(device)
+
+    def f32(a):  # a copy: the model never aliases the caller's arrays
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    state = {"fp": f32(am_state["fp"]), "binary": f32(am_state["binary"]),
+             "centroid_class": torch.tensor(
+                 np.asarray(am_state["centroid_class"], np.int32),
+                 device=device)}
+    return MemhdModel({"projection": f32(enc_params["projection"])}, state,
+                      EncoderConfig(**enc_cfg), MemhdConfig(**am_cfg))

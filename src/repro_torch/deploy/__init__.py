@@ -1,0 +1,11 @@
+"""Deployment backends of the port: the ``DeployedArtifact`` protocol,
+the string-keyed registry, the packed digital backend and the padding
+helpers."""
+from repro_torch.deploy.base import DeployedArtifact  # noqa: F401
+from repro_torch.deploy.digital import DeployedMemhd, deploy_packed  # noqa: F401
+from repro_torch.deploy.padding import (  # noqa: F401
+    pad_rows, pad_tiles, pad_to_multiple, pad_vec, round_up,
+)
+from repro_torch.deploy.registry import (  # noqa: F401
+    available_backends, deploy, get_backend, register_backend,
+)

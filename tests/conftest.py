@@ -13,6 +13,9 @@ def pytest_configure(config):
         "markers",
         "slow: long-running training/multi-device tests "
         "(deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; skips without one")
 
 
 @pytest.fixture(scope="session")
