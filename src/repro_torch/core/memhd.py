@@ -10,6 +10,13 @@ Port of ``repro.core.memhd``; the paper's Fig. 2 pipeline:
 (and raises when there is no GPU); ``fit``, ``predict`` and ``deploy``
 run where the model lives. ``gen`` is a ``torch.Generator`` on that
 device, or an int seed for one.
+
+``fit`` encodes the training set once and runs the QAIL epochs
+(``qail.qail_epoch_scan``; ``use_kernel=True`` runs every minibatch
+through the ``qail_update`` CUDA kernel). Given
+``ckpt=CheckpointManager(...)`` it checkpoints a ``MemhdTrainState``
+every ``ckpt_every`` epochs and resumes from the newest valid one,
+continuing bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +43,24 @@ def _as_generator(gen: GenLike, device: torch.device) -> torch.Generator:
             raise ValueError(f"generator on {gen.device}, model on {device}")
         return gen
     return generator(gen, device)
+
+
+@dataclasses.dataclass
+class MemhdTrainState:
+    """Checkpointable training state: AM buffers + epoch counter. Its
+    leaves flow through ``checkpoint.CheckpointManager`` under the
+    reference's keys ("0/fp", "0/binary", "0/centroid_class", "1")."""
+
+    am_state: Dict[str, torch.Tensor]
+    epoch: torch.Tensor  # () int32
+
+    @classmethod
+    def create(cls, am_state: Dict[str, torch.Tensor],
+               epoch: int = 0) -> "MemhdTrainState":
+        device = am_state["fp"].device
+        return cls(dict(am_state),
+                   torch.tensor(int(epoch), dtype=torch.int32,
+                                device=device))
 
 
 @dataclasses.dataclass
@@ -110,64 +135,111 @@ class MemhdModel:
             mode: str = "batched",
             refresh_every: int = 1,
             eval_feats=None, eval_labels=None,
-            ckpt=None,
+            ckpt=None, ckpt_every: int = 1,
             use_kernel: bool = False,
             noise_sim=None, noise_mode: str = "fixed",
             cell_bits: Optional[int] = None,
             ) -> Tuple["MemhdModel", Dict]:
-        """Full training pipeline: init + batched QAIL epochs.
+        """Full training pipeline: init + QAIL epochs.
 
         The training set is encoded ONCE; the clustering init and every
         epoch reuse the same device-resident ``h``/``q``/prebatched
         buffers, with one host sync per epoch (the miss rate).
-        ``init_method`` is "clustering" (§III-A) or "keep" (keep the
-        current AM and skip initialization).
+
+        Args:
+          init_method: "clustering" (§III-A) or "keep" (keep the current
+            AM and skip initialization).
+          mode: "batched" (the scan engine) or "sequential" (sample by
+            sample; its miss rate is not computed and reads NaN).
+          refresh_every: binary-AM refresh cadence inside the epoch.
+          ckpt: optional ``checkpoint.CheckpointManager``: fit resumes
+            from the newest valid ``MemhdTrainState`` (a bit-exact
+            continuation) and checkpoints every ``ckpt_every`` epochs
+            plus at the end.
+          use_kernel: run every minibatch through the ``qail_update``
+            kernel (batched mode).
 
         Returns (model, history) with per-epoch train miss rates and
         optional eval accuracies.
         """
-        if ckpt is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet "
-                "(ROADMAP queue 1, item 7)")
-        if mode != "batched":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet; only the batched scan "
-                "engine is (ROADMAP queue 1, item 6)")
+        if mode not in ("batched", "sequential"):
+            raise ValueError(f"unknown fit mode {mode!r}")
+        if mode == "sequential" and (noise_sim is not None
+                                     or cell_bits is not None):
+            raise ValueError("noise_sim and cell_bits need the batched "
+                             "scan engine")
         epochs = self.am_cfg.epochs if epochs is None else epochs
         labels = self._on_device(labels)
 
+        # Encode once; init and every epoch share these buffers.
         h = self.encode(feats)
         q = encoding.binarize_query(h)
 
-        if init_method == "keep":
-            model, init_hist = self, []
+        start_epoch = 0
+        init_hist: List[dict] = []
+        curve: List[dict] = []
+        state = None
+        resumed = False
+        if ckpt is not None:
+            template = MemhdTrainState.create(self.am_state)
+            step, tree, extra = ckpt.restore(template)
+            if step is not None:
+                state = tree.am_state
+                start_epoch = step
+                curve = list(extra.get("curve", []))
+                init_hist = list(extra.get("init", []))
+                resumed = True
+                log.info("fit resumed from epoch %d", start_epoch)
+
+        if state is None:
+            if init_method == "keep":
+                model, init_hist = self, []
+                state = self.am_state
+            else:
+                model, init_hist = self.initialize_am(
+                    gen, feats, labels, method=init_method, h=h, q=q)
+                state = model.am_state
         else:
-            model, init_hist = self.initialize_am(
-                gen, feats, labels, method=init_method, h=h, q=q)
-        state = model.am_state
+            model = dataclasses.replace(self, am_state=state)
 
         eval_q = (model.encode_query(eval_feats)
                   if eval_feats is not None else None)
         if eval_q is not None:
             eval_labels = self._on_device(eval_labels)
-        curve: List[dict] = []
-        if eval_q is not None:
-            curve.append({"epoch": 0, "eval_acc": qail.evaluate(
-                state, eval_q, eval_labels)})
+
+        def _save(ep, st):
+            if ckpt is not None:
+                ckpt.save(ep, MemhdTrainState.create(st, ep),
+                          extra={"curve": curve, "init": init_hist})
+
+        if start_epoch == 0 and not resumed:
+            if eval_q is not None:
+                curve.append({"epoch": 0, "eval_acc": qail.evaluate(
+                    state, eval_q, eval_labels)})
+            _save(0, state)
 
         n = h.shape[0]
-        hb, qb, yb, mask = qail.prebatch(h, q, labels,
-                                         self.am_cfg.batch_size)
-        for ep in range(1, epochs + 1):
-            state, n_miss = qail.qail_epoch_scan(
-                state, self.am_cfg, hb, qb, yb, mask,
-                refresh_every=refresh_every, use_kernel=use_kernel,
-                sim=noise_sim, noise_mode=noise_mode, cell_bits=cell_bits)
-            rec = {"epoch": ep, "train_miss": float(n_miss) / n}
+        if mode == "batched":
+            hb, qb, yb, mask = qail.prebatch(h, q, labels,
+                                             self.am_cfg.batch_size)
+        for ep in range(start_epoch + 1, epochs + 1):
+            if mode == "sequential":
+                state = qail.qail_epoch_sequential(state, self.am_cfg, h, q,
+                                                   labels)
+                miss = float("nan")
+            else:
+                state, n_miss = qail.qail_epoch_scan(
+                    state, self.am_cfg, hb, qb, yb, mask,
+                    refresh_every=refresh_every, use_kernel=use_kernel,
+                    sim=noise_sim, noise_mode=noise_mode,
+                    cell_bits=cell_bits)
+                miss = float(n_miss) / n  # the one host sync this epoch
+            rec = {"epoch": ep, "train_miss": miss}
             if eval_q is not None:
                 rec["eval_acc"] = qail.evaluate(state, eval_q, eval_labels)
             curve.append(rec)
+            if ep % ckpt_every == 0 or ep == epochs:
+                _save(ep, state)
         model = dataclasses.replace(model, am_state=state)
         return model, {"init": init_hist, "curve": curve}
 
@@ -177,7 +249,7 @@ class MemhdModel:
 
     def grow_classes(self, *args, **kwargs):
         raise NotImplementedError(
-            "class growth is not ported yet (ROADMAP queue 1, item 7)")
+            "class growth is not ported yet (ROADMAP queue 1, item 14)")
 
     # -- inference ---------------------------------------------------------------
     def predict(self, feats) -> torch.Tensor:
@@ -196,9 +268,12 @@ class MemhdModel:
                packed: Optional[bool] = None, mode: Optional[str] = None,
                sim=None, **opts):
         """Freeze the trained model into its serving artifact through the
-        deployment registry (``repro_torch.deploy.registry``). Only
-        ``target="packed"`` is ported: the (Dp, C) uint8 1-bit residence
-        served by the XOR+popcount CUDA kernel."""
+        deployment registry (``repro_torch.deploy.registry``):
+        ``target="packed"`` (the default; the (Dp, C) uint8 1-bit
+        residence, ``mode="popcount"`` or ``"unpack"``) or
+        ``target="unpacked"`` (the ±1 float32 (C, D) residence searched
+        by the ``am_search`` kernel). ``packed=False`` is the legacy
+        spelling of ``target="unpacked"``."""
         from repro_torch.deploy import registry
         if target in (None, "digital"):
             if sim is not None:

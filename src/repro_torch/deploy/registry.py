@@ -3,8 +3,9 @@
 
 ``MemhdModel.deploy(target=..., **opts)`` dispatches through this table:
 a backend is a factory ``(model, **opts) -> DeployedArtifact``
-registered under a target name. Only ``"packed"`` is ported; asking for
-any other target raises the registry's "unknown deploy target" error.
+registered under a target name. ``"packed"`` and ``"unpacked"`` are
+ported; asking for any other target raises the registry's "unknown
+deploy target" error.
 """
 from __future__ import annotations
 

@@ -24,7 +24,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu")
+SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
+           "am_search.cu", "qail_update.cu")
+HEADERS = ("sims_argmax.cuh",)  # included by sources; part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -32,12 +34,18 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_longlong
+_F = ctypes.c_float
 # argtypes of every exported launcher: pointers and the stream as void*,
 # so ctypes never narrows a 64-bit address to a 32-bit int.
 SIGNATURES = {
     "pack_bits_launch": (_P, _P, _I64, _P),
-    "am_search_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "am_search_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P),
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _P),
+    "am_search_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I,
+                         _P),
+    "qail_update_launch": (_P, _P, _P, _I64, _I64, _P, _P, _P, _F, _P, _P,
+                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -64,7 +72,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -135,15 +143,17 @@ def check(err: int, kernel: str) -> None:
                            f"cudaError_t {err}")
 
 
-def check_operand(t, name: str, dtype, ndim: int) -> None:
-    """Validate a CUDA kernel operand: dtype, rank, contiguity, and a size
-    that fits the launchers' 32-bit int arguments."""
+def check_operand(t, name: str, dtype, ndim: int, *,
+                  contiguous: bool = True) -> None:
+    """Validate a CUDA kernel operand: dtype, rank, contiguity (unless the
+    launcher takes element strides), and a size that fits the launchers'
+    32-bit int arguments."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected rank {ndim}, got shape "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if any(s >= 2 ** 31 for s in t.shape):
         raise ValueError(f"{name}: dimension too large for the kernel: "

@@ -7,8 +7,10 @@ and batches are served through a pipeline ``--depth`` batches deep: the
 host pads batch k+1 while batch k runs on the device. ``--fused`` serves
 each batch through ``predict_features`` (the ``encode_pack`` kernel
 chained into the packed search); the default serves the staged encode
--> binarize -> ``pack_bits`` -> ``am_search_packed`` path. Predictions
-are bit-exact between the two.
+-> binarize -> ``pack_bits`` -> ``am_search_packed`` path. ``--mode
+unpack`` serves the packed AM through the unpack mode of the packed
+search, and ``--target unpacked`` (or ``--unpacked``) the ±1 float AM
+through ``am_search``. Predictions are bit-exact across all of them.
 
 The JSON report keeps the reference's keys; its ``metrics`` section
 holds the port's dispatch tiers (``cuda`` / ``torch-ref``).
@@ -16,6 +18,8 @@ holds the port's dispatch tiers (``cuda`` / ``torch-ref``).
 Usage (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke --fused \
       --requests 64 --max-batch 256
+  PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
+      --target unpacked
 and ``--device cpu`` for the plain path on the CPU.
 """
 from __future__ import annotations
@@ -258,7 +262,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--target", default=None,
                     choices=["packed", "unpacked", "imc", "hierarchical",
                              "multibit"],
-                    help="deployment backend (only packed is ported)")
+                    help="deployment backend (packed and unpacked are "
+                         "ported)")
     ap.add_argument("--cell-bits", type=int, default=4,
                     help="multibit: bits per resident AM cell (2-8)")
     ap.add_argument("--mode", default="popcount",
@@ -290,10 +295,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.target and args.unpacked:
         ap.error("--unpacked is the legacy alias; drop it with --target")
     target = args.target or ("unpacked" if args.unpacked else "packed")
-    if target != "packed":
-        _not_ported(f"--target {target}", "ROADMAP queue 1, items 8-11")
-    if args.mode != "popcount":
-        _not_ported("--mode unpack", "ROADMAP queue 2, item 4")
+    if target not in ("packed", "unpacked"):
+        _not_ported(f"--target {target}", "ROADMAP queue 1, items 9-11")
+    if args.fused and target != "packed":
+        ap.error("--fused needs the packed backend (--target packed)")
     if args.topk or args.groups or args.shortlist:
         _not_ported("--topk/--groups/--shortlist",
                     "ROADMAP queue 1, item 11")

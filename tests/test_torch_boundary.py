@@ -43,6 +43,13 @@ dep = m.deploy(target="packed")
 assert (dep.predict(ds.test_x) == dep.predict_features(ds.test_x)).all()
 reqs = serve_memhd.synthetic_requests(ds.test_x.numpy(), 4, 3)
 serve_memhd.serve_batches(dep, reqs, fused=True, depth=2)
+from repro_torch.launch import train
+from repro_torch.checkpoint import CheckpointManager
+m2, _ = MemhdModel.create(0, enc, amc, device="cpu").fit(
+    1, ds.train_x, ds.train_y, use_kernel=True)
+assert (m2.am_state["fp"] == m.am_state["fp"]).all()
+assert (m2.deploy(target="unpacked").predict(ds.test_x)
+        == m2.deploy(mode="unpack").predict(ds.test_x)).all()
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad
@@ -100,6 +107,12 @@ def test_kernel_build_is_keyed_by_its_sources():
         assert "Replaces the TPU kernel src/repro/kernels/" in src, name
     assert set(_build.SIGNATURES) == {
         Path(s).stem + "_launch" for s in _build.SOURCES}
+    # Every header a source includes is part of the library's hash.
+    included = set()
+    for name in _build.SOURCES + _build.HEADERS:
+        included |= set(re.findall(r'#include "([^"]+)"',
+                                   (_build.CSRC / name).read_text()))
+    assert included == set(_build.HEADERS)
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.relative_to(ROOT / "build" / "repro_torch_kernels")

@@ -7,6 +7,7 @@ dyadic features and learning rate, power-of-two D*C); the tolerance is
 stated where float rounding enters.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -345,20 +346,207 @@ def test_qail_epoch_defaults_agree_on_999_per_mille_of_cells():
                                rtol=1e-4, atol=1e-4)
 
 
+ENGINES = ["scan_kernel", "sequential", "batched", "hostloop",
+           "fold_feedback"]
+
+
+def _engine(mod, name, state, cfg, h, q, y):
+    """One engine of ``mod`` (the JAX or the port's qail) over (h, q, y):
+    returns (state, miss) with miss a float (NaN for the sequential
+    epoch, which has none)."""
+    if name == "scan_kernel":
+        hb, qb, yb, mask = mod.prebatch(h, q, y, cfg.batch_size)
+        st, miss = mod.qail_epoch_scan(state, cfg, hb, qb, yb, mask,
+                                       refresh_every=2, use_kernel=True)
+        return st, float(miss)
+    if name == "sequential":
+        return mod.qail_epoch_sequential(state, cfg, h, q, y), float("nan")
+    if name == "batched":
+        st, miss = mod.qail_epoch_batched(state, cfg, h, q, y,
+                                          refresh_every=2)
+        return st, float(miss)
+    if name == "hostloop":
+        return mod.qail_epoch_hostloop(state, cfg, h, q, y, refresh_every=2)
+    return mod.fold_feedback(state, cfg, h, q, y, epochs=2, refresh_every=2)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_qail_engines_bit_exact_under_dyadic_conditions(engine):
+    # The dyadic conditions of the scan test above: every Eq.-(6) sum and
+    # the global mean are exact in any order, so each port engine must
+    # equal its JAX counterpart bit for bit (the kernel route against
+    # the Pallas kernel in interpret mode). 150 rows, batch 32: a ragged
+    # last batch; refresh every 2 batches: a trailing finalize.
+    cfg = jtypes.MemhdConfig(dim=128, columns=128, classes=10, lr=0.0625,
+                             normalize="none", batch_size=32)
+    pcfg = types.MemhdConfig(**dataclasses.asdict(cfg))
+    h, q, y, fp, owners = _qail_inputs(21, 150, 128, 128, 10, lr_feats=True)
+    jstate = jam.make_am_state(jnp.asarray(fp), jnp.asarray(owners))
+    tstate = am.make_am_state(torch.from_numpy(fp), torch.from_numpy(owners))
+    jst, jmiss = _engine(jqail, engine, jstate, cfg, jnp.asarray(h),
+                         jnp.asarray(q), jnp.asarray(y))
+    tst, tmiss = _engine(qail, engine, tstate, pcfg, torch.from_numpy(h),
+                         torch.from_numpy(q), torch.from_numpy(y))
+    np.testing.assert_array_equal(n(tst["fp"]), np.asarray(jst["fp"]))
+    np.testing.assert_array_equal(n(tst["binary"]), np.asarray(jst["binary"]))
+    assert tmiss == jmiss or (np.isnan(tmiss) and np.isnan(jmiss))
+    # The caller's state is never modified.
+    np.testing.assert_array_equal(n(tstate["fp"]), fp)
+
+
+def test_select_update_targets_matches():
+    rng = np.random.default_rng(22)
+    owners = np.array([0, 0, 1, 1, 2, 2], np.int32)
+    for _ in range(50):
+        sims = rng.integers(-3, 4, size=6).astype(np.float32)  # many ties
+        label = int(rng.integers(0, 4))  # class 3 owns no centroid
+        got = qail.select_update_targets(torch.from_numpy(sims),
+                                         torch.from_numpy(owners), label, 4)
+        want = jqail.select_update_targets(jnp.asarray(sims),
+                                           jnp.asarray(owners), label, 4)
+        assert [bool(got[0]), int(got[1]), int(got[2])] == [
+            bool(want[0]), int(want[1]), int(want[2])]
+
+
+# -- checkpointing --------------------------------------------------------------
+
+def _tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"w": torch.from_numpy(rng.normal(size=(3, 4)).astype(np.float32)),
+            "n": [torch.arange(5, dtype=torch.int32), np.float32(seed)]}
+
+
+def test_checkpoint_roundtrip_keep_k_and_latest(tmp_path):
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path), keep=2))
+    for step in (1, 2, 3):
+        mgr.save(step, _tree(step), extra={"curve": [step]})
+    assert mgr.all_steps() == [2, 3] and mgr.latest_step() == 3
+    assert os.readlink(tmp_path / "latest") == "step_0000000003"
+    step, tree, extra = mgr.restore(_tree(0))
+    assert step == 3 and extra == {"curve": [3]}
+    want = _tree(3)
+    assert torch.equal(tree["w"], want["w"]) and tree["w"].dtype == torch.float32
+    assert torch.equal(tree["n"][0], want["n"][0])
+    assert tree["n"][0].dtype == torch.int32
+    assert float(tree["n"][1]) == 3.0  # a numpy leaf comes back as numpy
+    step, tree, _ = mgr.restore(_tree(0), step=2)
+    assert step == 2 and torch.equal(tree["w"], _tree(2)["w"])
+
+
+def test_checkpoint_torn_file_and_tmp_dir_are_skipped(tmp_path):
+    import json as _json
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path), keep=5))
+    mgr.save(1, _tree(1))
+    d2 = mgr.save(2, _tree(2))
+    # A torn leaf file in the newest checkpoint: restore falls back to 1.
+    meta = _json.load(open(os.path.join(d2, "manifest.json")))
+    leaf = os.path.join(d2, meta["files"]["w"]["file"])
+    with open(leaf, "r+b") as f:
+        f.seek(-4, os.SEEK_END)
+        f.write(b"\x00\x00\x00\x01")
+    step, tree, _ = mgr.restore(_tree(0))
+    assert step == 1 and torch.equal(tree["w"], _tree(1)["w"])
+    # A crashed writer's .tmp directory is ignored, then removed by the
+    # next save; a template key the checkpoint lacks skips it too.
+    os.makedirs(tmp_path / "step_0000000009.tmp")
+    assert mgr.all_steps() == [1, 2]
+    assert mgr.restore({"other": torch.zeros(2)})[0] is None
+    mgr.save(3, _tree(3))
+    assert not (tmp_path / "step_0000000009.tmp").exists()
+    assert mgr.restore(_tree(0))[0] == 3
+
+
+def test_train_state_round_trip_and_reference_layout(tmp_path):
+    # The port's MemhdTrainState uses the reference's leaf keys, so each
+    # package restores the other's checkpoint of the same state.
+    from repro.checkpoint import CheckpointConfig as JConfig
+    from repro.checkpoint import CheckpointManager as JManager
+    from repro.core.memhd import MemhdTrainState as JState
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core.memhd import MemhdTrainState
+    h, q, y, fp, owners = _qail_inputs(23, 8, 16, 8, 3, lr_feats=True)
+    jstate = JState.create(jam.make_am_state(jnp.asarray(fp),
+                                             jnp.asarray(owners)), 4)
+    tstate = convert.train_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate.am_state.items()},
+        int(jstate.epoch), device="cpu")
+    assert tstate.epoch.dtype == torch.int32 and int(tstate.epoch) == 4
+    JManager(JConfig(str(tmp_path / "jax"))).save(4, jstate)
+    CheckpointManager(CheckpointConfig(str(tmp_path / "port"))).save(
+        4, tstate)
+    template = MemhdTrainState.create(am.make_am_state(
+        torch.zeros((8, 16)), torch.zeros(8, dtype=torch.int32)))
+    jtemplate = JState.create(jam.make_am_state(
+        jnp.zeros((8, 16)), jnp.zeros(8, jnp.int32)))
+    for d in ("jax", "port"):
+        step, got, _ = CheckpointManager(CheckpointConfig(
+            str(tmp_path / d))).restore(template)
+        assert step == 4 and int(got.epoch) == 4
+        for k, v in tstate.am_state.items():
+            assert torch.equal(got.am_state[k], v)
+            assert got.am_state[k].dtype == v.dtype
+        step, jgot, _ = JManager(JConfig(str(tmp_path / d))).restore(
+            jtemplate)
+        assert step == 4
+        for k, v in tstate.am_state.items():
+            np.testing.assert_array_equal(np.asarray(jgot.am_state[k]),
+                                          n(v))
+
+
+def test_fit_crash_and_resume_is_bit_exact(tmp_path):
+    # A fit that stops after epoch 2 and is resumed to epoch 4 lands on
+    # the AM, and the miss curve, of an uninterrupted 4-epoch fit.
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core import MemhdModel
+    ds = hdc.load_dataset("mnist", train_per_class=30, test_per_class=5,
+                          device="cpu")
+    enc = types.EncoderConfig(features=784, dim=128)
+    amc = types.MemhdConfig(dim=128, columns=64, classes=10,
+                            kmeans_iters=3, batch_size=64)
+
+    def fit(d, epochs):
+        mgr = CheckpointManager(CheckpointConfig(str(tmp_path / d), keep=2))
+        m = MemhdModel.create(0, enc, amc, device="cpu")
+        return m.fit(1, ds.train_x, ds.train_y, epochs=epochs, ckpt=mgr,
+                     ckpt_every=2, eval_feats=ds.test_x,
+                     eval_labels=ds.test_y), mgr
+
+    fit("crash", 2)
+    (resumed, rhist), mgr = fit("crash", 4)
+    (clean, chist), _ = fit("clean", 4)
+    for k in ("fp", "binary", "centroid_class"):
+        assert torch.equal(resumed.am_state[k], clean.am_state[k])
+    assert rhist == chist
+    assert [r["epoch"] for r in rhist["curve"]] == [0, 1, 2, 3, 4]
+    assert mgr.all_steps() == [2, 4]
+    # A finished run resumes to a no-op.
+    (again, hist2), _ = fit("clean", 4)
+    assert torch.equal(again.am_state["fp"], clean.am_state["fp"])
+    assert hist2 == chist
+
+
 def test_qail_not_ported_options_raise():
     cfg = types.MemhdConfig(dim=8, columns=8, classes=2)
     state = am.make_am_state(torch.zeros((8, 8)),
                              torch.zeros(8, dtype=torch.int32))
     hb = torch.zeros((1, 4, 8))
     yb = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in ({"use_kernel": True}, {"cell_bits": 4}, {"sim": object()}):
+    for kw in ({"cell_bits": 4}, {"sim": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             qail.qail_epoch_scan(state, cfg, hb, hb, yb, torch.ones((1, 4)),
                                  **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qail.qail_batch_delta(state, cfg, hb[0], hb[0], yb[0])
+    # use_kernel=True, the sequential and host-loop epochs and
+    # fold_feedback are ported: on CPU tensors they run the plain path.
     for fn in (qail.qail_epoch_sequential, qail.qail_epoch_hostloop,
                qail.fold_feedback):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(state, cfg, hb[0], hb[0], yb[0])
+        fn(state, cfg, hb[0], hb[0], yb[0])
+    qail.qail_epoch_scan(state, cfg, hb, hb, yb, torch.ones((1, 4)),
+                         use_kernel=True)
 
 
 def test_batched_accuracy_pads_ragged_tail_with_minus_one_labels():

@@ -9,7 +9,9 @@ predict_features / score / serve_batches.
 Dyadic conditions make every step exact in any summation order: features
 rounded to multiples of 2^-8, the initial float AM rounded the same way,
 lr = 2^-4, normalize="none" and D*C = 2^14. Under them the binary AMs and
-every served class must be bit-equal.
+every served class must be bit-equal — for the batched fit, the fit
+through the ``qail_update`` route, the sequential fit, a fit resumed
+from the reference's checkpoint, and every deployment target and mode.
 """
 import dataclasses
 
@@ -53,11 +55,13 @@ def pair():
         {"projection": np.asarray(jm.enc_params["projection"])},
         {k: np.asarray(v) for k, v in jm.am_state.items()},
         dataclasses.asdict(enc), dataclasses.asdict(amc), device="cpu")
+    jm0, tm0 = jm, tm
     jm, jhist = jm.fit(jax.random.key(2), tr_x, tr_y, init_method="keep")
     tm, thist = tm.fit(2, tr_x, tr_y, init_method="keep")
     return dict(jm=jm, tm=tm, jdep=jm.deploy(target="packed"),
                 tdep=tm.deploy(target="packed"), te_x=te_x, te_y=te_y,
-                jhist=jhist, thist=thist)
+                jhist=jhist, thist=thist, jm0=jm0, tm0=tm0, tr_x=tr_x,
+                tr_y=tr_y)
 
 
 def test_weights_cross_unchanged():
@@ -103,6 +107,8 @@ def test_deployed_predictions_and_accounting_match(pair):
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("depth", [1, 2])
 def test_serve_batches_matches_reference(pair, fused, depth):
+    from repro_torch.kernels import ops
+    ops.reset_dispatch()
     reqs = tserve.synthetic_requests(pair["te_x"], 13, 9, seed=3)
     jreqs = jserve.synthetic_requests(pair["te_x"], 13, 9, seed=3)
     got, tstats = tserve.serve_batches(pair["tdep"], reqs, max_batch=24,
@@ -126,8 +132,90 @@ def test_serve_batches_matches_reference(pair, fused, depth):
     for k in ("backend", "packed", "mode", "pipeline", "geometry", "rows",
               "resident_am_bytes", "am_memory_ratio"):
         assert trep[k] == jrep[k]
-    assert set(trep["metrics"]["dispatch_tiers"]["am_search_packed"]) == {
-        "torch-ref"}
+    search = "predict_from_features" if fused else "am_search_packed"
+    assert set(trep["metrics"]["dispatch_tiers"][search]) == {"torch-ref"}
+
+
+@pytest.mark.parametrize("fit_kw", [{"use_kernel": True},
+                                    {"mode": "sequential"}])
+def test_fit_routes_give_bit_equal_am(pair, fit_kw):
+    # The fit through the qail_update route (the Pallas kernel in
+    # interpret mode on the JAX side) and the sample-by-sample fit.
+    jm, jhist = pair["jm0"].fit(jax.random.key(2), pair["tr_x"],
+                                pair["tr_y"], init_method="keep", **fit_kw)
+    tm, thist = pair["tm0"].fit(2, pair["tr_x"], pair["tr_y"],
+                                init_method="keep", **fit_kw)
+    for k in ("fp", "binary"):
+        np.testing.assert_array_equal(tm.am_state[k].numpy(),
+                                      np.asarray(jm.am_state[k]))
+    assert np.array_equal([r["train_miss"] for r in thist["curve"]],
+                          [r["train_miss"] for r in jhist["curve"]],
+                          equal_nan=True)
+    if "use_kernel" in fit_kw:  # the same AM as the plain batched fit
+        np.testing.assert_array_equal(tm.am_state["fp"].numpy(),
+                                      pair["tm"].am_state["fp"].numpy())
+
+
+def test_port_resumes_a_reference_checkpoint(pair, tmp_path):
+    # The reference fits one epoch and checkpoints it; the port's fit
+    # resumes from the reference's files (same leaf keys) and finishes
+    # epoch 2 on the AM of the reference's own uninterrupted fit.
+    from repro.checkpoint import CheckpointConfig as JConfig
+    from repro.checkpoint import CheckpointManager as JManager
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    d = str(tmp_path / "run")
+    pair["jm0"].fit(jax.random.key(2), pair["tr_x"], pair["tr_y"],
+                    init_method="keep", epochs=1, ckpt=JManager(JConfig(d)))
+    tm, thist = pair["tm0"].fit(2, pair["tr_x"], pair["tr_y"],
+                                init_method="keep",
+                                ckpt=CheckpointManager(CheckpointConfig(d)))
+    for k in ("fp", "binary"):
+        np.testing.assert_array_equal(tm.am_state[k].numpy(),
+                                      np.asarray(pair["jm"].am_state[k]))
+    assert thist["curve"] == pair["jhist"]["curve"]
+
+
+@pytest.mark.parametrize("target,mode", [("unpacked", "popcount"),
+                                         ("packed", "unpack")])
+def test_unpacked_target_and_unpack_mode_match(pair, target, mode):
+    jdep = pair["jm"].deploy(target=target, mode=mode)
+    tdep = pair["tm"].deploy(target=target, mode=mode)
+    x = pair["te_x"]
+    want = np.asarray(jdep.predict(x))
+    np.testing.assert_array_equal(tdep.predict(x).numpy(), want)
+    np.testing.assert_array_equal(tdep.predict_features(x).numpy(), want)
+    np.testing.assert_array_equal(want, np.asarray(pair["jdep"].predict(x)))
+    assert tdep.score(x, pair["te_y"]) == jdep.score(x, pair["te_y"])
+    for k in ("backend", "serving_mode", "resident_bytes", "packed",
+              "fusable", "am_memory_ratio"):
+        assert getattr(tdep, k) == getattr(jdep, k), k
+    if target == "unpacked":
+        np.testing.assert_array_equal(tdep.am_binary.numpy(),
+                                      np.asarray(jdep.am_binary))
+        assert tdep.am_packed_t is None and tdep.resident_bytes == 128 * 128 * 4
+        assert pair["tm"].deploy(packed=False).backend == "unpacked"
+    # refresh re-freezes from a model, keeping target and mode.
+    again = tdep.refresh(pair["tm"])
+    assert (again.backend, again.serving_mode) == (tdep.backend,
+                                                   tdep.serving_mode)
+    np.testing.assert_array_equal(again.predict(x).numpy(), want)
+    reqs = tserve.synthetic_requests(x, 13, 9, seed=3)
+    got, _ = tserve.serve_batches(tdep, reqs, max_batch=24, depth=2)
+    wresp, _ = jserve.serve_batches(
+        jdep, jserve.synthetic_requests(x, 13, 9, seed=3), max_batch=24,
+        depth=2)
+    for rid in wresp:
+        np.testing.assert_array_equal(got[rid], np.asarray(wresp[rid]))
+
+
+@pytest.mark.parametrize("argv", [["--target", "unpacked"], ["--unpacked"],
+                                  ["--mode", "unpack"]])
+def test_serving_cli_targets_and_modes(argv):
+    rep = tserve.main(["--smoke", "--device", "cpu", "--requests", "6",
+                       "--max-size", "5", *argv])
+    assert rep["backend"] == ("packed" if "--mode" in argv else "unpacked")
+    assert rep["mode"] == ("unpack" if "--mode" in argv else "float")
+    assert rep["requests"] == 6
 
 
 def test_empty_stream_reports_nulls(pair):
@@ -137,9 +225,14 @@ def test_empty_stream_reports_nulls(pair):
 
 
 def test_not_ported_targets_raise(pair):
+    # "unpacked" and mode="unpack" are ported now (tested below); the
+    # imc, multibit and hierarchical targets and multi-device serving are
+    # not.
     with pytest.raises(ValueError, match="unknown deploy target"):
-        pair["tm"].deploy(target="unpacked")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pair["tm"].deploy(target="packed", mode="unpack")
+        pair["tm"].deploy(target="imc")
+    with pytest.raises(ValueError, match="mode"):
+        pair["tm"].deploy(target="packed", mode="xor")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.main(["--smoke", "--device", "cpu", "--devices", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.main(["--smoke", "--device", "cpu", "--target", "multibit"])
