@@ -7,7 +7,7 @@ Phases, each printed on its own line(s); any failure raises and the
 script exits non-zero without the final result line:
 
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
-1. the build: nvcc compiles the five kernel sources of ``src/repro_torch/
+1. the build: nvcc compiles the eight kernel sources of ``src/repro_torch/
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
    ptxas' register report);
 2. each kernel against its plain PyTorch version on the card, over the
@@ -17,7 +17,15 @@ script exits non-zero without the final result line:
    features and within the stated tolerance on float features;
    ``qail_update`` (every block size) bit-exact in its targets, misses
    and (at a dyadic lr and payload) its delta, and within |delta error|
-   <= 2^-20 * sum|terms| at lr = 0.02;
+   <= 2^-20 * sum|terms| at lr = 0.02; ``binary_mvm`` bit-exact on dyadic
+   features and within |error| <= 2^-20 * sum|x*w| on float features;
+   ``unpack_bits`` bit-exact; ``am_search_imc`` on 128x128, 64x128 and
+   256x128 arrays at ADC 16, 6 and 3 bits, with and without offsets, on
+   a ±1 AM, a dyadic-noise AM (bit-exact) and a sigma = 0.5 noise AM (a
+   query may differ only where a tile's partial sum lies within
+   2^-20 * sum|terms| of an ADC rounding boundary); ``am_search_multibit``
+   at every cell width (2, 4, 8 at full width) on the same arrays, with
+   offsets and a 4-bit ADC, bit-exact;
 3. the main path at the paper's widest MNIST point (f = 784, D = C =
    1024, R = 0.8, lr = 0.02, batch 256, 25 k-means iterations) on the
    full synthetic MNIST: ``MemhdModel.create`` -> ``fit`` ->
@@ -44,9 +52,22 @@ script exits non-zero without the final result line:
    clean run give the same ``am_digest``, on the card and on the CPU;
 8. reproducibility: two 128 x 128 fits from the same seeds agree, plain
    and through the ``qail_update`` kernel;
-9. the ``kernels`` line: launches on the paths, device time, the plain
+9. the device-fidelity paths on the main path's trained model: the
+   ``ops.encode_mvm`` / ``ops.unpack_bits`` entry points (phase
+   ``entry_points``); ``deploy(target="imc")`` with the ideal sim (== the
+   plain predict on every request) and with a noisy, faulty, drifting
+   6-bit-ADC sim (== the plain ``ref.am_search_imc`` on the same burned
+   AM), served through ``serve_batches`` (phase ``imc_path``);
+   ``fit(cell_bits=4, use_kernel=True)`` -> ``deploy(target="multibit")``
+   served (== the plain ``multibit_predict``; phase ``multibit_path``);
+   ``python -m repro_torch.launch.robustness_report`` at its defaults and
+   at 1024 x 1024 (phase ``robustness``); launch counts zeroed just
+   before each path and read just after, no ``torch-ref`` tier;
+10. the ``kernels`` line: launches on the paths, device time, the plain
    version's time and the bound of each kernel at the paths' shapes
-   (``qail_update`` also on random targets, where most rows miss).
+   (``qail_update`` also on random targets, where most rows miss), and
+   ``library_ms`` (cuBLAS SGEMM through ``torch.matmul``) for
+   ``binary_mvm``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +107,15 @@ DYADIC_WIDTHS = (128, 1024)  # D = C: misses stay high at 128 (PERF.md)
 MAIN_KERNELS = ("pack_bits", "am_search_packed", "encode_pack")
 NEW_KERNELS = ("qail_update", "am_search", "am_search_packed_unpack")
 TRAINER_DEVICES = ("cuda", "cpu")
+# Device-fidelity kernels: arrays (rows, cols), ADC widths, cell widths.
+IMC_ARRAYS = ((128, 128), (64, 128), (256, 128))
+IMC_ADC_BITS = (16, 6, 3)
+MULTIBIT_CELL_BITS_FULL = (2, 4, 8)
+NOISY_SIM = dict(adc_bits=6, noise_sigma=0.5, fault_p0=0.01, fault_p1=0.01,
+                 drift_sigma=1.0, seed=7)
+MULTIBIT_EPOCHS = 3  # the fit(cell_bits=4) fine-tune of multibit_path
+ROBUSTNESS_RUNS = ([], ["--dim", "1024", "--columns", "1024",
+                        "--finetune-epochs", "2"])
 
 
 def check(cond, what) -> None:
@@ -137,7 +167,10 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.max_err = {"pack_bits": 0.0, "am_search_packed": 0.0,
                         "encode_pack": 0.0, "qail_update": 0.0,
-                        "am_search": 0.0, "am_search_packed_unpack": 0.0}
+                        "am_search": 0.0, "am_search_packed_unpack": 0.0,
+                        "binary_mvm": 0.0, "unpack_bits": 0.0,
+                        "am_search_imc": 0.0, "am_search_multibit": 0.0}
+        self.path_launches = {}  # kernel -> launches on its own path
 
     # -- helpers ---------------------------------------------------------------
     def t(self, a):
@@ -223,7 +256,8 @@ class Smoke:
             check(outside == 0, ("encode_pack float", geom, outside))
             rows.append({"geom": geom, "encode_pack_float_flips":
                          int(diff.sum().item()),
-                         **self.check_new_kernels(rng, geom)})
+                         **self.check_new_kernels(rng, geom),
+                         **self.check_fidelity_kernels(rng, geom)})
         log({"phase": "kernels_vs_plain", "ok": True, "grid": rows,
              "max_abs_err_full_width": self.max_err})
 
@@ -286,6 +320,141 @@ class Smoke:
                     self.max_err["qail_update"] = max(
                         self.max_err["qail_update"], err)
         return out
+
+    def check_fidelity_kernels(self, rng, geom):
+        """binary_mvm, unpack_bits, am_search_imc and am_search_multibit
+        at one geometry against their plain versions."""
+        np, torch = self.np, self.torch
+        from repro_torch.kernels import am_search_imc as asi
+        from repro_torch.kernels import am_search_multibit as asm
+        from repro_torch.kernels import binary_mvm as bm
+        from repro_torch.kernels import pack_bits, ref
+        b, f, d, c = geom
+        full = geom == FULL
+        out = {}
+        # binary_mvm: dyadic features bit-exact; float features within
+        # 2^-20 * sum|x*w| (fp32 summation order: fmaf in k order against
+        # cuBLAS).
+        w = self.bipolar(rng, (f, d))
+        xd = self.feats(rng, b, f, dyadic=True)
+        got = bm.binary_mvm(xd, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref.binary_mvm(xd, w)),
+              ("binary_mvm dyadic", geom))
+        xf = self.feats(rng, b, f, dyadic=False)
+        err = (bm.binary_mvm(xf, w) - ref.binary_mvm(xf, w)).abs()
+        tol = 2.0 ** -20 * (xf.abs() @ w.abs())
+        check((err <= tol).all().item(), ("binary_mvm float", geom))
+        out["binary_mvm_float_max_err"] = err.max().item()
+        # unpack_bits over every byte value.
+        p = self.t(rng.integers(0, 256, (b, -(-d // 8)), dtype=np.uint8))
+        got = pack_bits.unpack_bits(p)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref.unpack_bits(p)), ("unpack_bits", geom))
+        if full:
+            self.max_err["binary_mvm"] = out["binary_mvm_float_max_err"]
+            self.max_err["unpack_bits"] = 0.0
+        # am_search_imc: ±1, dyadic-noise and sigma 0.5 AMs (random and
+        # duplicated columns), ±1 queries, with and without offsets.
+        am = self.bipolar(rng, (c, d))
+        dup = am[torch.arange(c, device=self.dev) % max(1, c // 3)]
+        q = self.bipolar(rng, (b, d))
+        mismatched = imc_max = 0
+        for rows, cols in IMC_ARRAYS:
+            gd, gc = -(-d // rows), -(-c // cols)
+            off = self.t((np.round(rng.normal(0, 1, (gd, gc)) * 16) / 16)
+                         .astype(np.float32))
+            for a in (am, dup):
+                z = self.t(rng.normal(0, 1, (c, d)).astype(np.float32))
+                for noise, at in (
+                        ("pm1", a), ("dyadic", a + 0.5 * (torch.round(
+                            z * 64) / 64)), ("float", a + 0.5 * z)):
+                    for bits in IMC_ADC_BITS:
+                        for o in (None, off):
+                            kw = dict(tile_rows=rows, tile_cols=cols,
+                                      adc_bits=bits, adc_clip=float(rows))
+                            idx, sim = asi.am_search_imc(q, at.T, o, **kw)
+                            w_idx, w_sim = ref.am_search_imc(
+                                q, at.T, offsets=o, **kw)
+                            torch.cuda.synchronize()
+                            what = ("am_search_imc", geom, rows, cols,
+                                    noise, bits, o is None)
+                            e = (sim - w_sim).abs().max().item()
+                            exact = torch.equal(idx, w_idx) and e == 0
+                            if noise == "float" and not exact:
+                                mismatched += self.imc_within_tolerance(
+                                    q, at, o, kw, idx, sim, w_idx, w_sim,
+                                    what)
+                            else:
+                                check(exact, what)
+                            imc_max = max(imc_max, e)
+        out["imc_max_err"] = imc_max
+        out["imc_float_noise_queries_differing"] = mismatched
+        # am_search_multibit: random codes at every cell width, a 16-bit
+        # ADC without offsets and a 4-bit ADC with them.
+        mb_max = 0.0
+        for cb in (MULTIBIT_CELL_BITS_FULL if full else range(2, 9)):
+            qmax = 2 ** (cb - 1) - 1
+            codes = self.t(rng.integers(-qmax, qmax + 1, (c, d))
+                           .astype(np.int32))
+            planes = ref.pack_planes(codes + qmax, cb)
+            for rows, cols in IMC_ARRAYS:
+                gd, gc = -(-d // rows), -(-c // cols)
+                off = self.t((np.round(rng.normal(0, 4, (gd, gc)) * 16)
+                              / 16).astype(np.float32))
+                for adc, o in ((16, None), (4, off)):
+                    kw = dict(cell_bits=cb, tile_rows=rows, tile_cols=cols,
+                              adc_bits=adc)
+                    idx, sim = asm.am_search_multibit(q, planes, o, **kw)
+                    w_idx, w_sim = ref.am_search_multibit(q, planes,
+                                                          offsets=o, **kw)
+                    torch.cuda.synchronize()
+                    e = (sim - w_sim).abs().max().item()
+                    check(torch.equal(idx, w_idx) and e == 0,
+                          ("am_search_multibit", geom, cb, rows, cols, adc))
+                    mb_max = max(mb_max, e)
+        out["multibit_max_err"] = mb_max
+        if full:
+            self.max_err["am_search_imc"] = imc_max
+            self.max_err["am_search_multibit"] = mb_max
+        return out
+
+    def imc_within_tolerance(self, q, at, o, kw, idx, sim, w_idx, w_sim,
+                             what) -> int:
+        """The stated tolerance of am_search_imc on a float AM: a tile
+        output may differ by one ADC step only where its pre-ADC partial
+        sum lies within 2^-20 * sum|terms| of a rounding boundary, so a
+        query may differ from the plain version only if one of its tiles
+        does, and its similarity by at most one step per row tile.
+        Called on a mismatch only (the plain version sums each slab in
+        the kernel's row order, so over ±1 queries they agree exactly).
+        Returns the number of differing queries."""
+        np = self.np
+        rows, cols = kw["tile_rows"], kw["tile_cols"]
+        step = 2.0 * kw["adc_clip"] / 2 ** kw["adc_bits"]
+        same = ((idx == w_idx) & (sim == w_sim)).cpu().numpy()
+        bad = np.nonzero(~same)[0]
+        qn = q.double().cpu().numpy()[bad]
+        an = at.double().cpu().numpy()
+        d = qn.shape[1]
+        c = an.shape[0]
+        gd = -(-d // rows)
+        pad = gd * rows - d
+        qr = np.pad(qn, ((0, 0), (0, pad))).reshape(len(bad), gd, rows)
+        ar = np.pad(an, ((0, 0), (0, pad))).reshape(c, gd, rows)
+        part = np.stack([qr[:, g] @ ar[:, g].T for g in range(gd)], 1)
+        mag = np.stack([np.abs(qr[:, g]) @ np.abs(ar[:, g]).T
+                        for g in range(gd)], 1)
+        if o is not None:
+            offs = np.repeat(o.double().cpu().numpy(), cols, axis=1)[:, :c]
+            part = part + offs[None]
+        part = np.clip(part, -kw["adc_clip"], kw["adc_clip"])
+        frac = np.abs(part / step - np.floor(part / step) - 0.5) * step
+        near = (frac <= 2.0 ** -20 * mag).any(axis=(1, 2))
+        check(bool(np.all(near)), ("imc tolerance", what))
+        diff = (sim - w_sim).abs().cpu().numpy()
+        check(bool(np.all(diff <= gd * step)), ("imc sim tolerance", what))
+        return len(bad)
 
     def qail_operands(self, rng, b, d, c, tie, dyadic):
         """Random qail_update operands: random targets (most rows miss), a
@@ -455,11 +624,11 @@ class Smoke:
              "top_device_ops": [{"op": k[:80], "us": round(u, 1), "count": c}
                                 for u, k, c in rows[:8]]})
 
-    def profile_serving(self, deployed, reqs, fused):
+    def profile_serving(self, deployed, reqs, fused, pipeline=None):
         from repro_torch.launch import serve_memhd as sm
         self.profile("serve_profile", lambda: sm.serve_batches(
             deployed, reqs, max_batch=1024, warmup=False, fused=fused,
-            depth=2), pipeline="fused" if fused else "staged")
+            depth=2), pipeline=pipeline or ("fused" if fused else "staged"))
 
     # -- phase 4 ---------------------------------------------------------------
     def train_path(self):
@@ -564,6 +733,195 @@ class Smoke:
                 route="kernel" if use_kernel else "plain",
                 batches=int(batches[0].shape[0]))
 
+    # -- phase 9: the device-fidelity paths --------------------------------------
+    def path_counts(self, fn):
+        """Run ``fn`` with the launch counts and dispatch tiers zeroed just
+        before and read just after: (result, launches, tiers)."""
+        torch = self.torch
+        from repro_torch import kernels
+        from repro_torch.kernels import ops
+        kernels.reset_launches()
+        ops.reset_dispatch()
+        torch.cuda.synchronize()
+        result = fn()
+        torch.cuda.synchronize()
+        launches, tiers = kernels.launches(), ops.dispatch_breakdown()
+        check("torch-ref" not in json.dumps(tiers), tiers)
+        return result, launches, tiers
+
+    def entry_points(self):
+        """ops.encode_mvm on the main path's test features (B = 1024,
+        f = 784, D = 1024) and ops.unpack_bits on its packed AM."""
+        torch = self.torch
+        from repro_torch.core import am as am_lib
+        from repro_torch.kernels import ops
+        feats = self.t(self.np.round(
+            self.ds.test_x[:FULL[0]].cpu().numpy() * 256) / 256)
+        proj = self.model.enc_params["projection"]
+        rows_t = am_lib.pack_am(self.model.am_state["binary"]).T.contiguous()
+        (h, unpacked), launches, tiers = self.path_counts(
+            lambda: (ops.encode_mvm(feats, proj), ops.unpack_bits(rows_t)))
+        for name in ("binary_mvm", "unpack_bits"):
+            check(launches[name] > 0, f"{name} was not launched")
+            self.path_launches[name] = launches[name]
+        # Dyadic features: H is exact in any order, so equal to the plain
+        # product; the unpacked AM is the model's ±1 AM.
+        check(torch.equal(h, feats @ proj), "encode_mvm != feats @ proj")
+        check(torch.equal(unpacked, self.model.am_state["binary"]),
+              "unpack_bits(packed AM) != binary AM")
+        self.entry_operands = (feats, proj, rows_t)
+        log({"phase": "entry_points", "encode_mvm_shape": list(h.shape),
+             "unpack_bits_shape": list(unpacked.shape),
+             "launches": launches, "dispatch_tiers": tiers})
+
+    def serve(self, dep):
+        """A warm pass, then the timed pass: (responses, report)."""
+        from repro_torch.launch import serve_memhd as sm
+        sm.serve_batches(dep, self.reqs, max_batch=1024, depth=2)
+        t0 = time.perf_counter()
+        resp, stats = sm.serve_batches(dep, self.reqs, max_batch=1024,
+                                       warmup=False, depth=2)
+        wall = time.perf_counter() - t0
+        return resp, sm.build_report(dep, self.reqs, stats, wall)
+
+    def request_queries(self, model):
+        """Every request's encoded ±1 queries, concatenated, with the
+        row offset of each request."""
+        feats = self.np.concatenate([r.feats for r in self.reqs])
+        ofs = self.np.cumsum([0] + [r.size for r in self.reqs])
+        return model.encode_query(self.t(feats)), ofs
+
+    def check_responses(self, responses, want, ofs, what):
+        want = want.cpu().numpy()
+        for i, r in enumerate(self.reqs):
+            check(self.np.array_equal(responses[r.rid],
+                                      want[ofs[i]:ofs[i + 1]]),
+                  (what, r.rid))
+
+    def imc_path(self):
+        """deploy(target="imc") on the main path's model, ideal and noisy,
+        served over the main path's request stream."""
+        from repro_torch.core import ImcSimConfig
+        from repro_torch.kernels import ref
+        model, ds = self.model, self.ds
+        sims = {"ideal": ImcSimConfig(), "noisy": ImcSimConfig(**NOISY_SIM)}
+
+        def run():
+            out = {}
+            for name, sim in sims.items():
+                dep = model.deploy(target="imc", sim=sim)
+                resp, rep = self.serve(dep)
+                out[name] = (dep, resp, rep,
+                             dep.score(ds.test_x, ds.test_y))
+            return out
+
+        out, launches, tiers = self.path_counts(run)
+        check(launches["am_search_imc"] > 0, "am_search_imc not launched")
+        self.path_launches["am_search_imc"] = launches["am_search_imc"]
+        from repro_torch.core import am as am_lib
+        q, ofs = self.request_queries(model)
+        owners = model.am_state["centroid_class"]
+        self.check_responses(
+            out["ideal"][1], am_lib.predict(model.am_state["binary"],
+                                            owners, q),
+            ofs, "imc ideal == plain predict")
+        dep = out["noisy"][0]
+        sim = sims["noisy"]
+        w_idx, _ = ref.am_search_imc(
+            q, dep.am_analog.T, tile_rows=sim.arr.rows,
+            tile_cols=sim.arr.cols, adc_bits=sim.adc_bits,
+            adc_clip=sim.clip, offsets=dep.tile_offsets)
+        self.check_responses(out["noisy"][1], owners[w_idx.long()], ofs,
+                             "imc noisy == ref.am_search_imc")
+        acc_digital = model.score(ds.test_x, ds.test_y)
+        check(out["ideal"][3] == acc_digital, (out["ideal"][3],
+                                               acc_digital))
+        cycles = out["ideal"][0].cycles
+        check(cycles == 64 == model.imc_cost().am.cycles, cycles)
+        self.imc_operands = (q[:FULL[0]].contiguous(), dep)
+        log({"phase": "imc_path", "cycles": cycles,
+             "accuracy_digital": acc_digital,
+             "accuracy_ideal": out["ideal"][3],
+             "accuracy_noisy": out["noisy"][3], "noisy_sim": NOISY_SIM,
+             "ideal_eq_plain_predict": True,
+             "noisy_eq_ref_am_search_imc": True,
+             "launches": launches, "dispatch_tiers": tiers})
+        for name in sims:
+            log({"phase": f"serve_report_imc_{name}", **out[name][2]})
+        self.profile_serving(out["noisy"][0], self.reqs, False,
+                             pipeline="imc_noisy")
+
+    def multibit_path(self):
+        """fit(cell_bits=4) through qail_update -> deploy(target=
+        "multibit", cell_bits=4) -> served."""
+        from repro_torch.core import am as am_lib
+        from repro_torch.imcsim import multibit_finetune
+        model, ds = self.model, self.ds
+
+        def run():
+            t0 = time.perf_counter()
+            tuned, hist = multibit_finetune(
+                model, 2, ds.train_x, ds.train_y, 4,
+                epochs=MULTIBIT_EPOCHS, use_kernel=True)
+            self.torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t0
+            dep = tuned.deploy(target="multibit", cell_bits=4)
+            resp, rep = self.serve(dep)
+            return tuned, hist, t_fit, dep, resp, rep, dep.score(
+                ds.test_x, ds.test_y)
+
+        (tuned, hist, t_fit, dep, resp, rep, acc), launches, tiers = \
+            self.path_counts(run)
+        n_batches = -(-ds.train_x.shape[0] // self.amc.batch_size)
+        check(launches["qail_update"] == n_batches * MULTIBIT_EPOCHS,
+              ("qail_update launches", launches["qail_update"]))
+        check(launches["am_search_multibit"] > 0,
+              "am_search_multibit not launched")
+        self.path_launches["am_search_multibit"] = launches[
+            "am_search_multibit"]
+        q, ofs = self.request_queries(tuned)
+        want = am_lib.multibit_predict(dep.am_planes_t, dep.centroid_class,
+                                       q, 4)
+        self.check_responses(resp, want, ofs,
+                             "multibit == plain multibit_predict")
+        planes_bytes = dep.am_planes_t.numel()
+        check(planes_bytes == 4 * 128 * 1024, planes_bytes)
+        self.multibit_operands = (q[:FULL[0]].contiguous(), dep)
+        log({"phase": "multibit_path", "cell_bits": 4,
+             "finetune_epochs": MULTIBIT_EPOCHS,
+             "fit_seconds": round(t_fit, 3),
+             "miss_curve": [r["train_miss"] for r in hist["curve"]],
+             "accuracy_multibit": acc,
+             "accuracy_binary": model.score(ds.test_x, ds.test_y),
+             "resident_bytes": dep.resident_bytes,
+             "planes_bytes": planes_bytes,
+             "unpacked_float_bytes": 4 * 1024 * 1024,
+             "cycles": dep.cycles, "eq_plain_multibit_predict": True,
+             "launches": launches, "dispatch_tiers": tiers})
+        log({"phase": "serve_report_multibit", **rep})
+        self.profile_serving(dep, self.reqs, False, pipeline="multibit")
+
+    def robustness(self):
+        """The robustness CLI as a subprocess, at its defaults and at
+        1024 x 1024."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        for extra in ROBUSTNESS_RUNS:
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.robustness_report",
+                 *extra], env=env, capture_output=True, text=True,
+                timeout=600)
+            check(p.returncode == 0, p.stderr[-2000:])
+            rep = json.loads(p.stdout)
+            check(rep["base_sim_accuracy"] == rep["digital_accuracy"], rep)
+            log({"phase": "robustness", "args": extra,
+                 "seconds": round(time.perf_counter() - t0, 3),
+                 **{k: rep[k] for k in ("geometry", "array", "cycles",
+                                        "digital_accuracy",
+                                        "base_sim_accuracy", "adc_sweep",
+                                        "noise_sweep", "fault_sweep",
+                                        "recovery")}})
+
     # -- phase 5 ---------------------------------------------------------------
     def train_dyadic(self):
         """The kernel fit and the plain fit bit-equal under dyadic
@@ -607,7 +965,8 @@ class Smoke:
         base = ["--smoke", "--requests", "32", "--max-size", "24",
                 "--max-batch", "128"]
         for extra in ([], ["--fused"], ["--target", "unpacked"],
-                      ["--mode", "unpack"]):
+                      ["--mode", "unpack"], ["--target", "imc"],
+                      ["--target", "multibit", "--cell-bits", "4"]):
             rep = sm.main(base + extra)
             tiers = rep["metrics"]["dispatch_tiers"]
             check("torch-ref" not in json.dumps(tiers), tiers)
@@ -768,18 +1127,69 @@ class Smoke:
              bound(kqp.numel() + kam_t.numel() + 8 * b, 2 * b * c * d,
                    INT8_OPS_PER_S)),
         ]
+        # The device-fidelity kernels at their paths' shapes: the entry
+        # points' operands, the noisy imc instance (float AM, offsets,
+        # 6-bit ADC) and the 4-bit multibit deployment.
+        from repro_torch.kernels import am_search_imc as asi
+        from repro_torch.kernels import am_search_multibit as asm
+        from repro_torch.kernels import binary_mvm as bm
+        efeats, eproj, rows_t = self.entry_operands
+        iq, idep = self.imc_operands
+        isim = idep.sim
+        ikw = dict(tile_rows=isim.arr.rows, tile_cols=isim.arr.cols,
+                   adc_bits=isim.adc_bits, adc_clip=isim.clip)
+        mq, mdep = self.multibit_operands
+        mkw = dict(cell_bits=4, tile_rows=128, tile_cols=128, adc_bits=16)
+        gd, gc = idep.tile_offsets.shape
+        cases += [
+            ("binary_mvm", "src/repro_torch/kernels/csrc/binary_mvm.cu",
+             "src/repro/kernels/binary_mvm.py:47",
+             lambda: bm.binary_mvm(efeats, eproj),
+             lambda: ref.binary_mvm(efeats, eproj),
+             bound(4 * (b * f + f * d + b * d), 2 * b * f * d,
+                   FP32_FLOP_PER_S)),
+            ("unpack_bits", "src/repro_torch/kernels/csrc/pack_bits.cu",
+             "src/repro/kernels/pack_bits.py:68",
+             lambda: pack_bits.unpack_bits(rows_t),
+             lambda: ref.unpack_bits(rows_t),
+             bound(rows_t.numel() * (1 + 32), rows_t.numel() * 8,
+                   FP32_FLOP_PER_S)),
+            # The AM carries conductance noise: float operands, fp32 rate.
+            ("am_search_imc", "src/repro_torch/kernels/csrc/am_search_imc.cu",
+             "src/repro/kernels/am_search_imc.py:120",
+             lambda: asi.am_search_imc(iq, idep.am_analog.T,
+                                       idep.tile_offsets, **ikw),
+             lambda: ref.am_search_imc(iq, idep.am_analog.T,
+                                       offsets=idep.tile_offsets, **ikw),
+             bound(4 * (b * d + d * c + gd * gc + 2 * b), 2 * b * c * d,
+                   FP32_FLOP_PER_S)),
+            # ±1 queries against small integer codes: exact in int8.
+            ("am_search_multibit",
+             "src/repro_torch/kernels/csrc/am_search_multibit.cu",
+             "src/repro/kernels/am_search_multibit.py:138",
+             lambda: asm.am_search_multibit(mq, mdep.am_planes_t, **mkw),
+             lambda: ref.am_search_multibit(mq, mdep.am_planes_t, **mkw),
+             bound(4 * b * d + mdep.am_planes_t.numel() + 8 * b,
+                   2 * b * c * d, INT8_OPS_PER_S)),
+        ]
+        library = {"binary_mvm": lambda: torch.matmul(efeats, eproj)}
         out = []
         for name, src, replaces, kern, plain, (bound_ms, bound_by) in cases:
             ms = time_device_ms(kern)
             plain_ms = time_device_ms(plain, samples=21, calls=2)
-            launches = (self.train_launches if name in NEW_KERNELS
-                        else self.launches)[name]
+            if name in self.path_launches:
+                launches = self.path_launches[name]
+            else:
+                launches = (self.train_launches if name in NEW_KERNELS
+                            else self.launches)[name]
+            lib_ms = (time_device_ms(library[name]) if name in library
+                      else None)
             out.append({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": self.max_err[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None})
+                "bound_by": bound_by, "library_ms": lib_ms})
         # qail_update once more on random targets at the training shape:
         # the trained AM's batch above has no misses, so there the delta
         # pass adds nothing. The bound is the same (sims dominate).
@@ -815,10 +1225,10 @@ class Smoke:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of build,kernels,main,train,cli,"
-                         "trainer,repro (development runs; train needs "
-                         "main, the kernels line needs kernels, main and "
-                         "train)")
+                    help="comma list of build,kernels,main,train,fidelity,"
+                         "robustness,cli,trainer,repro (development runs; "
+                         "train and fidelity need main, the kernels line "
+                         "needs kernels, main, train and fidelity)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -834,8 +1244,8 @@ def main():
     log({"phase": "device", "torch": torch.__version__,
          "cuda": torch.version.cuda, "kind": kind,
          "count": torch.cuda.device_count()})
-    phases = (["build", "kernels", "main", "train", "cli", "trainer",
-               "repro"]
+    phases = (["build", "kernels", "main", "train", "fidelity",
+               "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -847,13 +1257,19 @@ def main():
     if "train" in phases:
         smoke.train_path()
         smoke.train_dyadic()
+    if "fidelity" in phases:
+        smoke.entry_points()
+        smoke.imc_path()
+        smoke.multibit_path()
+    if "robustness" in phases:
+        smoke.robustness()
     if "cli" in phases:
         smoke.cli()
     if "trainer" in phases:
         smoke.trainer()
     if "repro" in phases:
         smoke.reproducibility()
-    if all(p in phases for p in ("kernels", "main", "train")):
+    if all(p in phases for p in ("kernels", "main", "train", "fidelity")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -44,15 +44,71 @@ def from_unipolar(bits: torch.Tensor,
     return bits.to(dtype) * 2.0 - 1.0
 
 
-def quantize_am(fp_am, cell_bits):
-    raise NotImplementedError(
-        "multi-bit AM quantization is not ported yet "
-        "(ROADMAP queue 1, item 10)")
+def quantize_am(fp_am: torch.Tensor, cell_bits: int,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor ``cell_bits``-bit quantization of the float AM.
+
+    Qmax = 2^(b-1) - 1 levels per sign, codes = clip(round(fp/scale),
+    +-Qmax); ``codes * scale`` dequantizes, and the similarity argmax
+    does not depend on the scale, so the kernels search the integer
+    codes. The scale is picked by a fixed 8-step grid of fractions of
+    max|fp| minimizing the quantization MSE (the QAIL shadow is
+    heavy-tailed: a max-anchored scale rounds most of a 2-bit AM to 0).
+
+    Every division is by a float32 tensor, as the reference's float32
+    divisions are (a Python-number divisor would become a reciprocal
+    product on CUDA). The MSE means are reductions, whose order differs
+    between frameworks, so two candidates whose MSEs tie to within
+    rounding may be picked differently.
+
+    Returns (codes, scale): (C, D) int32 codes in [-Qmax, +Qmax] and the
+    () float32 scale (> 0 even for an all-zero AM).
+    """
+    if not 2 <= cell_bits <= 8:
+        raise ValueError(f"cell_bits={cell_bits} outside [2, 8]")
+    qmax = 2 ** (cell_bits - 1) - 1
+    fp_am = fp_am.float()
+    dev = fp_am.device
+    amax = torch.clamp(fp_am.abs().max(), min=torch.finfo(torch.float32).tiny)
+    fracs = torch.tensor((1.0, 0.7, 0.5, 0.35, 0.25, 0.15, 0.1, 0.05),
+                         dtype=torch.float32, device=dev)
+    scales = fracs * amax / torch.tensor(float(qmax), device=dev)  # (K,)
+    cand = torch.clamp(torch.round(fp_am[None] / scales[:, None, None]),
+                       -qmax, qmax)                                # (K, C, D)
+    mse = ((cand * scales[:, None, None] - fp_am[None]) ** 2).mean(
+        dim=(1, 2))
+    scale = scales[torch.argmin(mse)]
+    codes = torch.clamp(torch.round(fp_am / scale), -qmax, qmax)
+    return codes.to(torch.int32), scale
 
 
-def pack_am_planes(codes, cell_bits):
-    raise NotImplementedError(
-        "bit-plane AM packing is not ported yet (ROADMAP queue 1, item 10)")
+def dequantize_am(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_am``: the fake-quantized float view."""
+    return codes.float() * scale
+
+
+def pack_am_planes(codes: torch.Tensor, cell_bits: int) -> torch.Tensor:
+    """(C, D) quantized codes -> (cell_bits, Dp, C) uint8 bit planes of
+    the offset codes u = code + Qmax (``kernels.ref.pack_planes``)."""
+    if not 2 <= cell_bits <= 8:
+        raise ValueError(f"cell_bits={cell_bits} outside [2, 8]")
+    qmax = 2 ** (cell_bits - 1) - 1
+    return kernel_ref.pack_planes(codes + qmax, cell_bits)
+
+
+def multibit_am_bytes(dim: int, columns: int, cell_bits: int) -> int:
+    """Resident bytes of the (cell_bits, Dp, C) plane-packed AM."""
+    return cell_bits * (-(-dim // 8)) * columns
+
+
+def multibit_predict(am_planes_t: torch.Tensor,
+                     centroid_class: torch.Tensor, queries: torch.Tensor,
+                     cell_bits: int) -> torch.Tensor:
+    """Plain multi-bit prediction (the kernel path's reference)."""
+    q2 = queries.reshape(-1, queries.shape[-1])
+    best, _ = kernel_ref.am_search_multibit(q2, am_planes_t,
+                                            cell_bits=cell_bits)
+    return centroid_class[best.long()].reshape(queries.shape[:-1])
 
 
 def similarities(binary_am: torch.Tensor,

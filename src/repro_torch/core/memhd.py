@@ -138,7 +138,7 @@ class MemhdModel:
             ckpt=None, ckpt_every: int = 1,
             use_kernel: bool = False,
             noise_sim=None, noise_mode: str = "fixed",
-            cell_bits: Optional[int] = None,
+            cell_bits: Optional[int] = None, noise_sampler=None,
             ) -> Tuple["MemhdModel", Dict]:
         """Full training pipeline: init + QAIL epochs.
 
@@ -158,6 +158,19 @@ class MemhdModel:
             plus at the end.
           use_kernel: run every minibatch through the ``qail_update``
             kernel (batched mode).
+          noise_sim: optional ``ImcSimConfig`` — noise-aware QAIL: the
+            sims MVM sees a device-perturbed view of the binary AM
+            (batched mode; ``qail.qail_epoch_scan``).
+          noise_mode: "fixed" trains against the one device instance
+            ``deploy(target="imc", sim=noise_sim)`` burns (its key is
+            ``imcsim.device.device_instance_key``); "fresh" redraws per
+            batch, under key (seed, epoch, batch).
+          cell_bits: optional 2..8 — multi-bit QAT against the
+            quantized view ``deploy(target="multibit", cell_bits=...)``
+            serves (batched mode; composes with a noise-only
+            ``noise_sim``).
+          noise_sampler: where the noise fields come from (default: the
+            seeded generators of ``imcsim.device.draw``).
 
         Returns (model, history) with per-epoch train miss rates and
         optional eval accuracies.
@@ -222,17 +235,26 @@ class MemhdModel:
         if mode == "batched":
             hb, qb, yb, mask = qail.prebatch(h, q, labels,
                                              self.am_cfg.batch_size)
+        noise_base = None
+        if noise_sim is not None:
+            from repro_torch.imcsim import device as device_lib
+            noise_base = (device_lib.device_instance_key(noise_sim)
+                          if noise_mode == "fixed" else (noise_sim.seed,))
         for ep in range(start_epoch + 1, epochs + 1):
             if mode == "sequential":
                 state = qail.qail_epoch_sequential(state, self.am_cfg, h, q,
                                                    labels)
                 miss = float("nan")
             else:
+                nkey = None
+                if noise_base is not None:
+                    nkey = (noise_base if noise_mode == "fixed"
+                            else noise_base + (ep,))
                 state, n_miss = qail.qail_epoch_scan(
                     state, self.am_cfg, hb, qb, yb, mask,
                     refresh_every=refresh_every, use_kernel=use_kernel,
-                    sim=noise_sim, noise_mode=noise_mode,
-                    cell_bits=cell_bits)
+                    sim=noise_sim, noise_key=nkey, noise_mode=noise_mode,
+                    cell_bits=cell_bits, sampler=noise_sampler)
                 miss = float(n_miss) / n  # the one host sync this epoch
             rec = {"epoch": ep, "train_miss": miss}
             if eval_q is not None:
@@ -269,21 +291,32 @@ class MemhdModel:
                sim=None, **opts):
         """Freeze the trained model into its serving artifact through the
         deployment registry (``repro_torch.deploy.registry``):
-        ``target="packed"`` (the default; the (Dp, C) uint8 1-bit
-        residence, ``mode="popcount"`` or ``"unpack"``) or
-        ``target="unpacked"`` (the ±1 float32 (C, D) residence searched
-        by the ``am_search`` kernel). ``packed=False`` is the legacy
-        spelling of ``target="unpacked"``."""
+
+        * ``"packed"`` (the default) — the (Dp, C) uint8 1-bit residence,
+          ``mode="popcount"`` or ``"unpack"``;
+        * ``"unpacked"`` — the ±1 float32 (C, D) residence searched by
+          the ``am_search`` kernel;
+        * ``"imc"`` — a simulated analog device (``repro_torch.imcsim``):
+          the binary AM burned in with the faults and conductance
+          variation of ``sim`` (an ``ImcSimConfig``, seeded), queries
+          through the tiled analog search + ADC (``am_search_imc``); an
+          ideal ``sim`` equals the digital artifacts bit for bit;
+        * ``"multibit"`` — the float shadow at ``cell_bits`` (2..8) bits
+          per cell in bit planes, searched by ``am_search_multibit``
+          (an optional ``sim`` sets the array, ADC and drift).
+
+        ``packed=False`` is the legacy spelling of ``target="unpacked"``.
+        ``sim=`` with a digital target raises."""
         from repro_torch.deploy import registry
         if target in (None, "digital"):
-            if sim is not None:
-                raise ValueError(
-                    "sim= is only meaningful with target='imc'")
             target = "unpacked" if packed is False else "packed"
         elif packed is not None:
             raise ValueError(
                 "packed= is the legacy digital switch; use "
                 "target='packed' / target='unpacked' instead")
+        if sim is not None and target not in ("imc", "multibit"):
+            raise ValueError(
+                "sim= is only meaningful with target='imc' or 'multibit'")
         if mode is not None:
             opts["mode"] = mode
         if sim is not None:
@@ -301,5 +334,9 @@ class MemhdModel:
         return self.memory_bits / 8 / 1024
 
     def imc_cost(self, arr=None):
-        raise NotImplementedError(
-            "the IMC cost model is not ported yet (ROADMAP queue 1, item 1)")
+        """Closed-form IMC mapping of this model's geometry
+        (``core.imc.memhd_pipeline``; default 128x128 arrays)."""
+        from repro_torch.core.imc import memhd_pipeline
+        from repro_torch.core.types import ImcArrayConfig
+        return memhd_pipeline(self.enc_cfg.features, self.am_cfg.dim,
+                              self.am_cfg.columns, arr or ImcArrayConfig())

@@ -27,9 +27,13 @@ atomics on CUDA sum in a different order from run to run. The
 sequential engine adds one row at a time, in sample order. Two fits from
 the same seeds give the same AM.
 
-Not ported yet: the noise-aware ``sim`` hook (ROADMAP queue 1, item 9),
-the multi-bit ``cell_bits`` hook (item 10) and ``qail_batch_delta``, the
-data-parallel delta (item 13).
+``qail_epoch_scan`` carries the reference's two hooks: ``sim`` (noise-
+aware QAIL: the sims MVM sees a device-perturbed view of the binary AM,
+``repro_torch.imcsim``) and ``cell_bits`` (multi-bit QAT: it sees the
+``cell_bits``-bit quantized view of the live float shadow).
+
+Not ported yet: ``qail_batch_delta``, the data-parallel delta (ROADMAP
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -142,6 +146,8 @@ def qail_batch_step(fp: torch.Tensor, binary: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One minibatch of QAIL steps 1-3: returns (new fp, miss count).
 
+    ``binary`` is the (C, D) AM the sims are scored against (the binary
+    AM, or a hook's perturbed or quantized float view of it).
     ``use_kernel=True`` routes it through ``ops.qail_update`` (the CUDA
     kernel on a CUDA tensor); otherwise the plain one-hot product."""
     if use_kernel:
@@ -173,37 +179,112 @@ def qail_batch_delta(*args, **kwargs):
         "(ROADMAP queue 1, item 13)")
 
 
+def _training_view(fp: torch.Tensor, binary: torch.Tensor, b: int, *,
+                   cell_bits, noisy: bool, sim, key, fixed: bool,
+                   sampler, cache: dict) -> torch.Tensor:
+    """The AM batch ``b``'s sims MVM sees: the binary AM, or the
+    ``cell_bits``-bit codes of the live float shadow; perturbed with the
+    device fields of key ``key`` (fixed mode) or ``key + (b,)`` (fresh
+    mode). Fixed-mode fields are drawn once and kept in ``cache``."""
+    from repro_torch.imcsim import device as device_lib
+    if cell_bits is not None:
+        codes, _ = am_lib.quantize_am(fp, cell_bits)
+        view = codes.float()
+    else:
+        view = binary
+    if not noisy:
+        return view
+    bkey = key if fixed else key + (b,)
+    if "fields" in cache:
+        fields = cache["fields"]
+    elif cell_bits is not None:
+        # Code-domain conductance noise: sigma per level step, drawn
+        # under the batch key itself (the reference's
+        # conductance_noise(bkey, ...)); faults were refused.
+        fields = (None, (sampler or device_lib.draw)(
+            bkey, tuple(view.shape), "normal", view.device))
+    else:
+        fields = device_lib.draw_cells(bkey, view.shape, sim, view.device,
+                                       sampler)
+    if fixed:
+        cache["fields"] = fields
+    return device_lib.perturb_binary(view, *fields, sim)
+
+
 def qail_epoch_scan(state: AmState, cfg: MemhdConfig,
                     hb: torch.Tensor, qb: torch.Tensor, yb: torch.Tensor,
                     mask: torch.Tensor, *, refresh_every: int = 1,
                     use_kernel: bool = False, sim=None, noise_key=None,
                     noise_mode: str = "fixed",
-                    cell_bits: Optional[int] = None,
+                    cell_bits: Optional[int] = None, sampler=None,
                     ) -> Tuple[AmState, torch.Tensor]:
     """One QAIL epoch over ``prebatch``ed minibatches.
 
     Step 4 runs every ``refresh_every`` batches; if the last batch did
     not refresh, the epoch ends with one finalize. ``use_kernel=True``
     runs each minibatch through the ``qail_update`` kernel and adds its
-    delta, ``fp = fp + delta``. Returns (state, n_miss) with n_miss a
-    device scalar (pulling it is the caller's one host sync per epoch).
+    delta, ``fp = fp + delta``.
+
+    Hooks (as the reference's):
+      sim: an ``ImcSimConfig`` — noise-aware QAIL. Each batch's sims MVM
+        sees the binary AM perturbed with the sim's stuck-at faults and
+        conductance noise (``imcsim.device.perturb_binary``); the Eq.-(6)
+        update still lands on the clean float shadow. A sim with neither
+        is refused (the hook would be a silent no-op).
+      noise_key: the key (an int or a tuple of ints, see
+        ``imcsim.device``) of the perturbation; required with a noisy
+        sim. noise_mode "fixed": every batch sees the fields drawn under
+        ``noise_key`` (one device instance); "fresh": batch b sees those
+        of ``noise_key + (b,)``.
+      cell_bits: 2..8 — multi-bit QAT: the sims MVM sees the
+        ``cell_bits``-bit codes of the live float shadow
+        (``am.quantize_am``, re-quantized per batch), plus code-domain
+        conductance noise with a sim; stuck-at faults are refused.
+      sampler: where the fields come from (default ``device.draw``); the
+        parity tests hand in the reference's fields.
+
+    Returns (state, n_miss) with n_miss a device scalar (pulling it is
+    the caller's one host sync per epoch).
     """
-    if sim is not None or noise_key is not None:
-        raise NotImplementedError(
-            "noise-aware QAIL is not ported yet (ROADMAP queue 1, item 9)")
-    if cell_bits is not None:
-        raise NotImplementedError(
-            "multi-bit QAT is not ported yet (ROADMAP queue 1, item 10)")
+    noisy = sim is not None and (sim.noise_sigma > 0.0
+                                 or sim.fault_p0 > 0.0
+                                 or sim.fault_p1 > 0.0)
+    if sim is not None and not noisy:
+        raise ValueError(
+            "sim carries no conductance noise or stuck-at faults; the "
+            "noise-aware hook would be a no-op (ADC/drift live in the "
+            "readout path, not the training MVM) — pass sim=None or a "
+            "sim with noise_sigma/fault_p0/fault_p1 > 0")
+    if noisy and noise_key is None:
+        raise ValueError("sim injects device noise: pass noise_key")
     if noise_mode not in ("fixed", "fresh"):
         raise ValueError(f"bad noise_mode: {noise_mode!r}")
+    if cell_bits is not None:
+        if not 2 <= cell_bits <= 8:
+            raise ValueError(f"cell_bits={cell_bits} outside [2, 8]")
+        if noisy and (sim.fault_p0 > 0.0 or sim.fault_p1 > 0.0):
+            raise ValueError(
+                "stuck-at faults are 1-bit storage semantics; the "
+                "multibit QAT hook composes with conductance noise only")
+    key = None
+    if noisy:
+        from repro_torch.imcsim import device as device_lib
+        key = device_lib.as_key(noise_key)
 
     centroid_class = state["centroid_class"]
     fp, binary = state["fp"], state["binary"]
     nb = hb.shape[0]
     misses = torch.zeros((), device=fp.device)
+    cache: dict = {}
     for b in range(nb):
         upd = hb[b] if cfg.update_with == "encoded" else qb[b]
-        fp, miss = qail_batch_step(fp, binary, centroid_class, qb[b], upd,
+        view = binary
+        if cell_bits is not None or noisy:
+            view = _training_view(fp, binary, b, cell_bits=cell_bits,
+                                  noisy=noisy, sim=sim, key=key,
+                                  fixed=noise_mode == "fixed",
+                                  sampler=sampler, cache=cache)
+        fp, miss = qail_batch_step(fp, view, centroid_class, qb[b], upd,
                                    yb[b], mask[b], cfg.lr,
                                    use_kernel=use_kernel)
         misses = misses + miss

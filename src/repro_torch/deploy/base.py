@@ -57,6 +57,18 @@ class DeployedArtifact:
             self.predict_query, on_device(q, self.device),
             on_device(labels, self.device), batch)
 
+    # -- live updates ----------------------------------------------------------
+    def _deploy_opts(self) -> dict:
+        """Backend kwargs that rebuild an equivalent artifact through the
+        registry; backends with deploy-time knobs override it."""
+        return {}
+
+    def refresh(self, model) -> "DeployedArtifact":
+        """Re-freeze this artifact from an updated model: a new artifact
+        from the registry, same target and ``_deploy_opts()``."""
+        from repro_torch.deploy import registry
+        return registry.deploy(model, self.backend, **self._deploy_opts())
+
     # -- reporting / accounting ------------------------------------------------
     @property
     def backend(self) -> str:
@@ -82,3 +94,14 @@ class DeployedArtifact:
         """Byte-per-cell residence / this artifact's resident bytes (a
         packed artifact reports ~8x)."""
         return (self.am_cfg.columns * self.am_cfg.dim) / self.resident_bytes
+
+    def _cost_arr(self):
+        """Array geometry ``imc_cost`` defaults to (backends override)."""
+        from repro_torch.core.types import ImcArrayConfig
+        return ImcArrayConfig()
+
+    def imc_cost(self, arr=None):
+        """Closed-form IMC mapping of this model's geometry."""
+        from repro_torch.core.imc import memhd_pipeline
+        return memhd_pipeline(self.enc_cfg.features, self.am_cfg.dim,
+                              self.am_cfg.columns, arr or self._cost_arr())

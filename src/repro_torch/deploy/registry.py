@@ -3,9 +3,10 @@
 
 ``MemhdModel.deploy(target=..., **opts)`` dispatches through this table:
 a backend is a factory ``(model, **opts) -> DeployedArtifact``
-registered under a target name. ``"packed"`` and ``"unpacked"`` are
-ported; asking for any other target raises the registry's "unknown
-deploy target" error.
+registered under a target name. ``"packed"``, ``"unpacked"``, ``"imc"``
+and ``"multibit"`` are ported; asking for any other target (the
+reference's ``"hierarchical"``) raises the registry's "unknown deploy
+target" error.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ from typing import Callable, Dict, Tuple
 _BACKENDS: Dict[str, Callable] = {}
 
 # Modules whose import registers the built-in backends.
-_BUILTIN_MODULES = ("repro_torch.deploy.digital",)
+_BUILTIN_MODULES = ("repro_torch.deploy.digital",
+                    "repro_torch.deploy.multibit",
+                    "repro_torch.imcsim.deploy")
 
 
 def register_backend(name: str) -> Callable[[Callable], Callable]:

@@ -1,7 +1,10 @@
 """The port's kernels: hand-written CUDA for Hopper (``csrc/``), each with
 a plain PyTorch version in ``ref`` and a launch counter on its wrapper."""
 from repro_torch.kernels import am_search as _as
+from repro_torch.kernels import am_search_imc as _asi
+from repro_torch.kernels import am_search_multibit as _asm
 from repro_torch.kernels import am_search_packed as _asp
+from repro_torch.kernels import binary_mvm as _bm
 from repro_torch.kernels import encode_fused as _ef
 from repro_torch.kernels import pack_bits as _pb
 from repro_torch.kernels import qail_update as _qu
@@ -14,7 +17,11 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
            "qail_update": (_qu.qail_update, "launches"),
            "am_search": (_as.am_search, "launches"),
            "am_search_packed_unpack": (_asp.am_search_packed,
-                                       "unpack_launches")}
+                                       "unpack_launches"),
+           "binary_mvm": (_bm.binary_mvm, "launches"),
+           "unpack_bits": (_pb.unpack_bits, "launches"),
+           "am_search_imc": (_asi.am_search_imc, "launches"),
+           "am_search_multibit": (_asm.am_search_multibit, "launches")}
 
 
 def reset_launches() -> None:

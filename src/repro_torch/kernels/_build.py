@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 The sources in ``csrc/`` have a plain C interface: each exports an
-``extern "C" int <name>_launch(...)`` that launches on the given stream
-and returns ``cudaGetLastError()``. At first use every source is compiled
+``extern "C" int <name>_launch(...)`` (``pack_bits.cu`` also
+``unpack_bits_launch``) that launches on the given stream and returns
+``cudaGetLastError()``. At first use every source is compiled
 by its own nvcc process, all started together, for ``sm_90a``; the
 objects are linked into one shared library and loaded with ctypes. The
 library lives in ``build/repro_torch_kernels/<hash>/`` at the root of
@@ -25,8 +26,10 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
-           "am_search.cu", "qail_update.cu")
-HEADERS = ("sims_argmax.cuh",)  # included by sources; part of the hash
+           "am_search.cu", "qail_update.cu", "binary_mvm.cu",
+           "am_search_imc.cu", "am_search_multibit.cu")
+# Included by sources; part of the hash.
+HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -39,6 +42,7 @@ _F = ctypes.c_float
 # so ctypes never narrows a 64-bit address to a 32-bit int.
 SIGNATURES = {
     "pack_bits_launch": (_P, _P, _I64, _P),
+    "unpack_bits_launch": (_P, _P, _I64, _P),
     "am_search_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P),
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _P),
@@ -46,6 +50,11 @@ SIGNATURES = {
                          _P),
     "qail_update_launch": (_P, _P, _P, _I64, _I64, _P, _P, _P, _F, _P, _P,
                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "binary_mvm_launch": (_P, _P, _P, _I, _I, _I, _P),
+    "am_search_imc_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _F, _F, _P),
+    "am_search_multibit_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _F, _P),
 }
 
 _lock = threading.Lock()

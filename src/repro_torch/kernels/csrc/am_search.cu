@@ -45,19 +45,6 @@ am_search_partial(const float* __restrict__ q,
                       red_i, part_s, part_i, gridDim.x, blockIdx.x);
 }
 
-__global__ void am_search_fold(const float* __restrict__ part_s,
-                               const int* __restrict__ part_i, int n_ct,
-                               int B, int32_t* __restrict__ out_idx,
-                               float* __restrict__ out_sim) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float bs;
-  int bi;
-  sims::fold_partials(part_s, part_i, n_ct, b, bs, bi);
-  out_idx[b] = bi;
-  out_sim[b] = bs;
-}
-
 }  // namespace
 
 // part_s / part_i: (B, ceil(C/64)) scratch from the caller. Returns the
@@ -76,7 +63,7 @@ extern "C" int am_search_launch(const void* q, const void* am_t,
       static_cast<float*>(part_s), static_cast<int*>(part_i), B, D, C);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  am_search_fold<<<(B + 255) / 256, 256, 0, s>>>(
+  sims::fold_rows<<<(B + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part_s), static_cast<const int*>(part_i),
       n_ct, B, static_cast<int32_t*>(idx), static_cast<float*>(sim));
   return (int)cudaGetLastError();

@@ -1,7 +1,9 @@
 // pack_bits: (R, C) float32 +-1 -> (R, C/8) uint8, LSB-first, bit 1 iff x > 0.
+// unpack_bits: the inverse, (R, C/8) uint8 -> (R, C) float32 {-1, +1}.
 //
-// Replaces the TPU kernel src/repro/kernels/pack_bits.py:pack_bits (a
-// Pallas grid of (block_r, 1024)-lane VPU tiles).
+// Replaces the TPU kernel src/repro/kernels/pack_bits.py:pack_bits, and
+// its inverse :unpack_bits (Pallas grids of (block_r, 1024)-lane VPU
+// tiles).
 //
 // Bound on the H100: bytes. The pass reads 32 bytes and writes 1 byte per
 // output byte and does a handful of compares, so its least time is
@@ -14,6 +16,12 @@
 // 16-byte loads (a warp reads 1 KB contiguous) and one byte store; a
 // grid-stride loop bounds the grid. The wrapper checks the 16-byte
 // alignment the vector loads need.
+//
+// unpack_bits is the same flat map run backwards: one thread per input
+// byte writes its 8 cells as two 16-byte stores (a warp writes 1 KB
+// contiguous). Bound: bytes, 33 per input byte — 1.3 us for the
+// (1024, 128) -> (1024, 1024) unpack of a 1024 x 1024 AM, dominated by
+// the 4 MB written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,16 +46,45 @@ pack_bits_kernel(const float4* __restrict__ x, uint8_t* __restrict__ out,
   }
 }
 
+__global__ void __launch_bounds__(256)
+unpack_bits_kernel(const uint8_t* __restrict__ in, float4* __restrict__ out,
+                   long long n_in) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (; i < n_in; i += stride) {
+    const unsigned v = in[i];
+    float c[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) c[b] = ((v >> b) & 1u) ? 1.f : -1.f;
+    out[2 * i] = make_float4(c[0], c[1], c[2], c[3]);
+    out[2 * i + 1] = make_float4(c[4], c[5], c[6], c[7]);
+  }
+}
+
+long long grid_for(long long n, int threads) {
+  const long long blocks = (n + threads - 1) / threads;
+  return blocks > 132 * 16 ? 132 * 16 : blocks;  // grid-stride beyond this
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int pack_bits_launch(const void* x, void* out, long long n_out,
                                 void* stream) {
   if (n_out <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n_out + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond this
-  pack_bits_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  pack_bits_kernel<<<(unsigned)grid_for(n_out, 256), 256, 0,
+                     (cudaStream_t)stream>>>(
       static_cast<const float4*>(x), static_cast<uint8_t*>(out), n_out);
+  return (int)cudaGetLastError();
+}
+
+// out: (n_in * 8) float32, 16-byte aligned. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int unpack_bits_launch(const void* packed, void* out,
+                                  long long n_in, void* stream) {
+  if (n_in <= 0) return 0;
+  unpack_bits_kernel<<<(unsigned)grid_for(n_in, 256), 256, 0,
+                       (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(packed), static_cast<float4*>(out), n_in);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // sims_argmax.cuh: the fp32 similarity tile and the first-wins argmax
-// fold shared by am_search.cu and qail_update.cu.
+// fold shared by am_search.cu, qail_update.cu and (through adc_tile.cuh)
+// am_search_imc.cu and am_search_multibit.cu.
 //
 // A block of 256 threads (16 x 16) computes one (16*TM) x 64 tile of
 // sims = q @ am_t: thread (ty, tx) owns queries row0 + ty*TM + i (i < TM)
@@ -35,33 +36,18 @@ __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
 }
 
-// The (16*TM) x BN tile of q @ am_t at (row0, col0). q is (B, D) row
-// major; am_t (D, C) with element strides (sd, sc), so the transposed
-// view of a (C, D) row-major AM needs no copy. Out-of-range rows, dims
-// and columns load as 0.
-template <int TM>
-__device__ void tile(const float* __restrict__ q,
-                     const float* __restrict__ am_t, long long sd,
-                     long long sc, int B, int D, int C, int row0, int col0,
-                     float (*qs)[16 * TM + 1], float (*as)[BN + 1],
-                     float (&acc)[TM][TN]) {
-  constexpr int BM = 16 * TM;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+// The AM operand of a tile: a (D, C) float32 view with element strides
+// (sd, sc), so the transposed view of a (C, D) row-major AM needs no copy.
+struct StridedAm {
+  const float* __restrict__ am_t;
+  long long sd, sc;
 
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    // Queries: BK consecutive dims of a row are contiguous.
-    for (int e = tid; e < BM * BK; e += TPB) {
-      const int m = e / BK, k = e % BK;
-      const int r = row0 + m, d = k0 + k;
-      qs[k][m] = (r < B && d < D) ? q[(size_t)r * D + d] : 0.0f;
-    }
-    // AM slab: walk whichever axis is contiguous in memory fastest.
-    for (int e = tid; e < BK * BN; e += TPB) {
+  // Stage dims [k0, k0 + BK) x columns [col0, col0 + BN) into as[k][n];
+  // dims >= k_end and columns >= C load as 0. Walks whichever axis is
+  // contiguous in memory fastest.
+  __device__ void stage(float (*as)[BN + 1], int k0, int k_end, int col0,
+                        int C) const {
+    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
       int k, n;
       if (sc == 1) {
         k = e / BN;
@@ -71,8 +57,31 @@ __device__ void tile(const float* __restrict__ q,
         n = e / BK;
       }
       const int d = k0 + k, c = col0 + n;
-      as[k][n] = (d < D && c < C) ? am_t[d * sd + c * sc] : 0.0f;
+      as[k][n] = (d < k_end && c < C) ? am_t[d * sd + c * sc] : 0.0f;
     }
+  }
+};
+
+// acc += q[rows, k_begin:k_end] @ am[k_begin:k_end, cols] for the
+// (16*TM) x BN tile at (row0, col0). q is (B, D) row major; ``am`` stages
+// the AM slabs (StridedAm, or the bit-plane decoder of
+// am_search_multibit.cu). Dims are walked ascending, one fmaf each.
+template <int TM, class Am>
+__device__ void accumulate(const float* __restrict__ q, int B, int D, int C,
+                           int row0, int col0, int k_begin, int k_end,
+                           const Am& am, float (*qs)[16 * TM + 1],
+                           float (*as)[BN + 1], float (&acc)[TM][TN]) {
+  constexpr int BM = 16 * TM;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    // Queries: BK consecutive dims of a row are contiguous.
+    for (int e = tid; e < BM * BK; e += TPB) {
+      const int m = e / BK, k = e % BK;
+      const int r = row0 + m, d = k0 + k;
+      qs[k][m] = (r < B && d < k_end) ? q[(size_t)r * D + d] : 0.0f;
+    }
+    am.stage(as, k0, k_end, col0, C);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
@@ -88,6 +97,22 @@ __device__ void tile(const float* __restrict__ q,
     }
     __syncthreads();
   }
+}
+
+// The (16*TM) x BN tile of q @ am_t at (row0, col0), over all D dims.
+// Out-of-range rows, dims and columns load as 0.
+template <int TM>
+__device__ void tile(const float* __restrict__ q,
+                     const float* __restrict__ am_t, long long sd,
+                     long long sc, int B, int D, int C, int row0, int col0,
+                     float (*qs)[16 * TM + 1], float (*as)[BN + 1],
+                     float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  accumulate<TM>(q, B, D, C, row0, col0, 0, D, StridedAm{am_t, sd, sc}, qs,
+                 as, acc);
 }
 
 // Every column is eligible (am_search, Eq. 4).
@@ -167,5 +192,22 @@ __device__ __forceinline__ void fold_partials(const float* __restrict__ ps,
     }
   }
 }
+
+// One thread per query: fold its n_ct partials into (idx, sim). Internal
+// linkage, so every source that includes this header has its own copy.
+namespace {
+__global__ void fold_rows(const float* __restrict__ part_s,
+                          const int* __restrict__ part_i, int n_ct, int B,
+                          int32_t* __restrict__ out_idx,
+                          float* __restrict__ out_sim) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  float bs;
+  int bi;
+  fold_partials(part_s, part_i, n_ct, b, bs, bi);
+  out_idx[b] = bi;
+  out_sim[b] = bs;
+}
+}  // namespace
 
 }  // namespace sims

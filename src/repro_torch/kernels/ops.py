@@ -8,8 +8,8 @@ or ``use_kernel=False``, by the plain PyTorch version (tier
 dispatch counter, the port's ``kernel_dispatch_total``;
 ``dispatch_breakdown()`` sums it over geometries for the serving report.
 
-Dispatches of kernels not ported yet (``binary_mvm``, ``unpack_bits``,
-the imc/multibit/hierarchical searches) are absent; ROADMAP queue 2
+Dispatches of the kernels not ported yet — the hierarchical searches
+``am_shortlist`` and ``am_search_sparse`` — are absent; ROADMAP queue 2
 lists them.
 """
 from __future__ import annotations
@@ -20,6 +20,16 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.am_search import am_search as _am_search
+from repro_torch.kernels.am_search_imc import am_search_imc as _am_search_imc
+from repro_torch.kernels.am_search_imc import (  # noqa: F401
+    imc_cycles_for as imc_search_cycles,
+)
+from repro_torch.kernels.am_search_multibit import (
+    am_search_multibit as _am_search_multibit,
+)
+from repro_torch.kernels.am_search_multibit import (  # noqa: F401
+    imc_cycles_for as multibit_search_cycles,
+)
 from repro_torch.kernels.am_search_packed import DEFAULT_BLOCK_B
 from repro_torch.kernels.am_search_packed import (
     am_search_packed as _am_search_packed,
@@ -32,7 +42,12 @@ from repro_torch.kernels.encode_fused import (
 from repro_torch.kernels.encode_fused import (
     search_from_features as _search_from_features,
 )
+from repro_torch.kernels.binary_mvm import binary_mvm as _binary_mvm
+from repro_torch.kernels.binary_mvm import (  # noqa: F401
+    imc_cycles_for as mvm_cycles,
+)
 from repro_torch.kernels.pack_bits import pack_bits as _pack_bits
+from repro_torch.kernels.pack_bits import unpack_bits as _unpack_bits
 from repro_torch.kernels.qail_update import (
     BLOCK_B_CHOICES as QAIL_BLOCK_B_CHOICES,
 )
@@ -64,6 +79,18 @@ def dispatch_breakdown() -> dict[str, dict[str, int]]:
 
 def reset_dispatch() -> None:
     _DISPATCH.clear()
+
+
+def encode_mvm(feats: torch.Tensor, projection: torch.Tensor, *,
+               use_kernel: bool = True) -> torch.Tensor:
+    """Projection encoding H = F @ M through the IMC-geometry kernel.
+    feats: (B, f); projection: (f, D) bipolar. Returns (B, D) float32."""
+    tier = _tier(feats, use_kernel)
+    _count("binary_mvm", tier, B=feats.shape[0], f=projection.shape[0],
+           D=projection.shape[1])
+    if tier == "torch-ref":
+        return ref.binary_mvm(feats, projection)
+    return _binary_mvm(feats.float().contiguous(), projection.float())
 
 
 def encode_pack(feats: torch.Tensor, projection: torch.Tensor, *,
@@ -146,6 +173,16 @@ def pack_bits(x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     return _pack_bits(x.float().contiguous())
 
 
+def unpack_bits(p: torch.Tensor, *, use_kernel: bool = True,
+                ) -> torch.Tensor:
+    """(R, C // 8) uint8 -> (R, C) float32 {-1, +1}."""
+    tier = _tier(p, use_kernel)
+    _count("unpack_bits", tier, R=p.shape[0], C=p.shape[1] * 8)
+    if tier == "torch-ref":
+        return ref.unpack_bits(p)
+    return _unpack_bits(p.contiguous())
+
+
 def predict_packed(queries: torch.Tensor, am_packed_t: torch.Tensor,
                    centroid_class: torch.Tensor, *, n_dims: int,
                    mode: str = "popcount", use_kernel: bool = True,
@@ -180,6 +217,70 @@ def predict_classes(queries: torch.Tensor, am: torch.Tensor,
     return centroid_class[idx.long()]
 
 
+def am_search_imc(queries: torch.Tensor, am: torch.Tensor, *, sim,
+                  offsets: torch.Tensor | None = None,
+                  use_kernel: bool = True,
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device-fidelity associative search (tiled analog MVM + ADC).
+
+    queries: (B, D); am: (C, D) resident centroid rows — typically the
+    perturbed device instance of ``imcsim.device.perturb_am`` — searched
+    through its (D, C) transposed view; sim: an ``ImcSimConfig`` (array
+    geometry + ADC); offsets: optional per-array readout drift grid.
+    With an ideal sim the result equals ``am_search`` bit for bit.
+    Returns (best_idx (B,) int32, best_sim (B,) float32).
+    """
+    tier = _tier(queries, use_kernel)
+    _count("am_search_imc", tier, B=queries.shape[0], D=queries.shape[1],
+           C=am.shape[0])
+    kw = dict(tile_rows=sim.arr.rows, tile_cols=sim.arr.cols,
+              adc_bits=sim.adc_bits, adc_clip=sim.clip)
+    if tier == "torch-ref":
+        return ref.am_search_imc(queries, am.T, offsets=offsets, **kw)
+    return _am_search_imc(queries.float().contiguous(), am.float().T,
+                          offsets, **kw)
+
+
+def am_search_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor, *,
+                       sim=None, scale: torch.Tensor | None = None,
+                       offsets: torch.Tensor | None = None,
+                       use_kernel: bool = True,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bit-sliced associative search over the multi-bit packed AM.
+
+    queries: (B, D) bipolar; am_planes_t: (cell_bits, Dp, C) uint8
+    offset-code planes (``core.am.pack_am_planes``); sim: optional
+    ``ImcSimConfig`` for the array geometry and ADC (default: 128x128,
+    16 bits, ``ref.multibit_adc_clip``); scale: optional quantizer scale,
+    which dequantizes the returned similarity (idx does not depend on
+    it); offsets: optional per-array code-domain drift grid.
+    Returns (best_idx (B,) int32, best_sim (B,) float32).
+    """
+    cell_bits = int(am_planes_t.shape[0])
+    tile_rows = sim.arr.rows if sim is not None else 128
+    tile_cols = sim.arr.cols if sim is not None else 128
+    adc_bits = sim.adc_bits if sim is not None else 16
+    # Not sim.clip: that defaults to the 1-bit bound (the row count);
+    # multi-bit partial sums need the Qmax-scaled full scale.
+    adc_clip = (sim.adc_clip
+                if sim is not None and sim.adc_clip is not None
+                else ref.multibit_adc_clip(cell_bits, tile_rows))
+    tier = _tier(queries, use_kernel)
+    _count("am_search_multibit", tier, B=queries.shape[0],
+           D=queries.shape[1], C=am_planes_t.shape[2], bits=cell_bits)
+    kw = dict(cell_bits=cell_bits, tile_rows=tile_rows, tile_cols=tile_cols,
+              adc_bits=adc_bits, adc_clip=float(adc_clip))
+    if tier == "torch-ref":
+        idx, s = ref.am_search_multibit(queries, am_planes_t,
+                                        offsets=offsets, **kw)
+    else:
+        idx, s = _am_search_multibit(queries.float().contiguous(),
+                                     am_planes_t.contiguous(), offsets, **kw)
+    if scale is not None:
+        s = s * torch.as_tensor(scale, dtype=torch.float32, device=s.device)
+    return idx, s
+
+
 def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
                 centroid_class: torch.Tensor, labels: torch.Tensor,
                 mask: torch.Tensor, *, lr: float, use_kernel: bool = True,
@@ -206,3 +307,26 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
                         am_t.float(), centroid_class.to(torch.int32),
                         labels.to(torch.int32), mask.float(), lr=lr,
                         block_b=block_b)
+
+
+def predict_imc(queries: torch.Tensor, am: torch.Tensor,
+                centroid_class: torch.Tensor, *, sim,
+                offsets: torch.Tensor | None = None,
+                use_kernel: bool = True) -> torch.Tensor:
+    """§III-D prediction through the simulated analog readout: tiled
+    analog search + ADC + ownership lookup."""
+    idx, _ = am_search_imc(queries, am, sim=sim, offsets=offsets,
+                           use_kernel=use_kernel)
+    return centroid_class[idx.long()]
+
+
+def predict_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor,
+                     centroid_class: torch.Tensor, *, sim=None,
+                     offsets: torch.Tensor | None = None,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """§III-D prediction over the multi-bit residence: bit-sliced
+    code-domain search + ownership lookup (argmax does not depend on the
+    quantizer scale)."""
+    idx, _ = am_search_multibit(queries, am_planes_t, sim=sim,
+                                offsets=offsets, use_kernel=use_kernel)
+    return centroid_class[idx.long()]

@@ -1,11 +1,11 @@
-"""1-bit packing of bipolar rows: wrapper of the ``pack_bits`` CUDA kernel.
+"""1-bit packing of bipolar rows and its inverse: wrappers of the
+``pack_bits`` and ``unpack_bits`` CUDA kernels.
 
-Port of ``repro.kernels.pack_bits.pack_bits`` (``csrc/pack_bits.cu``).
-A CPU tensor is packed by the plain version (``ref.pack_bits``); a CUDA
-tensor goes through the kernel or raises. ``pack_bits.launches`` counts
-kernel launches.
-
-``unpack_bits`` has no CUDA kernel yet (ROADMAP queue 2, item 2).
+Port of ``repro.kernels.pack_bits`` (``csrc/pack_bits.cu``). A CPU
+tensor goes through the plain version (``ref.pack_bits``,
+``ref.unpack_bits``); a CUDA tensor through the kernel or raises.
+``pack_bits.launches`` and ``unpack_bits.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -45,9 +45,38 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
 pack_bits.launches = 0
 
 
-def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+def unpack_bits(packed: torch.Tensor, n_cols: int | None = None,
+                ) -> torch.Tensor:
+    """(R, C // 8) uint8 -> (R, C) float32 {-1, +1}, bit 1 -> +1.
+
+    ``n_cols``: the unpacked width C the caller expects; a packed width
+    that does not unpack to it (C not a multiple of 8: the tail of a
+    ragged row is not recoverable here) raises.
+    """
+    if packed.dim() != 2:
+        raise ValueError(f"unpack_bits takes (R, C/8), got "
+                         f"{tuple(packed.shape)}")
+    r, cb = packed.shape
+    if n_cols is not None and n_cols != cb * 8:
+        raise ValueError(f"C={n_cols} must be a multiple of 8 equal to "
+                         f"8 * {cb} packed bytes")
     if packed.device.type == "cpu":
         return ref.unpack_bits(packed)
-    raise NotImplementedError(
-        "the unpack_bits CUDA kernel is not ported yet "
-        "(ROADMAP queue 2, item 2)")
+    if packed.device.type != "cuda":
+        raise ValueError(f"unpack_bits: unsupported device {packed.device}")
+    _build.check_operand(packed, "packed", torch.uint8, 2)
+    out = torch.empty((r, cb * 8), dtype=torch.float32,
+                      device=packed.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.lib()
+    with torch.cuda.device(packed.device):
+        err = lib.unpack_bits_launch(packed.data_ptr(), out.data_ptr(),
+                                     packed.numel(),
+                                     _build.stream_of(packed))
+    _build.check(err, "unpack_bits")
+    unpack_bits.launches += 1
+    return out
+
+
+unpack_bits.launches = 0

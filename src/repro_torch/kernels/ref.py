@@ -158,3 +158,146 @@ def qail_delta(upd: torch.Tensor, pred_t: torch.Tensor,
     w = (lr * mis)[:, None] * (F.one_hot(true_t.long(), c).float()
                                - F.one_hot(pred_t.long(), c).float())
     return w.T @ upd.float(), mis.sum()
+
+
+def adc_quantize(x: torch.Tensor, bits: int, clip: float) -> torch.Tensor:
+    """Symmetric mid-tread ADC: clip to [-clip, +clip], then round to the
+    nearest of the 2^bits + 1 codes ``step = 2*clip / 2**bits`` apart,
+    ties to even (``torch.round``, as ``jnp.round``).
+
+    ``step`` is a float32 tensor on ``x``'s device, so the division is a
+    true IEEE division on every device (a Python-float divisor would be
+    turned into a multiplication by its reciprocal on CUDA).
+    """
+    step = torch.tensor(2.0 * clip / (2 ** bits), dtype=torch.float32,
+                        device=x.device)
+    return torch.round(torch.clamp(x, -clip, clip) / step) * step
+
+
+def imc_partials(q: torch.Tensor, am_t: torch.Tensor, tile_rows: int,
+                 tile_cols: int, offsets: torch.Tensor | None = None,
+                 ) -> torch.Tensor:
+    """Pre-ADC analog partial sums of the tiled search: (B, gd, gc*tc),
+    slot (b, g, c) = q[b, slab g] . am_t[slab g, c] + offsets[g, c // tc].
+    Rows past D and columns past C are zero-padded.
+
+    Each slab's dot is summed one row at a time, r = 0, 1, ..., as the
+    kernels sum it: over bipolar queries every product is exact, so the
+    partial sums are bit-equal to the kernels' even on a float
+    (noise-perturbed) AM, where a matmul's other summation order could
+    move a partial across an ADC rounding boundary.
+    """
+    b, d = q.shape
+    d2, c = am_t.shape
+    if d != d2:
+        raise ValueError(f"widths differ: {tuple(q.shape)} vs "
+                         f"{tuple(am_t.shape)}")
+    gd, gc = -(-d // tile_rows), -(-c // tile_cols)
+    qr = F.pad(q.float(), (0, gd * tile_rows - d)).reshape(b, gd, tile_rows)
+    ar = F.pad(am_t.float(), (0, gc * tile_cols - c, 0, gd * tile_rows - d)
+               ).reshape(gd, tile_rows, gc * tile_cols)
+    part = torch.zeros((b, gd, gc * tile_cols), device=q.device)
+    for r in range(tile_rows):
+        part = part + qr[:, :, r, None] * ar[None, :, r, :]
+    if offsets is not None:
+        part = part + torch.repeat_interleave(offsets.float(), tile_cols,
+                                              dim=1)[None]
+    return part
+
+
+def imc_sims(part: torch.Tensor, n_cols: int, adc_bits: int,
+             adc_clip: float) -> torch.Tensor:
+    """ADC every tile output of ``part`` (B, gd, >= C), then accumulate the
+    row tiles in order g = 0, 1, ... (as the kernels do): (B, C)."""
+    q = adc_quantize(part, adc_bits, adc_clip)
+    sims = torch.zeros_like(q[:, 0])
+    for g in range(q.shape[1]):
+        sims = sims + q[:, g]
+    return sims[:, :n_cols]
+
+
+def _argmax_first(sims: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    best_sim, best_idx = sims.max(dim=-1)
+    return best_idx.to(torch.int32), best_sim
+
+
+def am_search_imc(q: torch.Tensor, am_t: torch.Tensor, *, tile_rows: int,
+                  tile_cols: int, adc_bits: int, adc_clip: float,
+                  offsets: torch.Tensor | None = None,
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tiled analog associative search (device-fidelity semantics).
+
+    The (D, C) AM is split into (tile_rows x tile_cols) arrays; each
+    array's analog partial sum picks up its readout offset, goes through
+    the ADC (``adc_quantize``) and only then is accumulated across row
+    tiles. First-wins argmax over the quantized similarities.
+    q: (B, D); am_t: (D, C) (possibly perturbed) AM; offsets: optional
+    (ceil(D/tile_rows), ceil(C/tile_cols)). Returns (best_idx, best_sim).
+    """
+    part = imc_partials(q, am_t, tile_rows, tile_cols, offsets)
+    return _argmax_first(imc_sims(part, am_t.shape[1], adc_bits, adc_clip))
+
+
+def multibit_adc_clip(cell_bits: int, tile_rows: int = 128) -> float:
+    """Default ADC full scale for bit-sliced multi-bit readout: the next
+    power of two at or above Qmax * tile_rows, Qmax = 2^(b-1) - 1, so
+    the mid-tread step is a power of two."""
+    qmax = 2 ** (cell_bits - 1) - 1
+    bound = max(qmax * tile_rows, 1)
+    return float(2 ** (bound - 1).bit_length())
+
+
+def pack_planes(u: torch.Tensor, n_planes: int) -> torch.Tensor:
+    """(C, D) unsigned integer codes -> (n_planes, ceil(D/8), C) uint8:
+    plane p holds bit p of every code, packed 8 cells/byte LSB-first
+    along D and transposed; D-tail bits pack as 0 (code 0)."""
+    c, d = u.shape
+    u = F.pad(u.to(torch.int32), (0, -d % 8))
+    dp = u.shape[1] // 8
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=u.device)
+    planes = [(((u >> p) & 1).reshape(c, dp, 8) * weights).sum(dim=-1)
+              .to(torch.uint8).T for p in range(n_planes)]
+    return torch.stack(planes).contiguous()
+
+
+def unpack_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_planes``: (P, Dp, C) uint8 -> (Dp*8, C) int32
+    offset codes (D-tail rows unpack to 0)."""
+    n_planes, dp, c = planes.shape
+    shifts = torch.arange(8, dtype=torch.int32, device=planes.device)
+    bits = (planes.to(torch.int32)[:, :, None, :]
+            >> shifts[None, None, :, None]) & 1          # (P, Dp, 8, C)
+    weights = 2 ** torch.arange(n_planes, dtype=torch.int32,
+                                device=planes.device)
+    return (bits.reshape(n_planes, dp * 8, c)
+            * weights[:, None, None]).sum(dim=0, dtype=torch.int32)
+
+
+def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor, *,
+                       cell_bits: int, tile_rows: int = 128,
+                       tile_cols: int = 128, adc_bits: int = 16,
+                       adc_clip: float | None = None,
+                       offsets: torch.Tensor | None = None,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bit-sliced multi-bit associative search (code domain).
+
+    The planes hold offset codes u = code + Qmax; the search recentres
+    them and runs the ``am_search_imc`` pipeline over the integer codes,
+    so with bipolar queries every similarity is an integer. D-tail cells
+    read -Qmax, but the matching query rows are zero-padded, so they
+    contribute nothing. q: (B, D); am_planes_t: (cell_bits, ceil(D/8),
+    C) uint8. Returns (best_idx, best_sim) in the code domain.
+    """
+    if adc_clip is None:
+        adc_clip = multibit_adc_clip(cell_bits, tile_rows)
+    b, d = q.shape
+    n_planes, dp, c = am_planes_t.shape
+    if n_planes != cell_bits:
+        raise ValueError(f"{n_planes} planes for cell_bits={cell_bits}")
+    if not dp * 8 >= d > (dp - 1) * 8:
+        raise ValueError(f"D={d} inconsistent with Dp={dp}")
+    codes_t = (unpack_planes(am_planes_t) - (2 ** (cell_bits - 1) - 1)
+               ).float()
+    qp = F.pad(q.float(), (0, dp * 8 - d))
+    part = imc_partials(qp, codes_t, tile_rows, tile_cols, offsets)
+    return _argmax_first(imc_sims(part, c, adc_bits, adc_clip))

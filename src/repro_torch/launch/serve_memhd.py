@@ -11,6 +11,10 @@ chained into the packed search); the default serves the staged encode
 unpack`` serves the packed AM through the unpack mode of the packed
 search, and ``--target unpacked`` (or ``--unpacked``) the ±1 float AM
 through ``am_search``. Predictions are bit-exact across all of them.
+``--target imc`` serves the AM burned onto an ideal simulated analog
+device through ``am_search_imc`` (equal to the digital predictions), and
+``--target multibit --cell-bits b`` the b-bit quantized float AM through
+``am_search_multibit``.
 
 The JSON report keeps the reference's keys; its ``metrics`` section
 holds the port's dispatch tiers (``cuda`` / ``torch-ref``).
@@ -20,6 +24,8 @@ Usage (on the GPU):
       --requests 64 --max-batch 256
   PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
       --target unpacked
+  PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
+      --target multibit --cell-bits 4
 and ``--device cpu`` for the plain path on the CPU.
 """
 from __future__ import annotations
@@ -221,7 +227,8 @@ def metrics_summary() -> Dict:
 def build_report(deployed, requests: Sequence[Request], stats: Dict,
                  wall_s: float, fused: bool = False, topk: int = 0,
                  metrics: Optional[Dict] = None) -> Dict:
-    """Assemble the serving JSON report (the reference's key set)."""
+    """Assemble the serving JSON report (the reference's key set, plus
+    ``cycles`` for the imc and multibit backends)."""
     n_rows = sum(r.size for r in requests)
     devices = int(getattr(deployed, "n_devices", 1))
     rows_per_s = round(n_rows / wall_s, 1) if wall_s else 0.0
@@ -243,6 +250,10 @@ def build_report(deployed, requests: Sequence[Request], stats: Dict,
         "resident_am_bytes": deployed.resident_am_bytes,
         "am_memory_ratio": round(deployed.am_memory_ratio, 2),
         "metrics": metrics if metrics is not None else metrics_summary(),
+        # The device-fidelity backends also report their array passes
+        # per query (the reference's report has no such key).
+        **({"cycles": deployed.cycles} if hasattr(deployed, "cycles")
+           else {}),
         **stats,
     }
 
@@ -262,7 +273,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--target", default=None,
                     choices=["packed", "unpacked", "imc", "hierarchical",
                              "multibit"],
-                    help="deployment backend (packed and unpacked are "
+                    help="deployment backend (hierarchical is not "
                          "ported)")
     ap.add_argument("--cell-bits", type=int, default=4,
                     help="multibit: bits per resident AM cell (2-8)")
@@ -284,19 +295,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--record-dir", default=None)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--log-json", action="store_true")
+    ap.add_argument("--log-json", action="store_true",
+                    help="structured one-JSON-per-line logging")
     ap.add_argument("--device", default=None,
                     help="torch device; default the GPU (raises without "
                          "one), 'cpu' for the plain path")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
+    from repro_torch import obs
+    obs.setup_logging(json_mode=args.log_json)
 
     if args.target and args.unpacked:
         ap.error("--unpacked is the legacy alias; drop it with --target")
     target = args.target or ("unpacked" if args.unpacked else "packed")
-    if target not in ("packed", "unpacked"):
-        _not_ported(f"--target {target}", "ROADMAP queue 1, items 9-11")
+    if target == "hierarchical":
+        _not_ported("--target hierarchical", "ROADMAP queue 1, item 11")
     if args.fused and target != "packed":
         ap.error("--fused needs the packed backend (--target packed)")
     if args.topk or args.groups or args.shortlist:
@@ -306,9 +318,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         _not_ported("--devices > 1", "ROADMAP queue 1, item 13")
     if args.record_dir:
         _not_ported("--record-dir", "ROADMAP queue 1, item 16")
-    if args.metrics_out or args.trace_out or args.log_json:
-        _not_ported("--metrics-out/--trace-out/--log-json",
-                    "ROADMAP queue 1, item 15")
+    if args.metrics_out or args.trace_out:
+        _not_ported("--metrics-out/--trace-out", "ROADMAP queue 1, item 15")
 
     from repro_torch import resolve_device
     from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
@@ -324,7 +335,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                       epochs=epochs, kmeans_iters=5)
     model = MemhdModel.create(0, enc, amc, device=device)
     model, _ = model.fit(1, ds.train_x, ds.train_y)
-    deployed = model.deploy(target=target, mode=args.mode)
+    if target in ("packed", "unpacked"):
+        deployed = model.deploy(target=target, mode=args.mode)
+    elif target == "multibit":
+        deployed = model.deploy(target=target, cell_bits=args.cell_bits)
+    else:
+        deployed = model.deploy(target=target)
 
     reqs = synthetic_requests(ds.test_x.cpu().numpy(), args.requests,
                               args.max_size)

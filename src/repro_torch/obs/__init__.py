@@ -1,3 +1,6 @@
-"""Observability of the port: only ``EventLog`` so far (the metrics
-registry, spans and device monitors are ROADMAP queue 1, item 15)."""
-from repro_torch.obs.logs import EventLog  # noqa: F401
+"""Observability of the port: driver logging (``setup_logging``,
+``JsonFormatter``) and ``EventLog`` (the metrics registry, spans and
+device monitors are ROADMAP queue 1, item 15)."""
+from repro_torch.obs.logs import (  # noqa: F401
+    EventLog, JsonFormatter, setup_logging,
+)

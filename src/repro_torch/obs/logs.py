@@ -1,4 +1,8 @@
-"""JSONL event streams (port of ``EventLog`` from ``repro.obs.logs``).
+"""Driver logging and JSONL event streams (port of ``repro.obs.logs``).
+
+``setup_logging()`` is the one logging entry point of the launch
+drivers: a human-readable line by default, and ``json_mode=True``
+(``--log-json``) one JSON object per line for log shippers.
 
 ``EventLog`` is the machine-readable record of a training run: an
 append-only JSONL stream of structured events (epoch stats, checkpoint
@@ -8,9 +12,41 @@ run's history survives the terminal and a dashboard can tail it live.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 from typing import IO, Optional
+
+HUMAN_FORMAT = "%(asctime)s %(levelname).1s %(name)s :: %(message)s"
+HUMAN_DATEFMT = "%H:%M:%S"
+
+
+class JsonFormatter(logging.Formatter):
+    """One JSON object per log record (stable key set)."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "ts": round(record.created, 3),
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        if record.exc_info:
+            out["exc"] = self.formatException(record.exc_info)
+        return json.dumps(out)
+
+
+def setup_logging(level: int = logging.INFO,
+                  json_mode: bool = False) -> None:
+    """Configure root logging for a driver process (the last call wins:
+    ``force=True`` replaces earlier handlers)."""
+    if json_mode:
+        handler = logging.StreamHandler()
+        handler.setFormatter(JsonFormatter())
+        logging.basicConfig(level=level, handlers=[handler], force=True)
+    else:
+        logging.basicConfig(level=level, format=HUMAN_FORMAT,
+                            datefmt=HUMAN_DATEFMT, force=True)
 
 
 class EventLog:

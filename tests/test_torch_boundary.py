@@ -50,6 +50,18 @@ m2, _ = MemhdModel.create(0, enc, amc, device="cpu").fit(
 assert (m2.am_state["fp"] == m.am_state["fp"]).all()
 assert (m2.deploy(target="unpacked").predict(ds.test_x)
         == m2.deploy(mode="unpack").predict(ds.test_x)).all()
+from repro_torch import imcsim
+from repro_torch.core import ImcSimConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import robustness_report
+assert (m.deploy(target="imc").predict(ds.test_x)
+        == m.predict(ds.test_x)).all()
+m.deploy(target="multibit", cell_bits=3).predict(ds.test_x)
+imcsim.noise_aware_finetune(m, 2, ds.train_x, ds.train_y,
+                            ImcSimConfig(noise_sigma=0.5), epochs=1)
+imcsim.multibit_finetune(m, 2, ds.train_x, ds.train_y, 4, epochs=1)
+ops.encode_mvm(ds.test_x, m.enc_params["projection"])
+ops.unpack_bits(dep.am_packed_t)
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad
@@ -105,8 +117,15 @@ def test_kernel_build_is_keyed_by_its_sources():
         src = (_build.CSRC / name).read_text()
         assert re.search(r'extern "C" int \w+_launch\(', src), name
         assert "Replaces the TPU kernel src/repro/kernels/" in src, name
-    assert set(_build.SIGNATURES) == {
-        Path(s).stem + "_launch" for s in _build.SOURCES}
+    # Every source exports its own launcher, and every launcher whose
+    # signature is declared is exported by a source.
+    exported = set()
+    for name in _build.SOURCES:
+        found = set(re.findall(r'extern "C" int (\w+_launch)\(',
+                               (_build.CSRC / name).read_text()))
+        assert Path(name).stem + "_launch" in found, name
+        exported |= found
+    assert set(_build.SIGNATURES) == exported
     # Every header a source includes is part of the library's hash.
     included = set()
     for name in _build.SOURCES + _build.HEADERS:

@@ -18,13 +18,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import am as jam  # noqa: E402
+from repro.core import imc as jimc  # noqa: E402
 from repro.core import encoding as jenc  # noqa: E402
 from repro.core import init as jinit  # noqa: E402
 from repro.core import kmeans as jkm  # noqa: E402
 from repro.core import qail as jqail  # noqa: E402
 from repro.core import types as jtypes  # noqa: E402
 from repro.data import hdc as jhdc  # noqa: E402
-from repro_torch.core import am, encoding, evaluate, init, kmeans, qail  # noqa: E402
+from repro_torch.core import am, encoding, evaluate, imc, init, kmeans, qail  # noqa: E402
 from repro_torch.core import types  # noqa: E402
 from repro_torch.data import hdc  # noqa: E402
 
@@ -534,14 +535,16 @@ def test_qail_not_ported_options_raise():
                              torch.zeros(8, dtype=torch.int32))
     hb = torch.zeros((1, 4, 8))
     yb = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in ({"cell_bits": 4}, {"sim": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            qail.qail_epoch_scan(state, cfg, hb, hb, yb, torch.ones((1, 4)),
-                                 **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         qail.qail_batch_delta(state, cfg, hb[0], hb[0], yb[0])
-    # use_kernel=True, the sequential and host-loop epochs and
-    # fold_feedback are ported: on CPU tensors they run the plain path.
+    # The sim and cell_bits hooks, use_kernel=True, the sequential and
+    # host-loop epochs and fold_feedback are ported: on CPU tensors they
+    # run the plain path.
+    sim = types.ImcSimConfig(noise_sigma=0.5, fault_p0=0.1)
+    for kw in ({"cell_bits": 4}, {"sim": sim, "noise_key": 3},
+               {"sim": sim, "noise_key": (3, 1), "noise_mode": "fresh"}):
+        qail.qail_epoch_scan(state, cfg, hb, hb, yb, torch.ones((1, 4)),
+                             **kw)
     for fn in (qail.qail_epoch_sequential, qail.qail_epoch_hostloop,
                qail.fold_feedback):
         fn(state, cfg, hb[0], hb[0], yb[0])
@@ -563,3 +566,48 @@ def test_batched_accuracy_pads_ragged_tail_with_minus_one_labels():
     wrong = evaluate.batched_accuracy(lambda r: r[:, 0].long() * 0, x, y,
                                       batch=4)
     assert wrong == pytest.approx(4 / 10)
+
+
+def _as_dict(x):
+    if dataclasses.is_dataclass(x):
+        return {"type": type(x).__name__, **{
+            k: _as_dict(v) for k, v in dataclasses.asdict(x).items()}}
+    if isinstance(x, dict):
+        return {k: _as_dict(v) for k, v in x.items()}
+    return x
+
+
+@pytest.mark.parametrize("rows,cols", [(128, 128), (64, 128), (256, 32)])
+def test_imc_cost_model_copy_matches(rows, cols):
+    arr, jarr = (types.ImcArrayConfig(rows=rows, cols=cols),
+                 jtypes.ImcArrayConfig(rows=rows, cols=cols))
+    assert _as_dict(imc.table2(arr)) == _as_dict(jimc.table2(jarr))
+    for d, c in ((128, 128), (1024, 1024), (617, 26), (10240, 10)):
+        for fn in ("map_basic", "map_memhd"):
+            assert _as_dict(getattr(imc, fn)(d, c, arr)) == \
+                _as_dict(getattr(jimc, fn)(d, c, jarr))
+        assert imc.sim_grid(d, c, arr) == jimc.sim_grid(d, c, jarr)
+        assert _as_dict(imc.memhd_pipeline(784, d, c, arr)) == \
+            _as_dict(jimc.memhd_pipeline(784, d, c, jarr))
+    assert imc.am_energy_ratio(128, 128, 10240, 10, arr) == \
+        jimc.am_energy_ratio(128, 128, 10240, 10, jarr)
+
+
+def test_model_imc_cost_and_multibit_accounting():
+    from repro.core import MemhdModel as JModel
+    from repro_torch.core import MemhdModel
+    enc = types.EncoderConfig(features=784, dim=1024)
+    amc = types.MemhdConfig(dim=1024, columns=1024, classes=10)
+    m = MemhdModel.create(0, enc, amc, device="cpu")
+    jm = JModel.create(jax.random.key(0), jtypes.EncoderConfig(
+        features=784, dim=1024), jtypes.MemhdConfig(dim=1024, columns=1024,
+                                                    classes=10))
+    assert _as_dict(m.imc_cost()) == _as_dict(jm.imc_cost())
+    assert m.imc_cost().am.cycles == 64
+    arr = types.ImcArrayConfig(rows=256, cols=128)
+    assert _as_dict(m.imc_cost(arr)) == _as_dict(jm.imc_cost(
+        jtypes.ImcArrayConfig(rows=256, cols=128)))
+    for bits in (1, 2, 4, 8):
+        assert amc.am_memory_bits_at(bits) == 1024 * 1024 * bits
+    assert am.multibit_am_bytes(1024, 1024, 4) == 4 * 128 * 1024
+

@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import am_search_packed as asp  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    am_search, encode_fused, ops, pack_bits, qail_update, ref,
+    am_search, am_search_imc, am_search_multibit, binary_mvm, encode_fused,
+    ops, pack_bits, qail_update, ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -212,7 +213,9 @@ def test_launch_counters_and_cuda_tier(dev):
                     lr=0.5)
     assert kernels.launches() == {
         "pack_bits": 2, "am_search_packed": 2, "encode_pack": 1,
-        "qail_update": 1, "am_search": 1, "am_search_packed_unpack": 1}
+        "qail_update": 1, "am_search": 1, "am_search_packed_unpack": 1,
+        "binary_mvm": 0, "unpack_bits": 0, "am_search_imc": 0,
+        "am_search_multibit": 0}
     tiers = ops.dispatch_breakdown()
     for name in ("am_search_packed", "am_search", "qail_update"):
         assert set(tiers[name]) == {"cuda"}
@@ -249,3 +252,114 @@ def test_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError, match="different devices"):
         qail_update.qail_update(x, x, x.T[:, :3], own, lab, msk.cpu(),
                                 lr=0.1)
+
+
+@pytest.mark.parametrize("b,f,d,c", GEOMS)
+def test_binary_mvm_and_unpack_bits(dev, b, f, d, c):
+    rng = np.random.default_rng([7, b, f, d, c])
+    w = bipolar(rng, (f, d), dev)
+    xd = feats(rng, (b, f), dev, True)
+    assert torch.equal(binary_mvm.binary_mvm(xd, w), xd @ w)  # exact
+    xf = feats(rng, (b, f), dev, False)
+    err = (binary_mvm.binary_mvm(xf, w) - xf @ w).abs()
+    assert (err <= 2.0 ** -20 * (xf.abs() @ w.abs())).all()
+    p = torch.as_tensor(rng.integers(0, 256, (b, -(-d // 8)),
+                                     dtype=np.uint8), device=dev)
+    assert torch.equal(pack_bits.unpack_bits(p), ref.unpack_bits(p))
+
+
+@pytest.mark.parametrize("b,f,d,c", GEOMS)
+@pytest.mark.parametrize("rows,cols", [(128, 128), (64, 128), (256, 128)])
+def test_am_search_imc_and_multibit(dev, b, f, d, c, rows, cols):
+    # Bipolar queries: the plain version sums each slab in the kernel's
+    # row order, so both agree bit for bit even on a float-noise AM.
+    rng = np.random.default_rng([8, b, d, c, rows])
+    q = bipolar(rng, (b, d), dev)
+    am = bipolar(rng, (c, d), dev)
+    am = am[torch.arange(c, device=dev) % max(1, c // 3)]
+    z = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                        device=dev)
+    gd, gc = -(-d // rows), -(-c // cols)
+    off = torch.as_tensor((np.round(rng.normal(0, 2, (gd, gc)) * 16) / 16)
+                          .astype(np.float32), device=dev)
+    for a in (am, am + 0.5 * torch.round(z * 64) / 64, am + 0.5 * z):
+        for bits in (16, 6, 3):
+            for o in (None, off):
+                kw = dict(tile_rows=rows, tile_cols=cols, adc_bits=bits,
+                          adc_clip=float(rows))
+                got = am_search_imc.am_search_imc(q, a.T, o, **kw)
+                want = ref.am_search_imc(q, a.T, offsets=o, **kw)
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+    for cb in range(2, 9):
+        qmax = 2 ** (cb - 1) - 1
+        codes = torch.as_tensor(rng.integers(-qmax, qmax + 1, (c, d)),
+                                device=dev)
+        planes = ref.pack_planes(codes + qmax, cb)
+        for adc, o in ((16, None), (4, off)):
+            kw = dict(cell_bits=cb, tile_rows=rows, tile_cols=cols,
+                      adc_bits=adc)
+            got = am_search_multibit.am_search_multibit(q, planes, o, **kw)
+            want = ref.am_search_multibit(q, planes, offsets=o, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_device_fidelity_paths_launch_their_kernels(dev):
+    from repro_torch.core import (
+        EncoderConfig, ImcSimConfig, MemhdConfig, MemhdModel,
+    )
+    from repro_torch.core import am as am_lib
+    from repro_torch.data import load_dataset
+    ds = load_dataset("mnist", train_per_class=60, test_per_class=10,
+                      device=dev)
+    enc = EncoderConfig(features=784, dim=128)
+    amc = MemhdConfig(dim=128, columns=128, classes=10, epochs=2,
+                      kmeans_iters=3)
+    m, _ = MemhdModel.create(0, enc, amc, device=dev).fit(1, ds.train_x,
+                                                           ds.train_y)
+    kernels.reset_launches()
+    ops.reset_dispatch()
+    assert torch.equal(m.deploy(target="imc").predict(ds.test_x),
+                       m.predict(ds.test_x))
+    sim = ImcSimConfig(adc_bits=6, noise_sigma=0.5, fault_p0=0.01,
+                       drift_sigma=1.0, seed=7)
+    dep = m.deploy(target="imc", sim=sim)
+    q = m.encode_query(ds.test_x)
+    want = ref.am_search_imc(q, dep.am_analog.T, tile_rows=128,
+                             tile_cols=128, adc_bits=6, adc_clip=128.0,
+                             offsets=dep.tile_offsets)[0]
+    assert torch.equal(dep.predict(ds.test_x),
+                       m.am_state["centroid_class"][want.long()])
+    tuned, _ = m.fit(2, ds.train_x, ds.train_y, init_method="keep",
+                     epochs=1, cell_bits=4, noise_sim=ImcSimConfig(
+                         noise_sigma=0.5), use_kernel=True)
+    mb = tuned.deploy(target="multibit", cell_bits=4)
+    assert torch.equal(mb.predict(ds.test_x), am_lib.multibit_predict(
+        mb.am_planes_t, mb.centroid_class, tuned.encode_query(ds.test_x),
+        4))
+    launches = kernels.launches()
+    for name in ("am_search_imc", "am_search_multibit", "qail_update"):
+        assert launches[name] > 0, name
+    assert "torch-ref" not in str(ops.dispatch_breakdown())
+
+
+def test_fidelity_wrappers_reject_bad_operands(dev):
+    x = torch.ones((4, 16), device=dev)
+    with pytest.raises(ValueError, match="offsets shape"):
+        am_search_imc.am_search_imc(x, x.T, torch.zeros((2, 2), device=dev),
+                                    tile_rows=8, tile_cols=4)
+    with pytest.raises(ValueError, match="geometry"):
+        am_search_imc.am_search_imc(x, x.T, tile_rows=0)
+    planes = ref.pack_planes(torch.zeros((4, 16), dtype=torch.int32,
+                                         device=dev), 3)
+    with pytest.raises(ValueError, match="byte multiple"):
+        am_search_multibit.am_search_multibit(x, planes, cell_bits=3,
+                                              tile_rows=12)
+    with pytest.raises(ValueError, match="planes"):
+        am_search_multibit.am_search_multibit(x, planes, cell_bits=4)
+    with pytest.raises(TypeError):
+        binary_mvm.binary_mvm(x.double(), x.T.contiguous().double())
+    with pytest.raises(TypeError):
+        pack_bits.unpack_bits(x)
+

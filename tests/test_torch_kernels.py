@@ -33,7 +33,8 @@ from repro.kernels.pack_bits import pack_bits as jax_pack_bits  # noqa: E402
 from repro.kernels.qail_update import qail_update as jax_qail_update  # noqa: E402
 from repro_torch.kernels import am_search_packed as asp  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    am_search, encode_fused, ops, pack_bits, qail_update, ref,
+    am_search, am_search_imc, am_search_multibit, binary_mvm, encode_fused,
+    ops, pack_bits, qail_update, ref,
 )
 
 # tests/test_kernel_parity.py's GEOMS (batch, features, dim, columns),
@@ -253,10 +254,9 @@ class TestWrapperContract:
         with pytest.raises(ValueError, match="multiple of 8"):
             jax_pack_bits(jnp.ones((2, 12)))
 
-    def test_unpack_mode_not_ported(self):
-        """The name dates from before the unpack mode was ported. It now
-        checks that the mode returns the popcount mode's (idx, sim), and
-        that a mode neither package has is refused."""
+    def test_unpack_mode_equals_popcount_and_bad_mode_raises(self):
+        """The unpack mode returns the popcount mode's (idx, sim), and a
+        mode neither package has is refused."""
         rng = rng_for(8)
         q = ref.pack_rows(t(bipolar(rng, (3, 100))))
         am_t = ref.pack_rows(t(bipolar(rng, (7, 100)))).T.contiguous()
@@ -286,9 +286,17 @@ class TestWrapperContract:
         qail_update.qail_update(x, x, x.T, torch.zeros(4, dtype=torch.int32),
                                 torch.zeros(4, dtype=torch.int32),
                                 torch.ones(4), lr=0.5)
+        binary_mvm.binary_mvm(x, x.T)
+        pack_bits.unpack_bits(ref.pack_bits(x))
+        am_search_imc.am_search_imc(x, x.T, tile_rows=8, tile_cols=4)
+        am_search_multibit.am_search_multibit(
+            x, ref.pack_planes(torch.zeros((4, 16), dtype=torch.int32), 3),
+            cell_bits=3, tile_rows=8)
         assert kernels.launches() == {
             "pack_bits": 0, "am_search_packed": 0, "encode_pack": 0,
-            "qail_update": 0, "am_search": 0, "am_search_packed_unpack": 0}
+            "qail_update": 0, "am_search": 0, "am_search_packed_unpack": 0,
+            "binary_mvm": 0, "unpack_bits": 0, "am_search_imc": 0,
+            "am_search_multibit": 0}
 
     def test_new_wrappers_reject_bad_operands(self):
         x = torch.ones((4, 16))
@@ -358,3 +366,62 @@ class TestDispatch:
         assert tiers["predict_from_features"] == {"torch-ref": 4}
         assert tiers["pack_bits"] == {"torch-ref": 2}
         assert tiers["search_from_features"] == {"torch-ref": 2}
+
+    def test_device_fidelity_dispatches(self):
+        ops.reset_dispatch()
+        rng = rng_for(10)
+        x = dyadic(rng, (4, 16))
+        w = bipolar(rng, (16, 24))
+        q = torch.where(ref.binary_mvm(t(x), t(w)) >= 0, 1.0, -1.0)
+        am = t(bipolar(rng, (5, 24)))
+        owners = torch.arange(5, dtype=torch.int32)
+        from repro_torch.core import ImcSimConfig
+        from repro_torch.core import am as am_lib
+        sim = ImcSimConfig()
+        codes, scale = am_lib.quantize_am(am * 3, 4)
+        planes = am_lib.pack_am_planes(codes, 4)
+        for use_kernel in (True, False):
+            h = ops.encode_mvm(t(x), t(w), use_kernel=use_kernel)
+            assert torch.equal(h, ref.binary_mvm(t(x), t(w)))
+            u = ops.unpack_bits(ref.pack_bits(q), use_kernel=use_kernel)
+            assert torch.equal(u, q)
+            got = ops.predict_imc(q, am, owners, sim=sim,
+                                  use_kernel=use_kernel)
+            assert torch.equal(got, ops.predict_classes(q, am, owners))
+            mb = ops.predict_multibit(q, planes, owners,
+                                      use_kernel=use_kernel)
+            assert torch.equal(mb, am_lib.multibit_predict(planes, owners,
+                                                           q, 4))
+        tiers = ops.dispatch_breakdown()
+        for name in ("binary_mvm", "unpack_bits", "am_search_imc",
+                     "am_search_multibit"):
+            assert tiers[name] == {"torch-ref": 2}, name
+        assert ops.imc_search_cycles((24, 5)) == 1
+        assert ops.multibit_search_cycles(tuple(planes.shape)) == 1
+        assert ops.mvm_cycles((4, 16), (16, 24)) == 1
+
+    def test_fidelity_wrappers_reject_bad_operands(self):
+        x = torch.ones((4, 16))
+        with pytest.raises(ValueError, match="offsets shape"):
+            am_search_imc.am_search_imc(x, x.T, torch.zeros((2, 2)),
+                                        tile_rows=8, tile_cols=4)
+        with pytest.raises(ValueError, match="geometry"):
+            am_search_imc.am_search_imc(x, x.T, tile_cols=0)
+        with pytest.raises(ValueError, match="ADC"):
+            am_search_imc.am_search_imc(x, x.T, adc_bits=0)
+        planes = ref.pack_planes(torch.zeros((4, 16), dtype=torch.int32), 3)
+        with pytest.raises(ValueError, match="byte multiple"):
+            am_search_multibit.am_search_multibit(x, planes, cell_bits=3,
+                                                  tile_rows=12)
+        with pytest.raises(ValueError, match="outside"):
+            am_search_multibit.am_search_multibit(x, planes, cell_bits=9)
+        with pytest.raises(ValueError, match="planes"):
+            am_search_multibit.am_search_multibit(x, planes, cell_bits=4)
+        with pytest.raises(ValueError, match="inconsistent"):
+            am_search_multibit.am_search_multibit(x[:, :4], planes,
+                                                  cell_bits=3)
+        with pytest.raises(ValueError, match="widths differ"):
+            binary_mvm.binary_mvm(x, x)
+        with pytest.raises(ValueError, match="takes"):
+            pack_bits.unpack_bits(torch.zeros(4, dtype=torch.uint8))
+

@@ -225,14 +225,44 @@ def test_empty_stream_reports_nulls(pair):
 
 
 def test_not_ported_targets_raise(pair):
-    # "unpacked" and mode="unpack" are ported now (tested below); the
-    # imc, multibit and hierarchical targets and multi-device serving are
-    # not.
+    # The hierarchical target, top-k serving and multi-device serving are
+    # not ported; the imc and multibit targets are (held against the
+    # reference in tests/test_torch_imcsim.py).
     with pytest.raises(ValueError, match="unknown deploy target"):
-        pair["tm"].deploy(target="imc")
+        pair["tm"].deploy(target="hierarchical")
     with pytest.raises(ValueError, match="mode"):
         pair["tm"].deploy(target="packed", mode="xor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--smoke", "--device", "cpu", "--devices", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--smoke", "--device", "cpu", "--target", "multibit"])
+    for argv in (["--devices", "2"], ["--target", "hierarchical"],
+                 ["--topk", "4"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tserve.main(["--smoke", "--device", "cpu", *argv])
+    assert pair["tm"].deploy(target="imc").backend == "imc"
+    assert pair["tm"].deploy(target="multibit",
+                             cell_bits=4).backend == "multibit"
+
+
+@pytest.mark.parametrize("target,opts", [("imc", {}),
+                                         ("multibit", {"cell_bits": 4}),
+                                         ("multibit", {"cell_bits": 2})])
+def test_device_fidelity_targets_serve_like_the_reference(pair, target,
+                                                          opts):
+    # The fit-keep pair's AMs are bit-equal, so the ideal imc artifact
+    # and the multibit artifacts (quantized from the float shadow) serve
+    # the reference's classes on every request.
+    tdep = pair["tm"].deploy(target=target, **opts)
+    jdep = pair["jm"].deploy(target=target, **opts)
+    x = pair["te_x"]
+    np.testing.assert_array_equal(tdep.predict(x).numpy(),
+                                  np.asarray(jdep.predict(x)))
+    reqs = tserve.synthetic_requests(x, 13, 9, seed=5)
+    got, _ = tserve.serve_batches(tdep, reqs, max_batch=24, depth=2)
+    want, _ = jserve.serve_batches(
+        jdep, jserve.synthetic_requests(x, 13, 9, seed=5), max_batch=24,
+        depth=2)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], np.asarray(want[rid]))
+    rep = tserve.build_report(tdep, reqs, {}, 1.0)
+    assert (rep["backend"], rep["mode"], rep["cycles"]) == (
+        jdep.backend, jdep.serving_mode, jdep.cycles)
+    assert rep["resident_am_bytes"] == jdep.resident_am_bytes
+
