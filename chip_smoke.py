@@ -7,7 +7,7 @@ Phases, each printed on its own line(s); any failure raises and the
 script exits non-zero without the final result line:
 
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
-1. the build: nvcc compiles the eight kernel sources of ``src/repro_torch/
+1. the build: nvcc compiles the ten kernel sources of ``src/repro_torch/
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
    ptxas' register report);
 2. each kernel against its plain PyTorch version on the card, over the
@@ -25,7 +25,11 @@ script exits non-zero without the final result line:
    query may differ only where a tile's partial sum lies within
    2^-20 * sum|terms| of an ADC rounding boundary); ``am_search_multibit``
    at every cell width (2, 4, 8 at full width) on the same arrays, with
-   offsets and a 4-bit ADC, bit-exact;
+   offsets and a 4-bit ADC, bit-exact; ``am_shortlist`` and
+   ``am_search_sparse`` (fused and ``am_search_sparse_gathered``) bit-exact
+   over D in {8, 100, 1000, 1024}, G and C in {1, 2, 45, 448} and ragged
+   counts, S in {1, 3, G}, k in {1, 5, candidates + 2}, forced ties and
+   the global-scratch path;
 3. the main path at the paper's widest MNIST point (f = 784, D = C =
    1024, R = 0.8, lr = 0.02, batch 256, 25 k-means iterations) on the
    full synthetic MNIST: ``MemhdModel.create`` -> ``fit`` ->
@@ -63,11 +67,22 @@ script exits non-zero without the final result line:
    ``python -m repro_torch.launch.robustness_report`` at its defaults and
    at 1024 x 1024 (phase ``robustness``); launch counts zeroed just
    before each path and read just after, no ``torch-ref`` tier;
-10. the ``kernels`` line: launches on the paths, device time, the plain
+10. the hierarchical paths: ``deploy(target="hierarchical")`` of the main
+   path's model (G = 45) served with ``serve_batches(topk=...)``: at S = G
+   top-1 == the packed flat predictions and top-5 == ``ref.am_search_topk``
+   on every request, S = 8 recall printed (phase ``hier_path``, counts
+   zeroed just before and read just after); the reference's huge-label
+   sweep point, a planted AM at C = 100,000, D = 1024, G = 448, clustered
+   on the card by ``build_search_state``, then ``am_shortlist`` +
+   ``am_search_sparse`` at S = 8 and 16, k = 1 and 5: recall@1 >= 0.99 at
+   S = 8, bit-exact against the plain versions, the device time against
+   the flat ``am_search_packed`` at the same C and batch; S = G at C = 512
+   == ``am_search_packed`` (phase ``hier_huge``);
+11. the ``kernels`` line: launches on the paths, device time, the plain
    version's time and the bound of each kernel at the paths' shapes
-   (``qail_update`` also on random targets, where most rows miss), and
-   ``library_ms`` (cuBLAS SGEMM through ``torch.matmul``) for
-   ``binary_mvm``.
+   (``qail_update`` also on random targets, where most rows miss; the
+   hierarchical kernels at the huge-label shape), and ``library_ms``
+   (cuBLAS SGEMM through ``torch.matmul``) for ``binary_mvm``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -116,6 +131,15 @@ NOISY_SIM = dict(adc_bits=6, noise_sigma=0.5, fault_p0=0.01, fault_p1=0.01,
 MULTIBIT_EPOCHS = 3  # the fit(cell_bits=4) fine-tune of multibit_path
 ROBUSTNESS_RUNS = ([], ["--dim", "1024", "--columns", "1024",
                         "--finetune-epochs", "2"])
+# The hierarchical kernels' grid, and the reference's huge-label sweep
+# point (benchmarks/hierarchical_search.py: planted prototypes with bit
+# flips, noisy copies of centroids as queries).
+HIER_D = (8, 100, 1000, 1024)
+HIER_GC = ((1, 1), (2, 2), (45, 300), (448, 1000), (2, 257), (3, 9))
+HUGE = dict(c=100_000, d=1024, g_plant=316, g=448, batch=256,
+            proto_flip=0.08, query_flip=0.10, shortlists=(8, 16))
+EXACT = dict(c=512, g_plant=23, g=23)  # S = G anchor of the sweep
+RECALL_FLOOR = 0.99
 
 
 def check(cond, what) -> None:
@@ -169,7 +193,8 @@ class Smoke:
                         "encode_pack": 0.0, "qail_update": 0.0,
                         "am_search": 0.0, "am_search_packed_unpack": 0.0,
                         "binary_mvm": 0.0, "unpack_bits": 0.0,
-                        "am_search_imc": 0.0, "am_search_multibit": 0.0}
+                        "am_search_imc": 0.0, "am_search_multibit": 0.0,
+                        "am_shortlist": 0.0, "am_search_sparse": 0.0}
         self.path_launches = {}  # kernel -> launches on its own path
 
     # -- helpers ---------------------------------------------------------------
@@ -260,6 +285,89 @@ class Smoke:
                          **self.check_fidelity_kernels(rng, geom)})
         log({"phase": "kernels_vs_plain", "ok": True, "grid": rows,
              "max_abs_err_full_width": self.max_err})
+        self.check_hier_kernels()
+
+    def check_hier_kernels(self):
+        """am_shortlist and am_search_sparse (fused and gathered) against
+        their plain versions, bit-exact, with forced ties (duplicated
+        rows), exhausted slots and the global-scratch path."""
+        np, torch = self.np, self.torch
+        from repro_torch.deploy import hierarchical as hier
+        from repro_torch.kernels import am_search_sparse as ass
+        from repro_torch.kernels import am_shortlist as asl
+        from repro_torch.kernels import ref
+
+        def packed(rng, rows, d, dup):
+            x = self.bipolar(rng, (rows, d))
+            if dup:
+                x = x[torch.arange(rows, device=self.dev) % max(1, rows // 2)]
+            return ref.pack_rows(x)
+
+        def equal(got, want, what):
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]), what)
+
+        cases = 0
+        for d in HIER_D:
+            for g, c in HIER_GC:
+                rng = np.random.default_rng([77, d, g, c])
+                q = packed(rng, 9, d, False)
+                for dup in (False, True):
+                    spt = packed(rng, g, d, dup).T.contiguous()
+                    for s_ in sorted({1, min(3, g), g}):
+                        equal(asl.am_shortlist(q, spt, n_dims=d, s=s_),
+                              ref.am_shortlist(q, spt, d, s_),
+                              ("am_shortlist", d, g, s_, dup))
+                        cases += 1
+                    am_t = packed(rng, c, d, dup).T.contiguous()
+                    lay = hier.build_layout(am_t.cpu().numpy(),
+                                            rng.integers(0, g, size=c), g)
+                    slab, ids, ts, tc = (self.t(a) for a in (
+                        lay.slab, lay.col_ids, lay.tile_start,
+                        lay.tile_count))
+                    for s_ in sorted({1, min(3, g), g}):
+                        short = self.t(np.stack([
+                            rng.permutation(g)[:s_] for _ in range(9)])
+                            .astype(np.int32))
+                        tiles = ass.expand_shortlist_tiles(
+                            short, ts, tc, max_tiles=lay.max_tiles,
+                            null_tile=lay.null_tile)
+                        gat, gid = ass.gather_shortlist(slab, ids, tiles)
+                        for k in (1, 5, c + 2):
+                            want = ass.am_search_sparse_plain(
+                                q, slab, ids, short, ts, tc, n_dims=d, k=k,
+                                max_tiles=lay.max_tiles)
+                            what = ("am_search_sparse", d, g, c, s_, k, dup)
+                            equal(ass.am_search_sparse(
+                                q, slab, ids, short, ts, tc, n_dims=d, k=k,
+                                max_tiles=lay.max_tiles), want, what)
+                            equal(ass.am_search_sparse_gathered(
+                                q, gat, gid, n_dims=d, k=k), want,
+                                ("gathered",) + what)
+                            cases += 2
+                    if dup and d == 1024 and c == 1000:
+                        # S = G, shortlist repeated past the shared-memory
+                        # budget: the keys go through global scratch.
+                        reps = -(-asl.SMEM_SLOTS // (g * lay.max_tiles
+                                                    * 128)) + 1
+                        wide = self.t(np.tile(np.arange(g, dtype=np.int32),
+                                              (9, reps)))
+                        equal(ass.am_search_sparse(
+                            q, slab, ids, wide, ts, tc, n_dims=d, k=5,
+                            max_tiles=lay.max_tiles),
+                            ass.am_search_sparse_plain(
+                                q, slab, ids, wide, ts, tc, n_dims=d, k=5,
+                                max_tiles=lay.max_tiles), "sparse scratch")
+                        big = packed(rng, asl.SMEM_SLOTS + 77, d, True)
+                        bt = big.T.contiguous()
+                        equal(asl.am_shortlist(q, bt, n_dims=d, s=600),
+                              ref.am_shortlist(q, bt, d, 600),
+                              "shortlist scratch")
+                        cases += 2
+        log({"phase": "hier_kernels_vs_plain", "ok": True,
+             "cases_bit_exact": cases, "dims": HIER_D,
+             "groups_columns": HIER_GC})
 
     def check_new_kernels(self, rng, geom):
         """am_search, the unpack mode and qail_update at one geometry
@@ -624,11 +732,13 @@ class Smoke:
              "top_device_ops": [{"op": k[:80], "us": round(u, 1), "count": c}
                                 for u, k, c in rows[:8]]})
 
-    def profile_serving(self, deployed, reqs, fused, pipeline=None):
+    def profile_serving(self, deployed, reqs, fused, pipeline=None,
+                        topk=0):
         from repro_torch.launch import serve_memhd as sm
         self.profile("serve_profile", lambda: sm.serve_batches(
             deployed, reqs, max_batch=1024, warmup=False, fused=fused,
-            depth=2), pipeline=pipeline or ("fused" if fused else "staged"))
+            depth=2, topk=topk),
+            pipeline=pipeline or ("fused" if fused else "staged"))
 
     # -- phase 4 ---------------------------------------------------------------
     def train_path(self):
@@ -774,15 +884,15 @@ class Smoke:
              "unpack_bits_shape": list(unpacked.shape),
              "launches": launches, "dispatch_tiers": tiers})
 
-    def serve(self, dep):
+    def serve(self, dep, topk=0):
         """A warm pass, then the timed pass: (responses, report)."""
         from repro_torch.launch import serve_memhd as sm
-        sm.serve_batches(dep, self.reqs, max_batch=1024, depth=2)
+        sm.serve_batches(dep, self.reqs, max_batch=1024, depth=2, topk=topk)
         t0 = time.perf_counter()
         resp, stats = sm.serve_batches(dep, self.reqs, max_batch=1024,
-                                       warmup=False, depth=2)
+                                       warmup=False, depth=2, topk=topk)
         wall = time.perf_counter() - t0
-        return resp, sm.build_report(dep, self.reqs, stats, wall)
+        return resp, sm.build_report(dep, self.reqs, stats, wall, topk=topk)
 
     def request_queries(self, model):
         """Every request's encoded ±1 queries, concatenated, with the
@@ -901,6 +1011,208 @@ class Smoke:
         log({"phase": "serve_report_multibit", **rep})
         self.profile_serving(dep, self.reqs, False, pipeline="multibit")
 
+    # -- phase 10: the hierarchical paths -----------------------------------
+    def hier_path(self):
+        """deploy(target="hierarchical") of the main path's model, served
+        top-1 and top-5 at S = G and top-1 at S = 8."""
+        np, torch = self.np, self.torch
+        from repro_torch.core import am as am_lib
+        from repro_torch.kernels import ref
+        model = self.model
+
+        def run():
+            t0 = time.perf_counter()
+            exact = model.deploy(target="hierarchical")
+            torch.cuda.synchronize()
+            t_deploy = time.perf_counter() - t0
+            short = model.deploy(target="hierarchical", shortlist=8)
+            out = {}
+            for name, dep, k in (("exact_top1", exact, 1),
+                                 ("exact_top5", exact, 5),
+                                 ("s8_top1", short, 1)):
+                out[name] = self.serve(dep, topk=k)
+            return exact, short, t_deploy, out
+
+        (exact, short, t_deploy, out), launches, tiers = self.path_counts(
+            run)
+        for name in ("am_shortlist", "am_search_sparse"):
+            check(launches[name] > 0, f"{name} was not launched on the "
+                                      "hierarchical path")
+            self.path_launches[name] = launches[name]
+        q, ofs = self.request_queries(model)
+        owners = model.am_state["centroid_class"]
+        flat = am_lib.packed_predict(self.deployed.am_packed_t, owners, q,
+                                     self.amc.dim)
+        top5 = torch.cat([
+            ref.am_search_topk(ref.pack_rows(q[i:i + 512]),
+                               self.deployed.am_packed_t, self.amc.dim,
+                               5)[0] for i in range(0, q.shape[0], 512)])
+        self.check_responses({r: v[:, 0] for r, v in
+                              out["exact_top1"][0].items()}, flat, ofs,
+                             "hier S=G top-1 == packed flat predict")
+        self.check_responses(out["exact_top5"][0], owners[top5.long()], ofs,
+                             "hier S=G top-5 == ref.am_search_topk")
+        got = np.concatenate([out["s8_top1"][0][r.rid][:, 0]
+                              for r in self.reqs])
+        recall = float(np.mean(got == flat.cpu().numpy()))
+        check(exact.groups == 45 and exact.max_tiles == 1,
+              (exact.groups, exact.max_tiles))
+        log({"phase": "hier_path", "groups": exact.groups,
+             "max_tiles": exact.max_tiles,
+             "slab_tiles": exact.am_slab_t.shape[1] // 128,
+             "deploy_seconds": round(t_deploy, 3),
+             "resident_bytes": exact.resident_bytes,
+             "flat_packed_bytes": self.deployed.resident_bytes,
+             "serving_mode": [exact.serving_mode, short.serving_mode],
+             "s_eq_g_top1_eq_flat": True, "s_eq_g_top5_eq_topk": True,
+             "s8_class_agreement_with_flat": recall,
+             "launches": launches, "dispatch_tiers": tiers})
+        for name, (_, rep) in out.items():
+            log({"phase": f"serve_report_hier_{name}", **rep})
+        self.profile_serving(short, self.reqs, False, pipeline="hier_s8_top5",
+                             topk=5)
+
+    def planted(self, rng, c, g_plant):
+        """The reference bench's planted AM: (C, D) int8 bipolar rows,
+        prototypes with ``proto_flip`` bit flips."""
+        np = self.np
+        d, chunk = HUGE["d"], 16384
+        protos = rng.choice(np.array([-1, 1], np.int8), size=(g_plant, d))
+        assign = rng.integers(0, g_plant, size=c)
+        am = np.empty((c, d), np.int8)
+        for i in range(0, c, chunk):
+            blk = protos[assign[i:i + chunk]]
+            flips = rng.random(blk.shape, dtype=np.float32) < HUGE[
+                "proto_flip"]
+            am[i:i + chunk] = np.where(flips, -blk, blk)
+        return am
+
+    def noisy_queries(self, rng, am):
+        np = self.np
+        src = rng.integers(0, am.shape[0], size=HUGE["batch"])
+        q = am[src]
+        flips = rng.random(q.shape, dtype=np.float32) < HUGE["query_flip"]
+        return np.where(flips, -q, q).astype(np.int8)
+
+    def hier_huge(self):
+        """The reference's huge-label sweep point on the card: cluster,
+        shortlist, sparse search, recall and device time against the
+        flat packed scan."""
+        np, torch = self.np, self.torch
+        from repro_torch.deploy import hierarchical as hier
+        from repro_torch.kernels import am_search_packed as asp
+        from repro_torch.kernels import am_search_sparse as ass
+        from repro_torch.kernels import am_shortlist as asl
+        from repro_torch.kernels import ref
+        d, c, g, b = HUGE["d"], HUGE["c"], HUGE["g"], HUGE["batch"]
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(c)
+        am = self.planted(rng, c, HUGE["g_plant"])
+        qn = self.noisy_queries(rng, am)
+        t_data = time.perf_counter() - t0
+        # The exact best similarity, by fp32 products of the ±1 rows (exact
+        # integers), chunked over C: independent of the packed kernels.
+        qf = self.t(qn.astype(np.float32))
+        exact = torch.full((b,), -float("inf"), device=self.dev)
+        for i in range(0, c, 16384):
+            blk = self.t(am[i:i + 16384]).float()
+            exact = torch.maximum(exact, (qf @ blk.T).max(dim=1).values)
+        qp = self.t(hier.pack_rows_np(qn))
+        apt = self.t(hier.pack_rows_np(am).T.copy())
+
+        def run():
+            t0 = time.perf_counter()
+            spt, lay = hier.build_search_state(
+                c, am, g, kmeans_iters=8, kmeans_sample=16384,
+                device=self.dev)
+            torch.cuda.synchronize()
+            t_cluster = time.perf_counter() - t0
+            slab, ids, ts, tc = (self.t(a) for a in (
+                lay.slab, lay.col_ids, lay.tile_start, lay.tile_count))
+            res = {}
+            for s_ in HUGE["shortlists"]:
+                short, ssim = asl.am_shortlist(qp, spt, n_dims=d, s=s_)
+                for k in (1, 5):
+                    res[s_, k] = (short, ssim) + ass.am_search_sparse(
+                        qp, slab, ids, short, ts, tc, n_dims=d, k=k,
+                        max_tiles=lay.max_tiles)
+            return spt, lay, (slab, ids, ts, tc), t_cluster, res
+
+        (spt, lay, layout, t_cluster, res), launches, tiers = \
+            self.path_counts(run)
+        slab, ids, ts, tc = layout
+        flat_idx, flat_sim = asp.am_search_packed(qp, apt, n_dims=d)
+        torch.cuda.synchronize()
+        check(torch.equal(flat_sim, exact), "flat packed scan != exact sims")
+        out = {}
+        for (s_, k), (short, ssim, idx, sim) in res.items():
+            w_short = ref.am_shortlist(qp, spt, d, s_)
+            check(torch.equal(short, w_short[0])
+                  and torch.equal(ssim, w_short[1]), ("huge shortlist", s_))
+            want = ass.am_search_sparse_plain(
+                qp, slab, ids, short, ts, tc, n_dims=d, k=k,
+                max_tiles=lay.max_tiles)
+            check(torch.equal(idx, want[0]) and torch.equal(sim, want[1]),
+                  ("huge sparse", s_, k))
+            for name, e in (("am_shortlist", ssim - w_short[1]),
+                            ("am_search_sparse", sim - want[1])):
+                self.max_err[name] = max(self.max_err[name],
+                                         e.abs().max().item())
+            recall = (sim[:, 0] == exact).float().mean().item()
+            out[f"s{s_}_k{k}_recall_at_1"] = recall
+        check(out["s8_k1_recall_at_1"] >= RECALL_FLOOR, out)
+        # Device time: the two-stage search against the flat scan.
+        s8 = HUGE["shortlists"][0]
+        short8 = res[s8, 1][0]
+
+        def two_stage():
+            sh, _ = asl.am_shortlist(qp, spt, n_dims=d, s=s8)
+            return ass.am_search_sparse(qp, slab, ids, sh, ts, tc, n_dims=d,
+                                        k=1, max_tiles=lay.max_tiles)
+
+        def flat_ms():  # every query tile of the flat kernel
+            return {bb: time_device_ms(lambda: asp.am_search_packed(
+                qp, apt, n_dims=d, block_b=bb))
+                for bb in asp.BLOCK_B_CHOICES}
+
+        flat_before = flat_ms()
+        hier_ms = time_device_ms(two_stage)
+        flat_after = flat_ms()
+        best_flat = min(min(flat_before.values()), min(flat_after.values()))
+        # The exact anchor: S = G at C = 512 == am_search_packed.
+        erng = np.random.default_rng(EXACT["c"])
+        eam = self.planted(erng, EXACT["c"], EXACT["g_plant"])
+        eq = self.t(hier.pack_rows_np(self.noisy_queries(erng, eam)))
+        espt, elay = hier.build_search_state(
+            EXACT["c"], eam, EXACT["g"], device=self.dev)
+        eshort, _ = asl.am_shortlist(eq, espt, n_dims=d, s=EXACT["g"])
+        e_idx, e_sim = ass.am_search_sparse(
+            eq, *(self.t(a) for a in (elay.slab, elay.col_ids)), eshort,
+            *(self.t(a) for a in (elay.tile_start, elay.tile_count)),
+            n_dims=d, k=1, max_tiles=elay.max_tiles)
+        f_idx, f_sim = asp.am_search_packed(
+            eq, self.t(hier.pack_rows_np(eam).T.copy()), n_dims=d)
+        torch.cuda.synchronize()
+        check(torch.equal(e_idx[:, 0], f_idx) and torch.equal(e_sim[:, 0],
+                                                               f_sim),
+              "S = G at C = 512 != am_search_packed")
+        self.huge = dict(qp=qp, spt=spt, layout=layout, lay=lay,
+                         short8=short8)
+        log({"phase": "hier_huge", "C": c, "D": d, "G": g, "B": b,
+             "planted": HUGE["g_plant"], "data_seconds": round(t_data, 3),
+             "cluster_seconds": round(t_cluster, 3),
+             "slab_tiles": lay.n_tiles, "max_tiles": lay.max_tiles,
+             "slab_bytes": int(lay.slab.size), "flat_bytes": int(apt.numel()),
+             **out, "bit_exact_vs_plain": True,
+             "exact_anchor_c512_eq_flat": True,
+             "flat_ms_by_block_b": [flat_before, flat_after],
+             "flat_default_ms": flat_before[asp.DEFAULT_BLOCK_B],
+             "two_stage_s8_ms": hier_ms,
+             "flat_default_over_two_stage":
+                 flat_before[asp.DEFAULT_BLOCK_B] / hier_ms,
+             "best_flat_over_two_stage": best_flat / hier_ms,
+             "launches": launches, "dispatch_tiers": tiers})
+
     def robustness(self):
         """The robustness CLI as a subprocess, at its defaults and at
         1024 x 1024."""
@@ -966,7 +1278,9 @@ class Smoke:
                 "--max-batch", "128"]
         for extra in ([], ["--fused"], ["--target", "unpacked"],
                       ["--mode", "unpack"], ["--target", "imc"],
-                      ["--target", "multibit", "--cell-bits", "4"]):
+                      ["--target", "multibit", "--cell-bits", "4"],
+                      ["--target", "hierarchical", "--topk", "5"],
+                      ["--target", "hierarchical", "--shortlist", "4"]):
             rep = sm.main(base + extra)
             tiers = rep["metrics"]["dispatch_tiers"]
             check("torch-ref" not in json.dumps(tiers), tiers)
@@ -1040,7 +1354,7 @@ class Smoke:
             rec[f"{key}_fp_equal"] = same_fp
         log(rec)
 
-    # -- phase 9 ---------------------------------------------------------------
+    # -- phase 11 --------------------------------------------------------------
     def kernel_line(self):
         np, torch = self.np, self.torch
         from repro_torch.core import encoding
@@ -1172,6 +1486,47 @@ class Smoke:
              bound(4 * b * d + mdep.am_planes_t.numel() + 8 * b,
                    2 * b * c * d, INT8_OPS_PER_S)),
         ]
+        # The hierarchical kernels at the huge-label shape (B = 256,
+        # C = 100,000, D = 1024, G = 448, S = 8, k = 1). ±1 operands, exact
+        # in int8: operations at the int8 tensor-core rate. The sparse
+        # search's work depends on this run's shortlists: the operations
+        # count the valid columns its queries search, the bytes each slab
+        # tile they touch once.
+        from repro_torch.kernels import am_search_sparse as ass
+        from repro_torch.kernels import am_shortlist as asl
+        hq, hspt, hlay = self.huge["qp"], self.huge["spt"], self.huge["lay"]
+        slab, ids, ts, tc = self.huge["layout"]
+        short8 = self.huge["short8"]
+        hb, hdp = hq.shape
+        hg, hs, hd = hspt.shape[1], short8.shape[1], HUGE["d"]
+        mt = hlay.max_tiles
+        tiles = ass.expand_shortlist_tiles(short8, ts, tc, max_tiles=mt,
+                                           null_tile=hlay.null_tile)
+        cols = (tiles[:, :, None] * 128 + torch.arange(
+            128, device=self.dev)).reshape(hb, -1)
+        valid = int((ids[cols] >= 0).sum().item())
+        touched = int(torch.unique(tiles).numel())
+        self.hier_work = {"valid_columns_searched": valid,
+                          "slab_tiles_touched": touched,
+                          "slots_per_query": hs * mt * 128}
+        cases += [
+            ("am_shortlist", "src/repro_torch/kernels/csrc/am_shortlist.cu",
+             "src/repro/kernels/am_shortlist.py:127",
+             lambda: asl.am_shortlist(hq, hspt, n_dims=hd, s=hs),
+             lambda: ref.am_shortlist(hq, hspt, hd, hs),
+             bound(hb * hdp + hdp * hg + hb * hs * 8, 2 * hb * hg * hd,
+                   INT8_OPS_PER_S)),
+            ("am_search_sparse",
+             "src/repro_torch/kernels/csrc/am_search_sparse.cu",
+             "src/repro/kernels/am_search_sparse.py:140",
+             lambda: ass.am_search_sparse(hq, slab, ids, short8, ts, tc,
+                                          n_dims=hd, k=1, max_tiles=mt),
+             lambda: ass.am_search_sparse_plain(hq, slab, ids, short8, ts,
+                                                tc, n_dims=hd, k=1,
+                                                max_tiles=mt),
+             bound(touched * 128 * (hdp + 4) + hb * hdp + hb * hs * 4
+                   + 2 * hg * 4 + hb * 8, 2 * valid * hd, INT8_OPS_PER_S)),
+        ]
         library = {"binary_mvm": lambda: torch.matmul(efeats, eproj)}
         out = []
         for name, src, replaces, kern, plain, (bound_ms, bound_by) in cases:
@@ -1218,7 +1573,10 @@ class Smoke:
              "fp32_flop_per_s_from_clock": sms * 128 * 2 * clk_mhz * 1e6,
              "hbm_bytes_per_s": HBM_BYTES_PER_S,
              "shapes": {"B": b, "f": f, "D": d, "C": c,
-                        "B_train": TRAIN_B}})
+                        "B_train": TRAIN_B,
+                        "hier": {"B": HUGE["batch"], "C": HUGE["c"],
+                                 "D": HUGE["d"], "G": HUGE["g"], "S": 8,
+                                 "k": 1, **self.hier_work}}})
         log({"kernels": out})
 
 
@@ -1226,9 +1584,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
-                         "robustness,cli,trainer,repro (development runs; "
-                         "train and fidelity need main, the kernels line "
-                         "needs kernels, main, train and fidelity)")
+                         "hier,robustness,cli,trainer,repro (development "
+                         "runs; train, fidelity and hier need main, the "
+                         "kernels line needs kernels, main, train, "
+                         "fidelity and hier)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -1244,7 +1603,7 @@ def main():
     log({"phase": "device", "torch": torch.__version__,
          "cuda": torch.version.cuda, "kind": kind,
          "count": torch.cuda.device_count()})
-    phases = (["build", "kernels", "main", "train", "fidelity",
+    phases = (["build", "kernels", "main", "train", "fidelity", "hier",
                "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
@@ -1261,6 +1620,9 @@ def main():
         smoke.entry_points()
         smoke.imc_path()
         smoke.multibit_path()
+    if "hier" in phases:
+        smoke.hier_path()
+        smoke.hier_huge()
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
@@ -1269,7 +1631,8 @@ def main():
         smoke.trainer()
     if "repro" in phases:
         smoke.reproducibility()
-    if all(p in phases for p in ("kernels", "main", "train", "fidelity")):
+    if all(p in phases for p in ("kernels", "main", "train", "fidelity",
+                                 "hier")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -1,5 +1,5 @@
-"""Carry weights across: numpy arrays -> the port's ``MemhdModel`` and
-``MemhdTrainState``.
+"""Carry weights across: numpy arrays -> the port's ``MemhdModel``,
+``MemhdTrainState`` and ``HierarchicalMemhd``.
 
 The parity tests build a model (or a training state) in the JAX package,
 pull its arrays to numpy on that side, and hand them here, so the port
@@ -13,6 +13,12 @@ never sees a jax object:
     state = train_state_from_numpy(
         {"fp": fp, "binary": binary, "centroid_class": cc}, epoch=3,
         device="cpu")
+    dep = hierarchical_from_numpy(
+        {"projection": proj},
+        {"super_packed_t": spt, "am_slab_t": slab, "col_ids": ids,
+         "tile_start": ts, "tile_count": tc, "centroid_class": cc},
+        dataclasses.asdict(enc_cfg), dataclasses.asdict(am_cfg),
+        shortlist=8, device="cpu")
 """
 from __future__ import annotations
 
@@ -49,6 +55,34 @@ def train_state_from_numpy(am_state: Mapping[str, np.ndarray], epoch: int,
     it once a ``CheckpointManager`` has saved it)."""
     device = resolve_device(device)
     return MemhdTrainState.create(_am_state(am_state, device), int(epoch))
+
+
+def hierarchical_from_numpy(enc_params: Mapping[str, np.ndarray],
+                            leaves: Mapping[str, np.ndarray],
+                            enc_cfg: Mapping, am_cfg: Mapping, *,
+                            shortlist: int | None = None, device=None):
+    """The port's ``HierarchicalMemhd`` from a reference artifact's leaves:
+    ``super_packed_t`` (Dp, G) uint8, the layout's ``am_slab_t`` (Dp, Ctot)
+    uint8, ``col_ids`` (Ctot,), ``tile_start`` / ``tile_count`` (G,) and
+    ``centroid_class`` (C,), so both packages serve one identical layout.
+    G is the length of ``tile_start``; S defaults to G."""
+    from repro_torch.deploy.hierarchical import (
+        ClusterLayout, artifact_from_layout,
+    )
+    device = resolve_device(device)
+    tile_count = np.asarray(leaves["tile_count"], np.int32)
+    layout = ClusterLayout(
+        slab=np.asarray(leaves["am_slab_t"], np.uint8),
+        col_ids=np.asarray(leaves["col_ids"], np.int32),
+        tile_start=np.asarray(leaves["tile_start"], np.int32),
+        tile_count=tile_count,
+        max_tiles=int(tile_count.max()) if tile_count.size else 1)
+    return artifact_from_layout(
+        {"projection": _f32(enc_params["projection"], device)},
+        np.asarray(leaves["super_packed_t"], np.uint8), layout,
+        np.asarray(leaves["centroid_class"], np.int32),
+        EncoderConfig(**enc_cfg), MemhdConfig(**am_cfg),
+        shortlist=shortlist, device=device)
 
 
 def _f32(a, device) -> torch.Tensor:

@@ -303,7 +303,11 @@ class MemhdModel:
           ideal ``sim`` equals the digital artifacts bit for bit;
         * ``"multibit"`` — the float shadow at ``cell_bits`` (2..8) bits
           per cell in bit planes, searched by ``am_search_multibit``
-          (an optional ``sim`` sets the array, ADC and drift).
+          (an optional ``sim`` sets the array, ADC and drift);
+        * ``"hierarchical"`` — the coarse-to-fine top-k artifact
+          (``groups=``, ``shortlist=``): ``am_shortlist`` over G packed
+          super-centroids, then ``am_search_sparse`` over the shortlisted
+          clusters' tiles; ``predict_topk``. S = G equals the flat scan.
 
         ``packed=False`` is the legacy spelling of ``target="unpacked"``.
         ``sim=`` with a digital target raises."""

@@ -3,10 +3,10 @@
 
 ``MemhdModel.deploy(target=..., **opts)`` dispatches through this table:
 a backend is a factory ``(model, **opts) -> DeployedArtifact``
-registered under a target name. ``"packed"``, ``"unpacked"``, ``"imc"``
-and ``"multibit"`` are ported; asking for any other target (the
-reference's ``"hierarchical"``) raises the registry's "unknown deploy
-target" error.
+registered under a target name. The built-in targets are the
+reference's: ``"packed"``, ``"unpacked"``, ``"imc"``, ``"multibit"`` and
+``"hierarchical"``; any other target raises the registry's "unknown
+deploy target" error.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ _BACKENDS: Dict[str, Callable] = {}
 
 # Modules whose import registers the built-in backends.
 _BUILTIN_MODULES = ("repro_torch.deploy.digital",
+                    "repro_torch.deploy.hierarchical",
                     "repro_torch.deploy.multibit",
                     "repro_torch.imcsim.deploy")
 

@@ -4,6 +4,8 @@ from repro_torch.kernels import am_search as _as
 from repro_torch.kernels import am_search_imc as _asi
 from repro_torch.kernels import am_search_multibit as _asm
 from repro_torch.kernels import am_search_packed as _asp
+from repro_torch.kernels import am_search_sparse as _ass
+from repro_torch.kernels import am_shortlist as _asl
 from repro_torch.kernels import binary_mvm as _bm
 from repro_torch.kernels import encode_fused as _ef
 from repro_torch.kernels import pack_bits as _pb
@@ -21,7 +23,11 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
            "binary_mvm": (_bm.binary_mvm, "launches"),
            "unpack_bits": (_pb.unpack_bits, "launches"),
            "am_search_imc": (_asi.am_search_imc, "launches"),
-           "am_search_multibit": (_asm.am_search_multibit, "launches")}
+           "am_search_multibit": (_asm.am_search_multibit, "launches"),
+           "am_shortlist": (_asl.am_shortlist, "launches"),
+           "am_search_sparse": (_ass.am_search_sparse, "launches"),
+           "am_search_sparse_gathered": (_ass.am_search_sparse_gathered,
+                                         "launches")}
 
 
 def reset_launches() -> None:

@@ -27,9 +27,11 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
            "am_search.cu", "qail_update.cu", "binary_mvm.cu",
-           "am_search_imc.cu", "am_search_multibit.cu")
+           "am_search_imc.cu", "am_search_multibit.cu", "am_shortlist.cu",
+           "am_search_sparse.cu")
 # Included by sources; part of the hash.
-HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh")
+HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh",
+           "packed_topk.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -55,6 +57,11 @@ SIGNATURES = {
                              _I, _I, _I, _I, _F, _F, _P),
     "am_search_multibit_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _F, _P),
+    "am_shortlist_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "am_search_sparse_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P),
+    "am_search_sparse_gathered_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _I, _P),
 }
 
 _lock = threading.Lock()

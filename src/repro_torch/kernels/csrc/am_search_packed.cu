@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_topk.cuh"  // packed_word
+
 namespace {
 
 constexpr int TX = 64;  // AM columns per tile (threads across columns)
@@ -109,16 +111,8 @@ am_search_packed_kernel(const uint8_t* __restrict__ q,
   // Stage this block's queries as zero-padded little-endian words.
   for (int e = tid; e < BQ * Dw; e += NT) {
     const int r = e / Dw, w = e % Dw, b = b0 + r;
-    uint32_t word = 0;
-    if (b < B) {
-      const uint8_t* row = q + (size_t)b * Dp;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int d = 4 * w + k;
-        if (d < Dp) word |= (uint32_t)row[d] << (8 * k);
-      }
-    }
-    qs[e] = word;
+    qs[e] = b < B ? packed_topk::packed_word(q + (size_t)b * Dp, 1, w, Dp)
+                  : 0u;
   }
 
   int best_ham[QPT], best_idx[QPT];
@@ -132,15 +126,8 @@ am_search_packed_kernel(const uint8_t* __restrict__ q,
     __syncthreads();  // the previous tile is consumed; qs is visible
     for (int e = tid; e < Dw * TX; e += NT) {
       const int w = e / TX, cc = e % TX, c = c0 + cc;
-      uint32_t word = 0;
-      if (c < C) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int d = 4 * w + k;
-          if (d < Dp) word |= (uint32_t)am_t[(size_t)d * C + c] << (8 * k);
-        }
-      }
-      as[e] = word;
+      as[e] = c < C ? packed_topk::packed_word(am_t + c, (size_t)C, w, Dp)
+                    : 0u;
     }
     __syncthreads();
     const int c = c0 + tx;

@@ -7,10 +7,6 @@ or ``use_kernel=False``, by the plain PyTorch version (tier
 ``torch-ref``). Every call adds one to the ``(kernel, tier, geometry)``
 dispatch counter, the port's ``kernel_dispatch_total``;
 ``dispatch_breakdown()`` sums it over geometries for the serving report.
-
-Dispatches of the kernels not ported yet — the hierarchical searches
-``am_shortlist`` and ``am_search_sparse`` — are absent; ROADMAP queue 2
-lists them.
 """
 from __future__ import annotations
 
@@ -35,6 +31,11 @@ from repro_torch.kernels.am_search_packed import (
     am_search_packed as _am_search_packed,
 )
 from repro_torch.kernels.am_search_packed import pack_rows as _pack_rows
+from repro_torch.kernels.am_search_sparse import (
+    am_search_sparse as _am_search_sparse,
+)
+from repro_torch.kernels.am_search_sparse import am_search_sparse_plain
+from repro_torch.kernels.am_shortlist import am_shortlist as _am_shortlist
 from repro_torch.kernels.encode_fused import encode_pack as _encode_pack
 from repro_torch.kernels.encode_fused import (
     predict_from_features as _predict_from_features,
@@ -153,6 +154,44 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
         return ref.am_search_packed(q_packed, am_packed_t, n_dims)
     return _am_search_packed(q_packed, am_packed_t, n_dims=n_dims,
                              mode=mode, block_b=block_b)
+
+
+def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
+                 n_dims: int, s: int, use_kernel: bool = True,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coarse pass of the hierarchical search: ((B, s) cluster ids,
+    (B, s) super similarities), best first, ties toward the lower
+    cluster id."""
+    tier = _tier(q_packed, use_kernel)
+    _count("am_shortlist", tier, B=q_packed.shape[0], D=n_dims,
+           G=super_packed_t.shape[1], S=s)
+    if tier == "torch-ref":
+        return ref.am_shortlist(q_packed, super_packed_t, n_dims, s)
+    return _am_shortlist(q_packed, super_packed_t, n_dims=n_dims, s=s)
+
+
+def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
+                     col_ids: torch.Tensor, shortlist: torch.Tensor,
+                     tile_start: torch.Tensor, tile_count: torch.Tensor, *,
+                     n_dims: int, k: int, max_tiles: int,
+                     use_kernel: bool = True,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fine pass of the hierarchical search over the cluster-contiguous
+    slab (``deploy.hierarchical.build_layout``): ((B, k) original
+    centroid ids, (B, k) sims) by (-sim, id); exhausted slots (-1,
+    float32-min). With S = G the k = 1 column equals
+    ``am_search_packed``. The CUDA kernel reads the shortlisted tiles
+    through the layout; the plain tier gathers them first."""
+    tier = _tier(q_packed, use_kernel)
+    _count("am_search_sparse", tier, B=q_packed.shape[0], D=n_dims,
+           S=shortlist.shape[1], K=k)
+    if tier == "torch-ref":
+        return am_search_sparse_plain(
+            q_packed, am_slab_t, col_ids, shortlist, tile_start, tile_count,
+            n_dims=n_dims, k=k, max_tiles=max_tiles)
+    return _am_search_sparse(q_packed, am_slab_t, col_ids, shortlist,
+                             tile_start, tile_count, n_dims=n_dims, k=k,
+                             max_tiles=max_tiles)
 
 
 def pack_rows(x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:

@@ -69,6 +69,90 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor,
     return best_idx.to(torch.int32), best_sim
 
 
+NEG = float(torch.finfo(torch.float32).min)  # exhausted top-k slot sim
+_SENT = int(torch.iinfo(torch.int32).max)    # id sentinel of masked columns
+
+
+def _rank_by_sim_then_id(sims: torch.Tensor,
+                         ids: torch.Tensor) -> torch.Tensor:
+    """Column order sorting each row by (-sim, id): best similarity
+    first, ties toward the LOWER id (the flat search's first-wins compare
+    when ids are the scan order). Two stable sorts: by id, then by -sim;
+    equal (sim, id) pairs keep their column order."""
+    id_order = torch.sort(ids, dim=-1, stable=True).indices
+    sims_by_id = torch.gather(sims, -1, id_order)
+    sim_order = torch.sort(-sims_by_id, dim=-1, stable=True).indices
+    return torch.gather(id_order, -1, sim_order)
+
+
+def _topk_by_id(sims: torch.Tensor, k: int,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    ids = torch.arange(sims.shape[-1], dtype=torch.int32,
+                       device=sims.device).expand(sims.shape)
+    order = _rank_by_sim_then_id(sims, ids)[:, :k]
+    return order.to(torch.int32), torch.gather(sims, -1, order)
+
+
+def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor,
+                 n_dims: int, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coarse pass of the hierarchical search: the top-``s`` clusters.
+
+    q_packed: (B, Dp) uint8; super_packed_t: (Dp, G) uint8 packed
+    super-centroids; 1 <= s <= G. Returns ((B, s) int32 cluster ids,
+    (B, s) float32 super similarities), best first, ties toward the lower
+    cluster id."""
+    sims = (n_dims - 2 * hamming_distances(q_packed, super_packed_t)).float()
+    return _topk_by_id(sims, s)
+
+
+def am_search_topk(q_packed: torch.Tensor, am_packed_t: torch.Tensor,
+                   n_dims: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact flat top-k search (the recall reference): (idx, sims), each
+    (B, min(k, C)), ordered by (-sim, centroid id); column 0 equals
+    ``am_search_packed``."""
+    sims = (n_dims - 2 * hamming_distances(q_packed, am_packed_t)).float()
+    return _topk_by_id(sims, k)
+
+
+def _popcount8(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each byte of a uint8 tensor (SWAR, stays uint8)."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
+
+
+def am_search_sparse(q_packed: torch.Tensor, tiles_packed: torch.Tensor,
+                     tile_ids: torch.Tensor, n_dims: int, k: int,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fine pass of the hierarchical search, on pre-gathered tiles.
+
+    q_packed: (B, Dp) uint8; tiles_packed: (B, Dp, T*128) uint8, each
+    query's shortlisted AM tiles side by side; tile_ids: (B, T*128) int32
+    original centroid id of each column, -1 for padding and null-tile
+    columns (masked). Returns ((B, k) int32 original ids, (B, k) float32
+    sims) ordered by (-sim, id); slots with no candidate left are
+    (-1, float32-min), also when k exceeds the column count. The
+    (B, Dp, T*128) XOR stays uint8 until the reduce.
+    """
+    x = torch.bitwise_xor(q_packed[:, :, None], tiles_packed)
+    ham = _popcount8(x).sum(dim=1, dtype=torch.int32)  # (B, T*128)
+    valid = tile_ids >= 0
+    sims = torch.where(valid, (n_dims - 2 * ham).float(),
+                       torch.tensor(NEG, device=ham.device))
+    ids = torch.where(valid, tile_ids,
+                      torch.tensor(_SENT, dtype=tile_ids.dtype,
+                                   device=ham.device))
+    order = _rank_by_sim_then_id(sims, ids)[:, :k]
+    top_sims = torch.gather(sims, -1, order)
+    top_ids = torch.gather(tile_ids, -1, order)
+    idx = torch.where(top_sims > NEG, top_ids, -1).to(torch.int32)
+    pad = k - idx.shape[-1]
+    if pad > 0:  # k > candidate columns: exhausted slots
+        idx = F.pad(idx, (0, pad), value=-1)
+        top_sims = F.pad(top_sims, (0, pad), value=NEG)
+    return idx, top_sims
+
+
 def encode_pack(feats: torch.Tensor, projection: torch.Tensor,
                 ) -> torch.Tensor:
     """Feature -> packed query: H = feats @ projection in float32, bit 1

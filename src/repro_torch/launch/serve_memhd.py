@@ -14,7 +14,10 @@ through ``am_search``. Predictions are bit-exact across all of them.
 ``--target imc`` serves the AM burned onto an ideal simulated analog
 device through ``am_search_imc`` (equal to the digital predictions), and
 ``--target multibit --cell-bits b`` the b-bit quantized float AM through
-``am_search_multibit``.
+``am_search_multibit``. ``--target hierarchical`` serves the
+coarse-to-fine artifact (``am_shortlist`` over ``--groups`` super-centroids,
+then ``am_search_sparse`` over ``--shortlist`` clusters' tiles), and
+``--topk k`` serves each row's k best classes through its ``predict_topk``.
 
 The JSON report keeps the reference's keys; its ``metrics`` section
 holds the port's dispatch tiers (``cuda`` / ``torch-ref``).
@@ -26,6 +29,8 @@ Usage (on the GPU):
       --target unpacked
   PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
       --target multibit --cell-bits 4
+  PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
+      --target hierarchical --topk 5
 and ``--device cpu`` for the plain path on the CPU.
 """
 from __future__ import annotations
@@ -109,16 +114,29 @@ def serve_batches(deployed, requests: Sequence[Request],
     behind earlier batches on the one in-order stream) +
     ``service_ms_*``; at ``depth=1`` the queue wait is zero.
 
+    ``topk >= 1`` serves through the backend's ``predict_topk`` (the
+    hierarchical backend's top-k epilogue): each response row widens to
+    the k best classes. It excludes ``fused``, and a backend without
+    ``predict_topk`` raises ``AttributeError``.
+
     Returns (responses, stats): responses maps rid -> (n,) predicted
-    classes; stats holds per-batch latencies and padding accounting.
+    classes ((n, topk) when ``topk >= 1``); stats holds per-batch
+    latencies and padding accounting.
     """
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    if topk:
-        raise NotImplementedError(
-            "top-k serving is not ported yet (ROADMAP queue 1, item 11)")
+    if topk and fused:
+        raise ValueError("topk serving and the fused feature pipeline "
+                         "are mutually exclusive")
     device = deployed.device
-    predict = deployed.predict_features if fused else deployed.predict
+    if topk:
+        if not hasattr(deployed, "predict_topk"):
+            raise AttributeError(f"the {deployed.backend} backend has no "
+                                 "predict_topk: top-k serving needs "
+                                 "--target hierarchical")
+        predict = lambda x: deployed.predict_topk(x, topk)[0]  # noqa: E731
+    else:
+        predict = deployed.predict_features if fused else deployed.predict
     batches = make_batches(requests, max_batch)
     if warmup and requests:
         n_feats = requests[0].feats.shape[1]
@@ -273,16 +291,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--target", default=None,
                     choices=["packed", "unpacked", "imc", "hierarchical",
                              "multibit"],
-                    help="deployment backend (hierarchical is not "
-                         "ported)")
+                    help="deployment backend")
     ap.add_argument("--cell-bits", type=int, default=4,
                     help="multibit: bits per resident AM cell (2-8)")
     ap.add_argument("--mode", default="popcount",
                     choices=["popcount", "unpack"])
     ap.add_argument("--topk", type=int, default=0,
-                    help="top-k serving (not ported); 0 = argmax serving")
-    ap.add_argument("--groups", type=int, default=None)
-    ap.add_argument("--shortlist", type=int, default=None)
+                    help="serve k candidates per row through the top-k "
+                         "epilogue (hierarchical backend); 0 = argmax "
+                         "serving")
+    ap.add_argument("--groups", type=int, default=None,
+                    help="hierarchical: G super-centroids "
+                         "(default ~1.4*sqrt(C))")
+    ap.add_argument("--shortlist", type=int, default=None,
+                    help="hierarchical: S clusters searched per query "
+                         "(default G: exact)")
     ap.add_argument("--unpacked", action="store_true",
                     help="legacy alias for --target unpacked")
     ap.add_argument("--fused", action="store_true",
@@ -307,13 +330,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.target and args.unpacked:
         ap.error("--unpacked is the legacy alias; drop it with --target")
     target = args.target or ("unpacked" if args.unpacked else "packed")
-    if target == "hierarchical":
-        _not_ported("--target hierarchical", "ROADMAP queue 1, item 11")
     if args.fused and target != "packed":
         ap.error("--fused needs the packed backend (--target packed)")
-    if args.topk or args.groups or args.shortlist:
-        _not_ported("--topk/--groups/--shortlist",
-                    "ROADMAP queue 1, item 11")
+    if args.topk and target != "hierarchical":
+        ap.error("--topk needs the top-k backend "
+                 "(--target hierarchical)")
+    if (args.groups or args.shortlist) and target != "hierarchical":
+        ap.error("--groups/--shortlist only apply to "
+                 "--target hierarchical")
     if args.devices > 1:
         _not_ported("--devices > 1", "ROADMAP queue 1, item 13")
     if args.record_dir:
@@ -337,6 +361,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     model, _ = model.fit(1, ds.train_x, ds.train_y)
     if target in ("packed", "unpacked"):
         deployed = model.deploy(target=target, mode=args.mode)
+    elif target == "hierarchical":
+        deployed = model.deploy(target=target, groups=args.groups,
+                                shortlist=args.shortlist)
     elif target == "multibit":
         deployed = model.deploy(target=target, cell_bits=args.cell_bits)
     else:
@@ -347,13 +374,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # The warmup pass builds the kernels and runs every padded shape; the
     # timed pass then measures serving alone.
     serve_batches(deployed, reqs, args.max_batch, fused=args.fused,
-                  depth=args.depth)
+                  depth=args.depth, topk=args.topk)
     t0 = time.time()
     responses, stats = serve_batches(
         deployed, reqs, args.max_batch, warmup=False, fused=args.fused,
-        depth=args.depth)
+        depth=args.depth, topk=args.topk)
     wall = time.time() - t0
-    report = build_report(deployed, reqs, stats, wall, fused=args.fused)
+    report = build_report(deployed, reqs, stats, wall, fused=args.fused,
+                          topk=args.topk)
     print(json.dumps(report, indent=1))
     if len(responses) != len(reqs):
         raise RuntimeError(f"{len(responses)} responses for "

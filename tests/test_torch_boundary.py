@@ -62,6 +62,9 @@ imcsim.noise_aware_finetune(m, 2, ds.train_x, ds.train_y,
 imcsim.multibit_finetune(m, 2, ds.train_x, ds.train_y, 4, epochs=1)
 ops.encode_mvm(ds.test_x, m.enc_params["projection"])
 ops.unpack_bits(dep.am_packed_t)
+hier = m.deploy(target="hierarchical", shortlist=2)
+hier.predict_topk(ds.test_x, 3)
+serve_memhd.serve_batches(hier, reqs, topk=2)
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad

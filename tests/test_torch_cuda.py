@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import am_search_packed as asp  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    am_search, am_search_imc, am_search_multibit, binary_mvm, encode_fused,
-    ops, pack_bits, qail_update, ref,
+    am_search, am_search_imc, am_search_multibit, am_search_sparse,
+    am_shortlist, binary_mvm, encode_fused, ops, pack_bits, qail_update, ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -215,7 +215,8 @@ def test_launch_counters_and_cuda_tier(dev):
         "pack_bits": 2, "am_search_packed": 2, "encode_pack": 1,
         "qail_update": 1, "am_search": 1, "am_search_packed_unpack": 1,
         "binary_mvm": 0, "unpack_bits": 0, "am_search_imc": 0,
-        "am_search_multibit": 0}
+        "am_search_multibit": 0, "am_shortlist": 0, "am_search_sparse": 0,
+        "am_search_sparse_gathered": 0}
     tiers = ops.dispatch_breakdown()
     for name in ("am_search_packed", "am_search", "qail_update"):
         assert set(tiers[name]) == {"cuda"}
@@ -363,3 +364,151 @@ def test_fidelity_wrappers_reject_bad_operands(dev):
     with pytest.raises(TypeError):
         pack_bits.unpack_bits(x)
 
+
+
+# The hierarchical kernels: D over ragged bytes and tail bits, G and C over
+# 1, 2, 45, 448 and ragged counts (D, G or C).
+HIER_D = (8, 100, 1000, 1024)
+HIER_G = (1, 2, 45, 448)
+
+
+def packed_rows(rng, shape, dev, dup=False):
+    x = bipolar(rng, shape, dev)
+    if dup:  # duplicated rows: forced ties
+        x = x[torch.arange(shape[0], device=dev) % max(1, shape[0] // 2)]
+    return ref.pack_rows(x)
+
+
+@pytest.mark.parametrize("d", HIER_D)
+@pytest.mark.parametrize("g", HIER_G)
+def test_am_shortlist(dev, d, g):
+    rng = np.random.default_rng([20, d, g])
+    q = packed_rows(rng, (7, d), dev)
+    for dup in (False, True):
+        spt = packed_rows(rng, (g, d), dev, dup).T.contiguous()
+        for s in sorted({1, min(3, g), g}):
+            got = am_shortlist.am_shortlist(q, spt, n_dims=d, s=s)
+            want = ref.am_shortlist(q, spt, d, s)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+def test_am_shortlist_streams_a_large_g(dev):
+    # Past the shared-memory budget the keys go through global scratch.
+    rng = np.random.default_rng(21)
+    g = am_shortlist.SMEM_SLOTS + 77
+    q = packed_rows(rng, (3, 100), dev)
+    spt = packed_rows(rng, (g, 100), dev, dup=True).T.contiguous()
+    for s in (1, 5, 600):
+        got = am_shortlist.am_shortlist(q, spt, n_dims=100, s=s)
+        want = ref.am_shortlist(q, spt, 100, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def layout(rng, c, d, g, dev, dup=True):
+    from repro_torch.deploy import hierarchical as hier
+    am_t = packed_rows(rng, (c, d), dev, dup).T.contiguous()
+    lay = hier.build_layout(am_t.cpu().numpy(), rng.integers(0, g, size=c),
+                            g)
+    return am_t, [torch.as_tensor(a, device=dev) for a in (
+        lay.slab, lay.col_ids, lay.tile_start, lay.tile_count)], lay.max_tiles
+
+
+@pytest.mark.parametrize("d", HIER_D)
+@pytest.mark.parametrize("c,g", [(1, 1), (2, 2), (300, 45), (1000, 448),
+                                 (257, 2), (9, 3)])
+def test_am_search_sparse(dev, d, c, g):
+    rng = np.random.default_rng([22, d, c, g])
+    q = packed_rows(rng, (5, d), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, c, d, g, dev)
+    for s in sorted({1, min(3, g), g}):
+        short = torch.as_tensor(np.stack([rng.permutation(g)[:s]
+                                          for _ in range(5)]),
+                                dtype=torch.int32, device=dev)
+        for k in (1, 5, c + 2):
+            got = am_search_sparse.am_search_sparse(
+                q, slab, ids, short, ts, tc, n_dims=d, k=k, max_tiles=mt)
+            want = am_search_sparse.am_search_sparse_plain(
+                q, slab, ids, short, ts, tc, n_dims=d, k=k, max_tiles=mt)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            # The fused gather equals gather-then-gathered-kernel.
+            tiles = am_search_sparse.expand_shortlist_tiles(
+                short, ts, tc, max_tiles=mt, null_tile=slab.shape[1] // 128
+                - 1)
+            gat, gid = am_search_sparse.gather_shortlist(slab, ids, tiles)
+            got2 = am_search_sparse.am_search_sparse_gathered(
+                q, gat, gid.contiguous(), n_dims=d, k=k)
+            assert torch.equal(got2[0], want[0]) and torch.equal(got2[1],
+                                                                 want[1])
+
+
+def test_sparse_exact_configuration_equals_the_flat_scan(dev):
+    rng = np.random.default_rng(23)
+    q = packed_rows(rng, (64, 1024), dev)
+    am_t, (slab, ids, ts, tc), mt = layout(rng, 512, 1024, 23, dev)
+    short = torch.arange(23, dtype=torch.int32, device=dev).repeat(64, 1)
+    idx, sim = am_search_sparse.am_search_sparse(
+        q, slab, ids, short, ts, tc, n_dims=1024, k=1, max_tiles=mt)
+    f_idx, f_sim = asp.am_search_packed(q, am_t, n_dims=1024)
+    assert torch.equal(idx[:, 0], f_idx) and torch.equal(sim[:, 0], f_sim)
+    # The global-scratch path (S * max_tiles * 128 past the budget).
+    from repro_torch.kernels.am_shortlist import SMEM_SLOTS
+    reps = -(-SMEM_SLOTS // (23 * mt * 128)) + 1
+    wide = short.repeat(1, reps)
+    got = am_search_sparse.am_search_sparse(
+        q, slab, ids, wide, ts, tc, n_dims=1024, k=7, max_tiles=mt)
+    want = am_search_sparse.am_search_sparse_plain(
+        q, slab, ids, wide, ts, tc, n_dims=1024, k=7, max_tiles=mt)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_hierarchical_path_launches_its_kernels(dev):
+    from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
+    from repro_torch.data import load_dataset
+    ds = load_dataset("mnist", train_per_class=60, test_per_class=10,
+                      device=dev)
+    enc = EncoderConfig(features=784, dim=128)
+    amc = MemhdConfig(dim=128, columns=128, classes=10, epochs=2,
+                      kmeans_iters=3)
+    m, _ = MemhdModel.create(0, enc, amc, device=dev).fit(1, ds.train_x,
+                                                           ds.train_y)
+    flat = m.deploy(target="packed")
+    kernels.reset_launches()
+    ops.reset_dispatch()
+    hier = m.deploy(target="hierarchical")
+    assert torch.equal(hier.predict(ds.test_x), flat.predict(ds.test_x))
+    cls, idx, sims = hier.predict_topk(ds.test_x, 5)
+    q = ref.pack_rows(m.encode_query(ds.test_x))
+    w_idx, w_sims = ref.am_search_topk(q, flat.am_packed_t, 128, 5)
+    assert torch.equal(idx, w_idx) and torch.equal(sims, w_sims)
+    small = m.deploy(target="hierarchical", shortlist=2)
+    small.predict_topk(ds.test_x, 3)
+    launches = kernels.launches()
+    for name in ("am_shortlist", "am_search_sparse"):
+        assert launches[name] > 0, name
+    assert "torch-ref" not in str(ops.dispatch_breakdown())
+
+
+def test_hierarchical_wrappers_reject_bad_operands(dev):
+    q = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
+    spt = torch.zeros((16, 5), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shortlist"):
+        am_shortlist.am_shortlist(q, spt, n_dims=128, s=6)
+    with pytest.raises(ValueError, match="different devices"):
+        am_shortlist.am_shortlist(q, spt.cpu(), n_dims=128, s=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        am_shortlist.am_shortlist(q, spt.T.contiguous().T, n_dims=128, s=1)
+    slab = torch.zeros((16, 256), dtype=torch.uint8, device=dev)
+    ids = torch.full((256,), -1, dtype=torch.int32, device=dev)
+    ts = torch.zeros(1, dtype=torch.int32, device=dev)
+    short = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):  # tile_count must be int32
+        am_search_sparse.am_search_sparse(q, slab, ids, short, ts, ts.long(),
+                                          n_dims=128, k=1, max_tiles=1)
+    with pytest.raises(ValueError, match="k=0"):
+        am_search_sparse.am_search_sparse(q, slab, ids, short, ts, ts,
+                                          n_dims=128, k=0, max_tiles=1)
+    idx, sim = am_search_sparse.am_search_sparse(
+        q, slab, ids, short, ts, ts, n_dims=128, k=3, max_tiles=1)
+    assert (idx == -1).all() and (sim == ref.NEG).all()  # nothing valid

@@ -296,7 +296,8 @@ class TestWrapperContract:
             "pack_bits": 0, "am_search_packed": 0, "encode_pack": 0,
             "qail_update": 0, "am_search": 0, "am_search_packed_unpack": 0,
             "binary_mvm": 0, "unpack_bits": 0, "am_search_imc": 0,
-            "am_search_multibit": 0}
+            "am_search_multibit": 0, "am_shortlist": 0,
+            "am_search_sparse": 0, "am_search_sparse_gathered": 0}
 
     def test_new_wrappers_reject_bad_operands(self):
         x = torch.ones((4, 16))

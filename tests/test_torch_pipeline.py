@@ -225,17 +225,24 @@ def test_empty_stream_reports_nulls(pair):
 
 
 def test_not_ported_targets_raise(pair):
-    # The hierarchical target, top-k serving and multi-device serving are
-    # not ported; the imc and multibit targets are (held against the
-    # reference in tests/test_torch_imcsim.py).
+    # Multi-device serving is not ported; the imc, multibit and
+    # hierarchical targets and top-k serving are (held against the
+    # reference in tests/test_torch_imcsim.py and
+    # tests/test_torch_hierarchical.py).
     with pytest.raises(ValueError, match="unknown deploy target"):
-        pair["tm"].deploy(target="hierarchical")
+        pair["tm"].deploy(target="sharded")
     with pytest.raises(ValueError, match="mode"):
         pair["tm"].deploy(target="packed", mode="xor")
-    for argv in (["--devices", "2"], ["--target", "hierarchical"],
-                 ["--topk", "4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.main(["--smoke", "--device", "cpu", *argv])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.main(["--smoke", "--device", "cpu", "--devices", "2"])
+    rep = tserve.main(["--smoke", "--device", "cpu", "--requests", "4",
+                       "--target", "hierarchical", "--topk", "4"])
+    assert (rep["backend"], rep["topk"]) == ("hierarchical", 4)
+    with pytest.raises(SystemExit):  # --topk needs the hierarchical target
+        tserve.main(["--smoke", "--device", "cpu", "--topk", "4"])
+    hier = pair["tm"].deploy(target="hierarchical")
+    np.testing.assert_array_equal(hier.predict(pair["te_x"]).numpy(),
+                                  pair["tdep"].predict(pair["te_x"]).numpy())
     assert pair["tm"].deploy(target="imc").backend == "imc"
     assert pair["tm"].deploy(target="multibit",
                              cell_bits=4).backend == "multibit"
