@@ -7,7 +7,7 @@ Phases, each printed on its own line(s); any failure raises and the
 script exits non-zero without the final result line:
 
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
-1. the build: nvcc compiles the ten kernel sources of ``src/repro_torch/
+1. the build: nvcc compiles the twelve kernel sources of ``src/repro_torch/
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
    ptxas' register report);
 2. each kernel against its plain PyTorch version on the card, over the
@@ -78,11 +78,28 @@ script exits non-zero without the final result line:
    S = 8, bit-exact against the plain versions, the device time against
    the flat ``am_search_packed`` at the same C and batch; S = G at C = 512
    == ``am_search_packed`` (phase ``hier_huge``);
-11. the ``kernels`` line: launches on the paths, device time, the plain
+11. the LM inference path (phase group ``lm``): ``flash_decode`` and
+   ``ssd_chunk`` against their plain versions (``lm_kernels_vs_plain``:
+   GQA 5x / MHA / MQA heads, S of 1 to 32,768, ragged lengths with 0 and
+   1, float32 and bfloat16; the hymba and mamba2 SSD geometries at Q of
+   1, 20 and 256, chained and strided chunks); hymba-1.5b at full width
+   with random weights from a seed: ``T.forward`` at B = 2, S = 2,048
+   (``lm_forward``: bfloat16 on the kernel path, 256 ``ssd_chunk``
+   launches; float32 kernel path == plain path within LM_TOL) and
+   ``generate`` at B = 4, prompt 256, gen 64 (``lm_serve``: 32 x 319
+   ``flash_decode`` launches; in float32, from a shared prefill, the
+   plain path teacher-forced on the kernel path's 64 greedy steps gives
+   the same logits step by step and the same greedy choices up to the
+   first low-margin step, and every decode step == forward); the LM
+   serving CLI at mamba2-130m (``lm_cli``);
+12. the ``kernels`` line: launches on the paths, device time, the plain
    version's time and the bound of each kernel at the paths' shapes
    (``qail_update`` also on random targets, where most rows miss; the
-   hierarchical kernels at the huge-label shape), and ``library_ms``
-   (cuBLAS SGEMM through ``torch.matmul``) for ``binary_mvm``.
+   hierarchical kernels at the huge-label shape; ``flash_decode`` at
+   B = 8, S = 32,768 and ``ssd_chunk`` at B = 8, Q = 256), and
+   ``library_ms`` (cuBLAS SGEMM through ``torch.matmul`` for
+   ``binary_mvm``, ``scaled_dot_product_attention`` for
+   ``flash_decode``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -140,6 +157,25 @@ HUGE = dict(c=100_000, d=1024, g_plant=316, g=448, batch=256,
             proto_flip=0.08, query_flip=0.10, shortlists=(8, 16))
 EXACT = dict(c=512, g_plant=23, g=23)  # S = G anchor of the sweep
 RECALL_FLOOR = 0.99
+# The LM inference path: hymba-1.5b at full width (random weights from a
+# seed), the one supported model whose path runs both LM kernels.
+LM_ARCH = "hymba-1.5b"
+LM_FORWARD = (2, 2048)      # B, S: local and global attention, 8 chunks
+LM_SERVE = (4, 256, 64)     # B, prompt, gen
+# f32 logits, kernel path against plain path: |d| <= LM_TOL * max|plain|.
+# The paths differ only in summation order inside the two kernels
+# (~1e-6 relative per layer); a wrong mask, decay or head is O(1).
+LM_TOL = 1e-3
+# flash_decode's grid: (H, KV, Dh) GQA 5x (hymba), MHA, MQA; cache lengths.
+FD_HEADS = ((25, 5, 64), (4, 4, 128), (6, 1, 32))
+FD_S = (1, 127, 320, 1024, 1600, 32768)
+# ssd_chunk's grid: (H, N, P) at hymba's and mamba2's geometries; Q.
+SSD_GEOMS = {"hymba": (50, 16, 64), "mamba2": (24, 128, 64)}
+SSD_Q = (1, 20, 256)
+# The kernels line's shapes: flash_decode at hymba's global layer with
+# the decode_32k context, ssd_chunk at hymba's chunk.
+FD_ROW = dict(b=8, s=32768, h=25, kv=5, dh=64)
+SSD_ROW = dict(b=8, q=256, h=50, n=16, p=64)
 
 
 def check(cond, what) -> None:
@@ -157,6 +193,29 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def bf16_ulp(x):
+    """One bfloat16 unit in the last place at |x| (2^-8 at 0)."""
+    import torch
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def map_tree(fn, tree):
+    """``fn`` on every tensor of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def bound(nbytes, ops, rate):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate
+    and the operations over ``rate``."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def time_device_ms(fn, samples: int = 21, calls: int = 10) -> float:
@@ -194,7 +253,8 @@ class Smoke:
                         "am_search": 0.0, "am_search_packed_unpack": 0.0,
                         "binary_mvm": 0.0, "unpack_bits": 0.0,
                         "am_search_imc": 0.0, "am_search_multibit": 0.0,
-                        "am_shortlist": 0.0, "am_search_sparse": 0.0}
+                        "am_shortlist": 0.0, "am_search_sparse": 0.0,
+                        "flash_decode": 0.0, "ssd_chunk": 0.0}
         self.path_launches = {}  # kernel -> launches on its own path
 
     # -- helpers ---------------------------------------------------------------
@@ -1354,7 +1414,381 @@ class Smoke:
             rec[f"{key}_fp_equal"] = same_fp
         log(rec)
 
-    # -- phase 11 --------------------------------------------------------------
+    # -- phase 11: the LM inference path ---------------------------------------
+    def check_lm_kernels(self):
+        """flash_decode and ssd_chunk against their plain versions.
+
+        flash_decode over GQA 5x / MHA / MQA heads, S in FD_S and ragged
+        lengths (S, 0, 1, S/2 + 3) per row: float32 within 3e-5 + 3e-5|x|
+        (the reference's flash_decode tolerance); bfloat16 within one bf16
+        ulp of the plain result + 3e-5 (both compute in float32 and round
+        once; the 3e-5 covers values near 0). ssd_chunk at hymba's and
+        mamba2's geometries, Q in SSD_Q, float32 and bfloat16 inputs:
+        1e-4 + 1e-4|x| (tests/test_ssd_kernel.py), plus one bf16 ulp on a
+        bfloat16 y; two chained chunks == one double-length chunk; a chunk
+        sliced from a longer sequence (strided batch rows)."""
+        np, torch = self.np, self.torch
+        from repro_torch.kernels import flash_decode as fd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import ssd_chunk as sc
+        t0 = time.perf_counter()
+        cases = 0
+        for h, kv, dh in FD_HEADS:
+            for s in FD_S:
+                rng = np.random.default_rng([15, h, kv, dh, s])
+                b = 4
+                q = self.t(rng.normal(size=(b, h, dh)).astype("float32"))
+                k = self.t(rng.normal(size=(b, s, kv, dh)).astype("float32"))
+                v = self.t(rng.normal(size=(b, s, kv, dh)).astype("float32"))
+                ln = self.t(np.asarray([s, 0, min(1, s), min(s, s // 2 + 3)],
+                                       np.int32))
+                for dtype in (torch.float32, torch.bfloat16):
+                    qd, kd, vd = (a.to(dtype) for a in (q, k, v))
+                    got = fd.flash_decode(qd, kd, vd, ln)
+                    want = ref.flash_decode(qd, kd, vd, ln)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs()
+                    tol = (3e-5 + 3e-5 * want.float().abs()
+                           if dtype == torch.float32
+                           else bf16_ulp(want) + 3e-5)
+                    check(bool((err <= tol).all()),
+                          ("flash_decode", h, kv, dh, s, str(dtype),
+                           err.max().item()))
+                    check(not got[1].any(), "cache_len 0 must yield 0")
+                    cases += 1
+        geoms = []
+        for geom, (h, n, p) in SSD_GEOMS.items():
+            for qlen in SSD_Q:
+                args = self.ssd_inputs(np.random.default_rng([16, h, n, qlen]),
+                                       2, qlen, h, n, p)
+                for dtype in (torch.float32, torch.bfloat16):
+                    a = [x.to(dtype) for x in args[:3]] + list(args[3:])
+                    self.ssd_equal(sc.ssd_chunk(*a), ref.ssd_chunk(*a),
+                                   (geom, qlen, str(dtype)))
+                    cases += 1
+            geoms.append(geom)
+        # Two chained chunks of 128 == one chunk of 256 (kernel only), and a
+        # chunk sliced out of a longer sequence.
+        h, n, p = SSD_GEOMS["hymba"]
+        x, bm, cm, dt, da, s0 = self.ssd_inputs(np.random.default_rng(17), 2,
+                                                512, h, n, p)
+        whole = sc.ssd_chunk(x[:, :256], bm[:, :256], cm[:, :256],
+                             dt[:, :256], da[:, :256], s0)
+        y1, s1 = sc.ssd_chunk(x[:, :128], bm[:, :128], cm[:, :128],
+                              dt[:, :128], da[:, :128], s0)
+        y2, s2 = sc.ssd_chunk(x[:, 128:256], bm[:, 128:256], cm[:, 128:256],
+                              dt[:, 128:256], da[:, 128:256], s1)
+        self.ssd_equal((torch.cat([y1, y2], 1), s2), whole, "chained")
+        cut = slice(256, 512)
+        sl = [t[:, cut] for t in (x, bm, cm, dt, da)] + [s0]
+        self.ssd_equal(sc.ssd_chunk(*sl), ref.ssd_chunk(*sl), "strided rows")
+        log({"phase": "lm_kernels_vs_plain", "ok": True, "cases": cases + 2,
+             "flash_decode_heads": FD_HEADS, "flash_decode_s": FD_S,
+             "ssd_geoms": SSD_GEOMS, "ssd_q": SSD_Q,
+             "seconds": round(time.perf_counter() - t0, 3)})
+
+    def ssd_inputs(self, rng, b, q, h, n, p):
+        """tests/test_ssd_kernel.py's operands: x, B, C normal; dt = 0.1|z|;
+        da = -dt |z'|; a normal entering state."""
+        np = self.np
+        nrm = rng.normal
+        dt = np.abs(nrm(size=(b, q, h))).astype("float32") * 0.1
+        return (self.t(nrm(size=(b, q, h, p)).astype("float32")),
+                self.t(nrm(size=(b, q, h, n)).astype("float32")),
+                self.t(nrm(size=(b, q, h, n)).astype("float32")),
+                self.t(dt),
+                self.t(-dt * np.abs(nrm(size=(b, q, h))).astype("float32")),
+                self.t(nrm(size=(b, h, n, p)).astype("float32")))
+
+    def ssd_equal(self, got, want, what):
+        torch = self.torch
+        torch.cuda.synchronize()
+        (y, s_), (wy, ws) = got, want
+        tol = 1e-4 + 1e-4 * wy.float().abs()
+        if y.dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(wy)
+        check(y.dtype == wy.dtype and s_.dtype == torch.float32, what)
+        ey = (y.float() - wy.float()).abs()
+        es = (s_ - ws).abs()
+        check(bool((ey <= tol).all()), ("ssd_chunk y", what,
+                                        ey.max().item()))
+        check(bool((es <= 1e-4 + 1e-4 * ws.abs()).all()),
+              ("ssd_chunk state", what, es.max().item()))
+
+    def lm_setup(self):
+        """hymba-1.5b at full width: float32 params from a seed and their
+        bfloat16 cast (the published config's dtype)."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        cfg = get_config(LM_ARCH)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        t0 = time.perf_counter()
+        p32 = T.init_params(generator(0, self.dev), cfg32, device=self.dev)
+        p16 = map_tree(lambda t: t.to(torch.bfloat16), p32)
+        torch.cuda.synchronize()
+        self.lm = (cfg, cfg32, p16, p32)
+        log({"phase": "lm_config", "arch": cfg.name,
+             "param_count": cfg.param_count(), "d_model": cfg.d_model,
+             "layers": cfg.n_layers, "vocab": cfg.vocab_size,
+             "padded_vocab": cfg.padded_vocab,
+             "init_seconds": round(time.perf_counter() - t0, 3),
+             "device_bytes": torch.cuda.memory_allocated()})
+
+    def lm_forward(self):
+        """T.forward at B = 2, S = 2048: bfloat16 on the kernel path
+        (counted and timed), float32 on both paths (held equal)."""
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.models import transformer as T
+        cfg, cfg32, p16, p32 = self.lm
+        b, s = LM_FORWARD
+        toks = torch.randint(0, cfg.vocab_size, (b, s), device=self.dev,
+                             generator=generator(3, self.dev),
+                             dtype=torch.int32)
+        batch = {"tokens": toks}
+        with torch.inference_mode():
+            T.forward(p16, cfg, batch)  # warm-up
+            t0 = time.perf_counter()
+            (lg16, _), launches, tiers = self.path_counts(
+                lambda: T.forward(p16, cfg, batch))
+            secs = time.perf_counter() - t0
+            n_chunks = -(-s // cfg.blocks[0].ssm.chunk)
+            want = cfg.n_layers * n_chunks
+            check(launches["ssd_chunk"] == want,
+                  ("ssd_chunk launches", launches["ssd_chunk"], want))
+            check(tiers == {"ssd_chunk": {"cuda": want}}, tiers)
+            check(lg16.shape == (b, s, cfg.padded_vocab)
+                  and bool(torch.isfinite(lg16).all()), "bf16 logits")
+            t1 = time.perf_counter()
+            lk, _ = T.forward(p32, cfg32, batch)
+            torch.cuda.synchronize()
+            secs32 = time.perf_counter() - t1
+            lp, _ = T.forward(p32, cfg32, batch, use_kernel=False)
+            err = (lk - lp).abs().max().item()
+            scale = lp.abs().max().item()
+            check(err <= LM_TOL * scale, ("f32 forward kernel vs plain", err,
+                                          scale))
+            bf16_vs_f32 = (lg16.float() - lp).abs().max().item()
+            self.profile("lm_forward_profile",
+                         lambda: T.forward(p16, cfg, batch), B=b, S=s)
+        self.path_launches["ssd_chunk"] = launches["ssd_chunk"]
+        log({"phase": "lm_forward", "arch": cfg.name, "B": b, "S": s,
+             "seconds_bf16": round(secs, 4), "seconds_f32": round(secs32, 4),
+             "tokens_per_s_bf16": round(b * s / secs, 1),
+             "launches": {"ssd_chunk": launches["ssd_chunk"]},
+             "dispatch_tiers": tiers,
+             "f32_kernel_vs_plain_max_abs": err, "f32_logit_scale": scale,
+             "tolerance": LM_TOL * scale,
+             "bf16_vs_f32_max_abs": bf16_vs_f32})
+
+    def decode_logits(self, cfg, params, caches, toks, use_kernel,
+                      greedy=0):
+        """decode_step from ``caches`` (updated in place) over every token
+        of ``toks`` (B, S), then over ``greedy`` tokens, each the argmax of
+        the step before: (the tokens fed (B, S + greedy), the logits of
+        every step (B, S + greedy, vocab_size))."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        fed, out = [], []
+        for i in range(toks.shape[1] + greedy):
+            cur = (toks[:, i:i + 1] if i < toks.shape[1] else
+                   out[-1].argmax(-1)[:, None].to(torch.int32))
+            fed.append(cur)
+            lg, caches = T.decode_step(params, cfg, {"tokens": cur}, caches,
+                                       use_kernel=use_kernel)
+            out.append(lg[:, :cfg.vocab_size])
+        return torch.cat(fed, 1), torch.stack(out, 1)
+
+    def lm_serve(self):
+        """generate at B = 4, prompt 256, gen 64: bfloat16 on the kernel
+        path (counted and timed). In float32 the kernel path prefills all
+        but the last prompt token; from a copy of those caches both paths
+        then take the last prompt token and the 63 tokens the kernel path
+        picks greedily, and must give the same logits step by step
+        (LM_TOL) and the same greedy choice at every step up to the first
+        whose top-2 margin is within that tolerance: by induction the
+        plain path's own greedy run then emits the same tokens up to
+        there. Every decode step's logits (the prefill's too) equal
+        forward's at that position (2e-2 max|logits|, the reference's
+        criterion for the last one)."""
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as T
+        cfg, cfg32, p16, p32 = self.lm
+        b, plen, gen = LM_SERVE
+        prompts = torch.randint(0, cfg.vocab_size, (b, plen),
+                                device=self.dev,
+                                generator=generator(4, self.dev),
+                                dtype=torch.int32)
+        serve.generate(cfg, p16, prompts[:, :4], 4)  # warm-up
+        t0 = time.perf_counter()
+        out16, launches, tiers = self.path_counts(
+            lambda: serve.generate(cfg, p16, prompts, gen))
+        wall = time.perf_counter() - t0
+        steps = plen + gen - 1
+        want = cfg.n_layers * steps
+        check(launches["flash_decode"] == want,
+              ("flash_decode launches", launches["flash_decode"], want))
+        check(tiers == {"flash_decode": {"cuda": want}}, tiers)
+        check(out16.shape == (b, plen + gen)
+              and bool((out16[:, plen:] < cfg.vocab_size).all()), "tokens")
+        with torch.inference_mode():
+            self.profile("lm_decode_profile", lambda: self.decode_logits(
+                cfg, p16, T.init_cache(cfg, b, 7, device=self.dev),
+                out16[:, :7], True), B=b, steps=7)
+            caches = T.init_cache(cfg32, b, plen + gen, device=self.dev)
+            _, l_pre = self.decode_logits(cfg32, p32, caches,
+                                          prompts[:, :-1], True)
+            snap = map_tree(torch.clone, caches)
+            fed, lk = self.decode_logits(cfg32, p32, caches, prompts[:, -1:],
+                                         True, greedy=gen - 1)
+            out_k = torch.cat([prompts[:, :-1], fed,
+                               lk[:, -1].argmax(-1)[:, None].to(torch.int32)],
+                              1)
+            _, lp = self.decode_logits(cfg32, p32, snap, fed, False)
+            err = (lk - lp).abs().amax(dim=(0, 2))
+            scale = lp.abs().amax(dim=(0, 2))
+            bad = (err > LM_TOL * scale).nonzero().flatten().tolist()
+            check(not bad, ("f32 decode kernel vs plain, gen steps", bad[:5]))
+            top2 = lp.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]       # (B, gen)
+            plain_pick = lp.argmax(-1)
+            agree, low_margin = [], []
+            for row in range(b):
+                n = 0
+                for j in range(gen):
+                    if margin[row, j] <= LM_TOL * scale[j]:
+                        low_margin.append([row, plen + j])
+                        break
+                    check(plain_pick[row, j] == out_k[row, plen + j],
+                          ("greedy tokens differ", row, plen + j))
+                    n += 1
+                agree.append(n)
+            lf, _ = T.forward(p32, cfg32, {"tokens": out_k[:, :-1]})
+            lf = lf[..., :cfg.vocab_size]
+            dd = (torch.cat([l_pre, lk], 1) - lf).abs().amax(dim=(0, 2))
+            fscale = lf.abs().max().item()
+            check(dd.max().item() < 2e-2 * fscale,
+                  ("decode != forward", dd.max().item(), fscale))
+        self.path_launches["flash_decode"] = launches["flash_decode"]
+        log({"phase": "lm_serve", "arch": cfg.name, "B": b,
+             "prompt": plen, "gen": gen, "wall_s_bf16": round(wall, 4),
+             "tok_per_s_bf16": round(b * (plen + gen) / wall, 1),
+             "ms_per_decode_step_bf16": round(wall * 1e3 / steps, 3),
+             "launches": {"flash_decode": launches["flash_decode"]},
+             "dispatch_tiers": tiers,
+             "f32_kernel_vs_plain_steps": gen,
+             "f32_kernel_vs_plain_max_abs": err.max().item(),
+             "f32_tolerance_min": (LM_TOL * scale).min().item(),
+             "greedy_tokens_equal_per_row": agree,
+             "first_low_margin_step": low_margin,
+             "bf16_tokens_equal_f32": bool(torch.equal(out16, out_k)),
+             "decode_vs_forward_steps": steps,
+             "decode_vs_forward_max_abs": dd.max().item(),
+             "decode_vs_forward_last_step": dd[-1].item(),
+             "forward_logit_scale": fscale})
+        del self.lm, p16, p32, caches, snap
+        torch.cuda.empty_cache()
+        # The plain-path runs above count torch-ref dispatches; later
+        # phases read the dispatch counter of their own runs.
+        ops.reset_dispatch()
+
+    def lm_cli(self):
+        """The LM serving CLI as a subprocess at the reference's default
+        model (mamba2-130m, full width)."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        args = ["--arch", "mamba2-130m", "--batch", "4", "--prompt-len",
+                "32", "--gen", "32"]
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            *args], env=env, capture_output=True, text=True,
+                           timeout=600)
+        check(p.returncode == 0, p.stderr[-2000:])
+        rep = json.loads(p.stdout)
+        check(rep["arch"] == "mamba2-130m" and rep["tokens_total"] == 256
+              and rep["device"].startswith("cuda"), rep)
+        log({"phase": "lm_cli", "args": args,
+             "seconds": round(time.perf_counter() - t0, 3), **rep})
+
+    def lm_kernel_cases(self):
+        """The kernels line's rows of the LM kernels: (cases, library)."""
+        np, torch = self.np, self.torch
+        from repro_torch.kernels import ref
+        # The LM kernels: flash_decode at hymba's global layer with the
+        # decode_32k context (bf16 cache, every key valid) and ssd_chunk at
+        # hymba's chunk (bf16 x, B, C; f32 dt, da, state). The kernels do
+        # float32 FMAs: operations at the fp32 rate.
+        from repro_torch import generator
+        from repro_torch.kernels import flash_decode as fd
+        from repro_torch.kernels import ssd_chunk as sc
+        bf, gen = torch.bfloat16, generator(5, self.dev)
+        fr, sr = FD_ROW, SSD_ROW
+        fq = torch.randn((fr["b"], fr["h"], fr["dh"]), generator=gen,
+                         device=self.dev).to(bf)
+        fk, fv = (torch.randn((fr["b"], fr["s"], fr["kv"], fr["dh"]),
+                              generator=gen, device=self.dev).to(bf)
+                  for _ in range(2))
+        flen = torch.full((fr["b"],), fr["s"], dtype=torch.int32,
+                          device=self.dev)
+        self.max_err["flash_decode"] = (
+            fd.flash_decode(fq, fk, fv, flen).float()
+            - ref.flash_decode(fq, fk, fv, flen).float()).abs().max().item()
+        sargs = self.ssd_inputs(np.random.default_rng(18), sr["b"], sr["q"],
+                                sr["h"], sr["n"], sr["p"])
+        sargs = [a.to(bf) for a in sargs[:3]] + list(sargs[3:])
+        (sy, ss), (wy, ws) = sc.ssd_chunk(*sargs), ref.ssd_chunk(*sargs)
+        self.max_err["ssd_chunk"] = max(
+            (sy.float() - wy.float()).abs().max().item(),
+            (ss - ws).abs().max().item())
+        sb, sq, sh, sn, sp = (sr[k] for k in ("b", "q", "h", "n", "p"))
+        cases = [
+            ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_decode.py:71",
+             lambda: fd.flash_decode(fq, fk, fv, flen),
+             lambda: ref.flash_decode(fq, fk, fv, flen),
+             bound(2 * (2 * fq.numel() + fk.numel() + fv.numel())
+                   + 4 * fr["b"],
+                   4 * fr["b"] * fr["h"] * fr["s"] * fr["dh"],
+                   FP32_FLOP_PER_S)),
+            ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+             "src/repro/kernels/ssd_chunk.py:86",
+             lambda: sc.ssd_chunk(*sargs), lambda: ref.ssd_chunk(*sargs),
+             # Operations: the causal triangle (Q(Q+1)/2 entries) of
+             # C B^T (2N each) and of its product with x dt (2P each),
+             # plus C S and the state update (2QNP each).
+             bound(2 * 2 * sb * sq * sh * sp + 2 * 2 * sb * sq * sh * sn
+                   + 4 * 2 * sb * sq * sh + 4 * 2 * sb * sh * sn * sp,
+                   sb * sh * (sq * (sq + 1) * (sn + sp)
+                              + 4 * sq * sn * sp), FP32_FLOP_PER_S)),
+        ]
+        library = {}
+        # scaled_dot_product_attention over the same operands: a yardstick,
+        # never called by the port.
+        fmask = torch.ones((fr["b"], 1, 1, fr["s"]), dtype=torch.bool,
+                           device=self.dev)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                fq[:, :, None], fk.transpose(1, 2), fv.transpose(1, 2),
+                attn_mask=fmask, enable_gqa=True)
+
+        try:
+            sdpa_err = (sdpa()[:, :, 0].float()
+                        - ref.flash_decode(fq, fk, fv, flen).float()
+                        ).abs().max().item()
+            library["flash_decode"] = sdpa
+            log({"phase": "sdpa_yardstick", "max_abs_vs_plain": sdpa_err})
+        except (TypeError, RuntimeError) as e:
+            log({"phase": "sdpa_yardstick", "unavailable": str(e)[:300]})
+        return cases, library
+
+    # -- phase 12 --------------------------------------------------------------
     def kernel_line(self):
         np, torch = self.np, self.torch
         from repro_torch.core import encoding
@@ -1375,10 +1809,6 @@ class Smoke:
         qp = ref.pack_rows(q)
         am_t = self.deployed.am_packed_t
         dp = qp.shape[1]
-
-        def bound(nbytes, ops, rate):
-            tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
-            return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
         # The training path's shapes: one minibatch of the kernel fit's
         # prebatched data against its final binary AM (a (D, C) view).
@@ -1528,6 +1958,9 @@ class Smoke:
                    + 2 * hg * 4 + hb * 8, 2 * valid * hd, INT8_OPS_PER_S)),
         ]
         library = {"binary_mvm": lambda: torch.matmul(efeats, eproj)}
+        lm_cases, lm_library = self.lm_kernel_cases()
+        cases += lm_cases
+        library.update(lm_library)
         out = []
         for name, src, replaces, kern, plain, (bound_ms, bound_by) in cases:
             ms = time_device_ms(kern)
@@ -1576,7 +2009,8 @@ class Smoke:
                         "B_train": TRAIN_B,
                         "hier": {"B": HUGE["batch"], "C": HUGE["c"],
                                  "D": HUGE["d"], "G": HUGE["g"], "S": 8,
-                                 "k": 1, **self.hier_work}}})
+                                 "k": 1, **self.hier_work},
+                        "flash_decode": FD_ROW, "ssd_chunk": SSD_ROW}})
         log({"kernels": out})
 
 
@@ -1584,10 +2018,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
-                         "hier,robustness,cli,trainer,repro (development "
+                         "hier,lm,robustness,cli,trainer,repro (development "
                          "runs; train, fidelity and hier need main, the "
                          "kernels line needs kernels, main, train, "
-                         "fidelity and hier)")
+                         "fidelity, hier and lm)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -1604,7 +2038,7 @@ def main():
          "cuda": torch.version.cuda, "kind": kind,
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
-               "robustness", "cli", "trainer", "repro"]
+               "lm", "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -1623,6 +2057,15 @@ def main():
     if "hier" in phases:
         smoke.hier_path()
         smoke.hier_huge()
+    if "lm" in phases:
+        t_lm = time.perf_counter()
+        smoke.check_lm_kernels()
+        smoke.lm_setup()
+        smoke.lm_forward()
+        smoke.lm_serve()
+        smoke.lm_cli()
+        log({"phase": "lm_group",
+             "seconds": round(time.perf_counter() - t_lm, 3)})
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
@@ -1632,7 +2075,7 @@ def main():
     if "repro" in phases:
         smoke.reproducibility()
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
-                                 "hier")):
+                                 "hier", "lm")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -1,5 +1,5 @@
 """Carry weights across: numpy arrays -> the port's ``MemhdModel``,
-``MemhdTrainState`` and ``HierarchicalMemhd``.
+``MemhdTrainState``, ``HierarchicalMemhd`` and LM params.
 
 The parity tests build a model (or a training state) in the JAX package,
 pull its arrays to numpy on that side, and hand them here, so the port
@@ -19,6 +19,8 @@ never sees a jax object:
          "tile_start": ts, "tile_count": tc, "centroid_class": cc},
         dataclasses.asdict(enc_cfg), dataclasses.asdict(am_cfg),
         shortlist=8, device="cpu")
+    lm_params = lm_params_from_numpy(
+        jax.tree.map(np.asarray, params), cfg, device="cpu")
 """
 from __future__ import annotations
 
@@ -96,3 +98,39 @@ def _am_state(am_state: Mapping[str, np.ndarray], device) -> dict:
             "centroid_class": torch.tensor(
                 np.asarray(am_state["centroid_class"], np.int32),
                 device=device)}
+
+
+def lm_params_from_numpy(params, cfg, *, device=None) -> dict:
+    """The port's LM params from the reference's param tree with numpy
+    leaves (``T.init_params(key, cfg)[0]`` mapped through ``np.asarray``).
+
+    The tree keeps its structure: dicts stay dicts, the ``groups`` list
+    stays a list of dicts whose leaves are stacked along the group's
+    ``repeat`` axis. Dtypes are kept: a bfloat16 leaf (numpy's
+    ``ml_dtypes.bfloat16``) becomes a ``torch.bfloat16`` tensor bit for
+    bit. ``cfg`` is the port's ``ModelConfig`` (``repro_torch.configs``).
+    """
+    from repro_torch.models import transformer as T
+    device = resolve_device(device)
+    T.check_supported(cfg)
+    if len(params["groups"]) != len(cfg.blocks):
+        raise ValueError(f"{len(params['groups'])} param groups for "
+                         f"{len(cfg.blocks)} block groups")
+    out = _lm_tree(params, device)
+    for b, g in zip(cfg.blocks, out["groups"]):
+        if g["ln1"].shape[0] != b.repeat:
+            raise ValueError(f"a group of {b.repeat} layers has params "
+                             f"stacked {g['ln1'].shape[0]} deep")
+    return out
+
+
+def _lm_tree(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _lm_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_lm_tree(v, device) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)

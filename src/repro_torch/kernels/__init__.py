@@ -8,8 +8,10 @@ from repro_torch.kernels import am_search_sparse as _ass
 from repro_torch.kernels import am_shortlist as _asl
 from repro_torch.kernels import binary_mvm as _bm
 from repro_torch.kernels import encode_fused as _ef
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import pack_bits as _pb
 from repro_torch.kernels import qail_update as _qu
+from repro_torch.kernels import ssd_chunk as _sc
 
 # name -> (wrapper, attribute): the counter of CUDA kernel launches. The
 # packed search counts its two modes apart.
@@ -27,7 +29,9 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
            "am_shortlist": (_asl.am_shortlist, "launches"),
            "am_search_sparse": (_ass.am_search_sparse, "launches"),
            "am_search_sparse_gathered": (_ass.am_search_sparse_gathered,
-                                         "launches")}
+                                         "launches"),
+           "flash_decode": (_fd.flash_decode, "launches"),
+           "ssd_chunk": (_sc.ssd_chunk, "launches")}
 
 
 def reset_launches() -> None:

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
            "am_search.cu", "qail_update.cu", "binary_mvm.cu",
            "am_search_imc.cu", "am_search_multibit.cu", "am_shortlist.cu",
-           "am_search_sparse.cu")
+           "am_search_sparse.cu", "flash_decode.cu", "ssd_chunk.cu")
 # Included by sources; part of the hash.
 HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh",
            "packed_topk.cuh")
@@ -62,6 +62,10 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _P),
     "am_search_sparse_gathered_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _P),
+    "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P),
+    "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I64, _I64, _I64, _I64, _I64, _I, _P),
 }
 
 _lock = threading.Lock()

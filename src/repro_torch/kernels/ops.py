@@ -47,6 +47,7 @@ from repro_torch.kernels.binary_mvm import binary_mvm as _binary_mvm
 from repro_torch.kernels.binary_mvm import (  # noqa: F401
     imc_cycles_for as mvm_cycles,
 )
+from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
 from repro_torch.kernels.pack_bits import pack_bits as _pack_bits
 from repro_torch.kernels.pack_bits import unpack_bits as _unpack_bits
 from repro_torch.kernels.qail_update import (
@@ -56,6 +57,7 @@ from repro_torch.kernels.qail_update import (
     DEFAULT_BLOCK_B as QAIL_DEFAULT_BLOCK_B,
 )
 from repro_torch.kernels.qail_update import qail_update as _qail_update
+from repro_torch.kernels.ssd_chunk import ssd_chunk as _ssd_chunk
 
 _DISPATCH: collections.Counter = collections.Counter()
 
@@ -369,3 +371,37 @@ def predict_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor,
     idx, _ = am_search_multibit(queries, am_planes_t, sim=sim,
                                 offsets=offsets, use_kernel=use_kernel)
     return centroid_class[idx.long()]
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """One-token GQA attention over a length-masked KV cache (the decode
+    step's attention). q: (B, H, Dh); k_cache/v_cache: (B, S, KV, Dh),
+    not head-repeated; cache_len: (B,) valid keys per row. Returns
+    (B, H, Dh) in q's dtype; float32 softmax and P @ V."""
+    tier = _tier(q, use_kernel)
+    _count("flash_decode", tier, B=q.shape[0], H=q.shape[1],
+           KV=k_cache.shape[2], S=k_cache.shape[1], Dh=q.shape[2])
+    if tier == "torch-ref":
+        return ref.flash_decode(q, k_cache, v_cache, cache_len)
+    return _flash_decode(q.contiguous(), k_cache.contiguous(),
+                         v_cache.contiguous(),
+                         cache_len.to(torch.int32).contiguous())
+
+
+def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              dt: torch.Tensor, da: torch.Tensor, state: torch.Tensor, *,
+              use_kernel: bool = True,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Mamba-2 SSD chunk for every (batch, head): x (B, Q, H, P),
+    b/c (B, Q, H, N), dt/da (B, Q, H), state (B, H, N, P) entering the
+    chunk. Returns (y in x's dtype, the float32 state leaving it)."""
+    tier = _tier(x, use_kernel)
+    _count("ssd_chunk", tier, B=x.shape[0], Q=x.shape[1], H=x.shape[2],
+           N=b.shape[3], P=x.shape[3])
+    if tier == "torch-ref":
+        return ref.ssd_chunk(x, b, c, dt, da, state)
+    rows = [t if t.shape[0] == 0 or t[0].is_contiguous() else t.contiguous()
+            for t in (x, b, c, dt.float(), da.float())]
+    return _ssd_chunk(*rows, state.float().contiguous())

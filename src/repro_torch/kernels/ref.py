@@ -385,3 +385,63 @@ def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor, *,
     qp = F.pad(q.float(), (0, dp * 8 - d))
     part = imc_partials(qp, codes_t, tile_rows, tile_cols, offsets)
     return _argmax_first(imc_sims(part, c, adc_bits, adc_clip))
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: torch.Tensor,
+                 ) -> torch.Tensor:
+    """One-token GQA attention over a length-masked KV cache, all in
+    float32: the function of the TPU kernel ``flash_decode``.
+
+    q: (B, H, Dh); k_cache/v_cache: (B, S, KV, Dh), H % KV == 0 (query
+    head h reads KV head h // (H // KV)); cache_len: (B,) keys at index
+    >= cache_len[b] are masked. A row with cache_len 0 yields 0 (the
+    kernel's ``m_safe`` / ``corr`` guards). P @ V runs in float32 on the
+    unrounded probabilities. Returns (B, H, Dh) in q's dtype.
+    """
+    b, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    if h % kv:
+        raise ValueError(f"H={h} is not a multiple of KV={kv}")
+    qg = q.float().reshape(b, kv, h // kv, dh)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) \
+        * (1.0 / dh ** 0.5)
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < cache_len.reshape(-1, 1).to(q.device))
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(torch.isfinite(sc), torch.exp(sc - m_safe),
+                    torch.zeros_like(sc))
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    out = acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              dt: torch.Tensor, da: torch.Tensor, state: torch.Tensor,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Mamba-2 SSD chunk for every (batch, head), in float32: a port
+    of ``repro.kernels.ssd_chunk.ref_ssd_chunk``.
+
+    x: (B, Q, H, P); b/c: (B, Q, H, N); dt/da: (B, Q, H) (da the per-step
+    log-decay); state: (B, H, N, P) entering the chunk. Returns
+    (y (B, Q, H, P) in x's dtype, new_state (B, H, N, P) float32).
+    """
+    q = x.shape[1]
+    cum = torch.cumsum(da.float(), dim=1)                     # (B,Q,H)
+    seg_total = cum[:, -1]                                    # (B,H)
+    xdt = x.float() * dt.float()[..., None]
+    b32, c32 = b.float(), c.float()
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=x.device))[None, :, :, None]
+    decay = torch.where(mask, torch.exp(cum[:, :, None, :]
+                                        - cum[:, None, :, :]), 0.0)
+    cb = torch.einsum("bqhn,bkhn->bqkh", c32, b32)
+    y_intra = torch.einsum("bqkh,bkhp->bqhp", cb * decay, xdt)
+    y_inter = torch.einsum("bqhn,bhnp->bqhp",
+                           c32 * torch.exp(cum)[..., None], state.float())
+    state_decay = torch.exp(seg_total[:, None, :] - cum)
+    bx = torch.einsum("bqhn,bqhp->bhnp", b32 * state_decay[..., None], xdt)
+    new_state = state.float() * torch.exp(seg_total)[..., None, None] + bx
+    return (y_intra + y_inter).to(x.dtype), new_state

@@ -77,6 +77,44 @@ print("OK")
     assert out.stdout.strip().endswith("OK")
 
 
+def test_plain_lm_path_never_loads_jax():
+    code = """
+import sys
+import torch
+from repro_torch import convert, generator
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
+for arch in ("hymba-1.5b", "mamba2-130m"):
+    cfg = get_smoke_config(arch)
+    params = T.init_params(generator(0, "cpu"), cfg, device="cpu")
+    prompts = torch.zeros((2, 4), dtype=torch.int32)
+    out = serve.generate(cfg, params, prompts, 4)
+    out = serve.generate(cfg, params, prompts, 2, temperature=0.7,
+                         generator=generator(1, "cpu"))
+    logits, _ = T.forward(params, cfg, {"tokens": out})
+    assert logits.shape == (2, 6, cfg.padded_vocab)
+    convert.lm_params_from_numpy(
+        {"embed": params["embed"].numpy(), "groups": [
+            {k: v for k, v in g.items() if k == "ln1"}
+            for g in params["groups"]], "ln_f": params["ln_f"].numpy()},
+        cfg, device="cpu")
+serve.main(["--smoke", "--device", "cpu", "--batch", "1",
+            "--prompt-len", "2", "--gen", "2"])
+assert set(ops.dispatch_breakdown()) == {"flash_decode", "ssd_chunk"}
+bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+             or k == "repro" or k.startswith("repro."))
+assert not bad, bad
+print("OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("OK")
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -105,6 +143,25 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_gpu):
                                  {"dim": 1, "columns": 1, "classes": 1})
     # An explicit CPU request is honoured.
     assert MemhdModel.create(0, enc, amc, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_refuse_to_fall_back_to_the_cpu(no_gpu):
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("mamba2-130m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.lm_params_from_numpy({"groups": [{}]}, cfg)
+    # An explicit CPU request is honoured.
+    cache = T.init_cache(cfg, 1, 4, device="cpu")
+    assert cache[0][0]["ssm"]["state"].device.type == "cpu"
 
 
 def test_tf32_is_off():

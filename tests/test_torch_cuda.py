@@ -16,7 +16,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import am_search_packed as asp  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     am_search, am_search_imc, am_search_multibit, am_search_sparse,
-    am_shortlist, binary_mvm, encode_fused, ops, pack_bits, qail_update, ref,
+    am_shortlist, binary_mvm, encode_fused, flash_decode, ops, pack_bits,
+    qail_update, ref, ssd_chunk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -216,7 +217,7 @@ def test_launch_counters_and_cuda_tier(dev):
         "qail_update": 1, "am_search": 1, "am_search_packed_unpack": 1,
         "binary_mvm": 0, "unpack_bits": 0, "am_search_imc": 0,
         "am_search_multibit": 0, "am_shortlist": 0, "am_search_sparse": 0,
-        "am_search_sparse_gathered": 0}
+        "am_search_sparse_gathered": 0, "flash_decode": 0, "ssd_chunk": 0}
     tiers = ops.dispatch_breakdown()
     for name in ("am_search_packed", "am_search", "qail_update"):
         assert set(tiers[name]) == {"cuda"}
@@ -512,3 +513,114 @@ def test_hierarchical_wrappers_reject_bad_operands(dev):
     idx, sim = am_search_sparse.am_search_sparse(
         q, slab, ids, short, ts, ts, n_dims=128, k=3, max_tiles=1)
     assert (idx == -1).all() and (sim == ref.NEG).all()  # nothing valid
+
+
+# -- the LM kernels -----------------------------------------------------------
+
+def bf16_ulp(x):
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("h,kv,dh", [(25, 5, 64), (4, 4, 128), (6, 1, 32),
+                                     (4, 2, 20)])
+@pytest.mark.parametrize("s", [1, 127, 1600])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode(dev, h, kv, dh, s, dtype):
+    """Within 3e-5 + 3e-5|x| of the plain version in float32, one bf16 ulp
+    + 3e-5 in bfloat16; a row with cache_len 0 yields 0."""
+    rng = np.random.default_rng([20, h, kv, dh, s])
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev).to(dt)
+               for shape in ((3, h, dh), (3, s, kv, dh), (3, s, kv, dh)))
+    lens = torch.tensor([s, 0, min(s, s // 2 + 1)], dtype=torch.int32,
+                        device=dev)
+    got = flash_decode.flash_decode(q, k, v, lens)
+    want = ref.flash_decode(q, k, v, lens)
+    err = (got.float() - want.float()).abs()
+    tol = (3e-5 + 3e-5 * want.float().abs() if dt == torch.float32
+           else bf16_ulp(want) + 3e-5)
+    assert (err <= tol).all(), err.max().item()
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("h,n,p", [(50, 16, 64), (24, 128, 64), (3, 32, 8),
+                                   (2, 100, 128)])
+@pytest.mark.parametrize("q", [1, 20, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk(dev, h, n, p, q, dtype):
+    """Within 1e-4 + 1e-4|x| of the plain version (plus one bf16 ulp on a
+    bfloat16 y), from a chunk sliced out of a longer sequence."""
+    rng = np.random.default_rng([21, h, n, p, q])
+    dt_ = getattr(torch, dtype)
+
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                               * scale, device=dev)
+    x, bm, cm = (t((2, 2 * q, h, d)).to(dt_) for d in (p, n, n))
+    dt = t((2, 2 * q, h)).abs() * 0.1
+    da = -dt * t((2, 2 * q, h)).abs()
+    s0 = t((2, h, n, p))
+    args = [a[:, q:] for a in (x, bm, cm, dt, da)] + [s0]
+    y, s_new = ssd_chunk.ssd_chunk(*args)
+    wy, ws = ref.ssd_chunk(*args)
+    tol = 1e-4 + 1e-4 * wy.float().abs()
+    if dt_ == torch.bfloat16:
+        tol = tol + bf16_ulp(wy)
+    assert y.dtype == dt_ and ((y.float() - wy.float()).abs() <= tol).all()
+    assert ((s_new - ws).abs() <= 1e-4 + 1e-4 * ws.abs()).all()
+
+
+def test_lm_path_launches_its_kernels(dev):
+    from repro_torch import generator
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("hymba-1.5b")
+    params = T.init_params(generator(0, dev), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                         generator=generator(1, dev), dtype=torch.int32)
+    kernels.reset_launches()
+    ops.reset_dispatch()
+    with torch.inference_mode():
+        logits, _ = T.forward(params, cfg, {"tokens": toks})
+        plain, _ = T.forward(params, cfg, {"tokens": toks}, use_kernel=False)
+    out = serve.generate(cfg, params, toks[:, :8], 4)
+    launches, tiers = kernels.launches(), ops.dispatch_breakdown()
+    assert launches["ssd_chunk"] == cfg.n_layers * 2
+    assert launches["flash_decode"] == cfg.n_layers * 11
+    assert tiers["ssd_chunk"] == {"cuda": 6, "torch-ref": 6}
+    assert tiers["flash_decode"] == {"cuda": 33}
+    assert (logits - plain).abs().max() <= 1e-4 * plain.abs().max()
+    assert out.shape == (2, 12) and out.device.type == "cuda"
+
+
+def test_lm_wrappers_reject_bad_operands_and_a_failed_build_raises(
+        dev, tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+    q = torch.zeros((2, 4, 16), device=dev)
+    k = torch.zeros((2, 8, 2, 16), device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):  # cache_len must be int32
+        flash_decode.flash_decode(q, k, k, lens.long())
+    with pytest.raises(ValueError, match="different devices"):
+        flash_decode.flash_decode(q, k, k.cpu(), lens)
+    with pytest.raises(TypeError):  # the cache must be in q's dtype
+        flash_decode.flash_decode(q, k.bfloat16(), k.bfloat16(), lens)
+    x = torch.zeros((1, 4, 2, 8), device=dev)
+    bc = torch.zeros((1, 4, 2, 200), device=dev)
+    dt = torch.zeros((1, 4, 2), device=dev)
+    s0 = torch.zeros((1, 2, 200, 8), device=dev)
+    with pytest.raises(ValueError, match="outside"):  # N > 128
+        ssd_chunk.ssd_chunk(x, bc, bc, dt, dt, s0)
+    # A source that does not compile raises, and nothing falls back.
+    bad = tmp_path / "csrc"
+    bad.mkdir()
+    (bad / "flash_decode.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", bad)
+    monkeypatch.setattr(_build, "SOURCES", ("flash_decode.cu",))
+    monkeypatch.setattr(_build, "HEADERS", ())
+    monkeypatch.setattr(_build, "_repo_root", lambda: tmp_path)
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.build()

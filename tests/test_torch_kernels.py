@@ -292,12 +292,21 @@ class TestWrapperContract:
         am_search_multibit.am_search_multibit(
             x, ref.pack_planes(torch.zeros((4, 16), dtype=torch.int32), 3),
             cell_bits=3, tile_rows=8)
+        from repro_torch.kernels import flash_decode, ssd_chunk
+        flash_decode.flash_decode(torch.ones((1, 2, 8)),
+                                  torch.ones((1, 4, 1, 8)),
+                                  torch.ones((1, 4, 1, 8)),
+                                  torch.ones(1, dtype=torch.int32))
+        ssd_chunk.ssd_chunk(torch.ones((1, 4, 2, 8)), torch.ones((1, 4, 2, 3)),
+                            torch.ones((1, 4, 2, 3)), torch.ones((1, 4, 2)),
+                            torch.zeros((1, 4, 2)), torch.zeros((1, 2, 3, 8)))
         assert kernels.launches() == {
             "pack_bits": 0, "am_search_packed": 0, "encode_pack": 0,
             "qail_update": 0, "am_search": 0, "am_search_packed_unpack": 0,
             "binary_mvm": 0, "unpack_bits": 0, "am_search_imc": 0,
             "am_search_multibit": 0, "am_shortlist": 0,
-            "am_search_sparse": 0, "am_search_sparse_gathered": 0}
+            "am_search_sparse": 0, "am_search_sparse_gathered": 0,
+            "flash_decode": 0, "ssd_chunk": 0}
 
     def test_new_wrappers_reject_bad_operands(self):
         x = torch.ones((4, 16))
