@@ -99,7 +99,12 @@ script exits non-zero without the final result line:
    B = 8, S = 32,768 and ``ssd_chunk`` at B = 8, Q = 256), and
    ``library_ms`` (cuBLAS SGEMM through ``torch.matmul`` for
    ``binary_mvm``, ``scaled_dot_product_attention`` for
-   ``flash_decode``).
+   ``flash_decode``); the ``flash_decode`` row also carries the served
+   shape's time and SDPA's there (B = 4, S = 320: ``ms_serve_shape``,
+   ``library_ms_serve_shape``) and the float32 instance's time at the
+   row's shape (``ms_f32``). Before it, on a line of its own, the tile
+   sweep of the fp32 mainloop that ``binary_mvm`` and ``encode_pack``
+   share (``sgemm_tile_sweep``: every tile bit-exact, then timed).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -175,6 +180,8 @@ SSD_Q = (1, 20, 256)
 # The kernels line's shapes: flash_decode at hymba's global layer with
 # the decode_32k context, ssd_chunk at hymba's chunk.
 FD_ROW = dict(b=8, s=32768, h=25, kv=5, dh=64)
+# ... and at hymba's decode as lm_serve runs it (B 4, cache 320).
+FD_SERVE = dict(b=4, s=320, h=25, kv=5, dh=64)
 SSD_ROW = dict(b=8, q=256, h=50, n=16, p=64)
 
 
@@ -1728,14 +1735,44 @@ class Smoke:
         from repro_torch.kernels import flash_decode as fd
         from repro_torch.kernels import ssd_chunk as sc
         bf, gen = torch.bfloat16, generator(5, self.dev)
-        fr, sr = FD_ROW, SSD_ROW
-        fq = torch.randn((fr["b"], fr["h"], fr["dh"]), generator=gen,
-                         device=self.dev).to(bf)
-        fk, fv = (torch.randn((fr["b"], fr["s"], fr["kv"], fr["dh"]),
-                              generator=gen, device=self.dev).to(bf)
-                  for _ in range(2))
-        flen = torch.full((fr["b"],), fr["s"], dtype=torch.int32,
-                          device=self.dev)
+        sr = SSD_ROW
+
+        def fd_operands(fr, dtype):
+            q = torch.randn((fr["b"], fr["h"], fr["dh"]), generator=gen,
+                            device=self.dev).to(dtype)
+            k, v = (torch.randn((fr["b"], fr["s"], fr["kv"], fr["dh"]),
+                                generator=gen, device=self.dev).to(dtype)
+                    for _ in range(2))
+            return q, k, v, torch.full((fr["b"],), fr["s"],
+                                       dtype=torch.int32, device=self.dev)
+
+        def sdpa_of(q, k, v):
+            # scaled_dot_product_attention over the same operands (every
+            # key valid): a yardstick, never called by the port.
+            mask = torch.ones((k.shape[0], 1, 1, k.shape[1]),
+                              dtype=torch.bool, device=self.dev)
+            return lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        fr = FD_ROW
+        fq, fk, fv, flen = fd_operands(fr, bf)
+        # The extra fields of the flash_decode row: the served shape (with
+        # SDPA there) and the float32 (SIMT) instance at the row's shape.
+        serve = fd_operands(FD_SERVE, bf)
+        f32 = fd_operands(fr, torch.float32)
+        self.fd_extra = {
+            "ms_serve_shape": lambda: fd.flash_decode(*serve),
+            "library_ms_serve_shape": sdpa_of(*serve[:3]),
+            "ms_f32": lambda: fd.flash_decode(*f32)}
+        for name, (q, k, v, ln) in (("serve_shape", serve), ("f32", f32)):
+            err = (fd.flash_decode(q, k, v, ln).float()
+                   - ref.flash_decode(q, k, v, ln).float()).abs()
+            want = ref.flash_decode(q, k, v, ln).float()
+            tol = (3e-5 + 3e-5 * want.abs() if q.dtype == torch.float32
+                   else bf16_ulp(want) + 3e-5)
+            check(bool((err <= tol).all()),
+                  ("flash_decode", name, err.max().item()))
         self.max_err["flash_decode"] = (
             fd.flash_decode(fq, fk, fv, flen).float()
             - ref.flash_decode(fq, fk, fv, flen).float()).abs().max().item()
@@ -1768,16 +1805,7 @@ class Smoke:
                               + 4 * sq * sn * sp), FP32_FLOP_PER_S)),
         ]
         library = {}
-        # scaled_dot_product_attention over the same operands: a yardstick,
-        # never called by the port.
-        fmask = torch.ones((fr["b"], 1, 1, fr["s"]), dtype=torch.bool,
-                           device=self.dev)
-
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                fq[:, :, None], fk.transpose(1, 2), fv.transpose(1, 2),
-                attn_mask=fmask, enable_gqa=True)
-
+        sdpa = sdpa_of(fq, fk, fv)
         try:
             sdpa_err = (sdpa()[:, :, 0].float()
                         - ref.flash_decode(fq, fk, fv, flen).float()
@@ -1787,6 +1815,29 @@ class Smoke:
         except (TypeError, RuntimeError) as e:
             log({"phase": "sdpa_yardstick", "unavailable": str(e)[:300]})
         return cases, library
+
+    def sgemm_tile_sweep(self, x, w):
+        """binary_mvm and encode_pack through every block tile of their
+        shared mainloop at the main path's shape (dyadic features: each
+        tile's product bit-exact), on a line of its own."""
+        from repro_torch.kernels import binary_mvm as bm
+        from repro_torch.kernels import encode_fused, ref
+        want, want_packed = x @ w, ref.encode_pack(x, w)
+        rows = []
+        for tile, shape in enumerate(bm.SGEMM_TILES):
+            check(self.torch.equal(bm.binary_mvm_tiled(x, w, tile), want),
+                  ("binary_mvm tile", shape))
+            check(self.torch.equal(encode_fused.encode_pack_tiled(x, w, tile),
+                                   want_packed), ("encode_pack tile", shape))
+            rows.append({
+                "bm_bn_tm_threads_bk": list(shape),
+                "grid": list(bm.sgemm_grid(x.shape[0], w.shape[1], tile)),
+                "binary_mvm_ms": time_device_ms(
+                    lambda: bm.binary_mvm_tiled(x, w, tile)),
+                "encode_pack_ms": time_device_ms(
+                    lambda: encode_fused.encode_pack_tiled(x, w, tile))})
+        log({"phase": "sgemm_tile_sweep", "shape": [*x.shape, w.shape[1]],
+             "chosen": list(bm.SGEMM_TILES[bm.SGEMM_TILE]), "tiles": rows})
 
     # -- phase 12 --------------------------------------------------------------
     def kernel_line(self):
@@ -1958,6 +2009,7 @@ class Smoke:
                    + 2 * hg * 4 + hb * 8, 2 * valid * hd, INT8_OPS_PER_S)),
         ]
         library = {"binary_mvm": lambda: torch.matmul(efeats, eproj)}
+        self.sgemm_tile_sweep(efeats, eproj)
         lm_cases, lm_library = self.lm_kernel_cases()
         cases += lm_cases
         library.update(lm_library)
@@ -1978,6 +2030,9 @@ class Smoke:
                 "max_abs_err": self.max_err[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms})
+        row = out[[r["name"] for r in out].index("flash_decode")]
+        row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
+        row["shape_serve"] = FD_SERVE
         # qail_update once more on random targets at the training shape:
         # the trained AM's batch above has no misses, so there the delta
         # pass adds nothing. The bound is the same (sims dominate).

@@ -47,12 +47,12 @@ SIGNATURES = {
     "unpack_bits_launch": (_P, _P, _I64, _P),
     "am_search_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P),
-    "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _P),
+    "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "am_search_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I,
                          _P),
     "qail_update_launch": (_P, _P, _P, _I64, _I64, _P, _P, _P, _F, _P, _P,
                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "binary_mvm_launch": (_P, _P, _P, _I, _I, _I, _P),
+    "binary_mvm_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "am_search_imc_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _F, _F, _P),
     "am_search_multibit_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

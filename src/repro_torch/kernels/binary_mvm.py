@@ -2,7 +2,9 @@
 ``binary_mvm`` CUDA kernel.
 
 Port of ``repro.kernels.binary_mvm`` (``csrc/binary_mvm.cu``): H = x @ w
-in true fp32 (no TF32: x is float features). A CPU tensor goes through
+in true fp32 (no TF32: x is float features), one fused multiply-add per
+term in increasing k, through a pipelined ``cp.async`` mainloop shared
+with ``encode_pack``. A CPU tensor goes through
 the plain version (``ref.binary_mvm``); a CUDA tensor through the kernel
 or raises. ``binary_mvm.launches`` counts kernel launches.
 """
@@ -14,10 +16,34 @@ from repro_torch.kernels import _build, ref
 
 TILE = 128  # IMC array dim: one (K, N) tile pass is one array cycle
 
+# The block tiles of the shared fp32 mainloop (``csrc/sgemm_tile.cuh``),
+# indexed as the launchers' ``tile`` argument: (rows BM, columns BN, rows
+# per thread TM, threads, K step BK). Each thread owns TM rows x 8
+# consecutive columns. SGEMM_TILE is the one binary_mvm and encode_pack
+# launch, the fastest of a sweep at B = 1024, K = 784, N = 1024 on the H100
+# (chip_smoke.py prints the sweep).
+SGEMM_TILES = ((128, 64, 4, 256, 32), (64, 64, 4, 128, 32),
+               (128, 128, 8, 256, 32), (64, 64, 8, 64, 16))
+SGEMM_TILE = 3
+
+
+def sgemm_grid(b: int, n: int, tile: int = SGEMM_TILE) -> tuple[int, int]:
+    """(column blocks, row blocks) of the launch: every output of a
+    (b, n) product in exactly one block."""
+    bm, bn = SGEMM_TILES[tile][:2]
+    return -(-n // bn), -(-b // bm)
+
 
 def binary_mvm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """H = x @ w. x: (B, K) float32; w: (K, N) float32 bipolar.
     Returns (B, N) float32."""
+    return binary_mvm_tiled(x, w, SGEMM_TILE)
+
+
+def binary_mvm_tiled(x: torch.Tensor, w: torch.Tensor,
+                     tile: int) -> torch.Tensor:
+    """``binary_mvm`` through block tile ``SGEMM_TILES[tile]`` (the
+    sweep's entry; counted as a launch of ``binary_mvm``)."""
     b, k = x.shape
     k2, n = w.shape
     if k != k2:
@@ -37,7 +63,7 @@ def binary_mvm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _build.lib()
     with torch.cuda.device(x.device):
         err = lib.binary_mvm_launch(x.data_ptr(), w.data_ptr(),
-                                    out.data_ptr(), b, k, n,
+                                    out.data_ptr(), b, k, n, tile,
                                     _build.stream_of(x))
     _build.check(err, "binary_mvm")
     binary_mvm.launches += 1

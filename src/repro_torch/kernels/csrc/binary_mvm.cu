@@ -14,49 +14,83 @@
 // 3.1 us. (cuBLAS SGEMM computes the same function; chip_smoke.py times
 // it as the library yardstick. The port does not call it here.)
 //
-// Design: encode_pack.cu's product loop (sgemm_tile.cuh: 128 x 64 tiles,
-// K in steps of 16, a 4 x 8 register tile per thread, __fmaf_rn in
-// increasing k, never TF32) with a plain store epilogue: each thread
-// writes its 4 rows x 8 consecutive columns. Dims past K and columns past
-// N load as zero; rows past B and columns past N are not stored.
+// Design: the pipelined mainloop of sgemm_tile.cuh (K through a 3-stage
+// cp.async ring, a TM x 8 register tile per thread, __fmaf_rn per term in
+// increasing k, never TF32), shared with encode_pack.cu, with a plain
+// store epilogue: each thread writes its TM rows x 8 consecutive columns
+// (two float4 stores per row where N allows). The tile shape is the
+// wrapper's choice (binary_mvm.SGEMM_TILE: 64 x 64 blocks of 64 threads,
+// 8 x 8 outputs each, K steps of 16, the fastest of the sweep that
+// chip_smoke.py prints). Rows past B and columns past N are not stored.
+// What holds it above the bound: with 8 x 8 outputs per thread every FMA
+// needs 1 byte from shared memory (8 A and 8 B floats per 64 FMAs), and an
+// H100 SM delivers 128 bytes of shared memory per clock against 128 fp32
+// FMAs per clock, so both pipes must run flat out together to reach it.
 #include "sgemm_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(sgemm::NT)
+template <class TL, bool VEC>
+__global__ void __launch_bounds__(TL::NT)
 binary_mvm_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ out, int B, int K, int N) {
-  __shared__ __align__(16) float As[sgemm::BK][sgemm::AS_LD];
-  __shared__ __align__(16) float Bs[sgemm::BK][sgemm::BN];
+  extern __shared__ float4 smem4[];
   const int tid = threadIdx.x;
-  const int tc = tid % 8, tr = tid / 8;
-  const int m0 = blockIdx.y * sgemm::BM;
-  const int n0 = blockIdx.x * sgemm::BN;
-  float acc[4][8];
-  sgemm::tile(x, w, B, K, N, m0, n0, As, Bs, acc);
+  const int tc = tid % TL::COLS, tr = tid / TL::COLS;
+  const int m0 = blockIdx.y * TL::BM;
+  const int n0 = blockIdx.x * TL::BN;
+  float acc[TL::TM][8];
+  sgemm::tile<TL, VEC>(x, w, B, K, N, m0, n0,
+                       reinterpret_cast<float*>(smem4), acc);
+  const int col0 = n0 + 8 * tc;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = m0 + 4 * tr + r;
+  for (int r = 0; r < TL::TM; ++r) {
+    const int row = m0 + TL::TM * tr + r;
     if (row >= B) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = n0 + 8 * tc + c;
-      if (col < N) out[(size_t)row * N + col] = acc[r][c];
+    float* o = out + (size_t)row * N + col0;
+    if (VEC && col0 + 8 <= N) {  // N % 4 == 0: 16-byte aligned
+      reinterpret_cast<float4*>(o)[0] =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      reinterpret_cast<float4*>(o)[1] =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      continue;
     }
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (col0 + c < N) o[c] = acc[r][c];
   }
+}
+
+template <class TL, bool VEC>
+cudaError_t launch(const float* x, const float* w, float* out, int B, int K,
+                   int N, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      binary_mvm_kernel<TL, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TL::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + TL::BN - 1) / TL::BN, (B + TL::BM - 1) / TL::BM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  binary_mvm_kernel<TL, VEC><<<grid, TL::NT, TL::SMEM, st>>>(x, w, out, B,
+                                                             K, N);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// tile: the index into binary_mvm.SGEMM_TILES (sgemm::with_tile). Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int binary_mvm_launch(const void* x, const void* w, void* out,
-                                 int B, int K, int N, void* stream) {
+                                 int B, int K, int N, int tile,
+                                 void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  const dim3 grid((N + sgemm::BN - 1) / sgemm::BN,
-                  (B + sgemm::BM - 1) / sgemm::BM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  binary_mvm_kernel<<<grid, sgemm::NT, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), B, K, N);
-  return (int)cudaGetLastError();
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* of = static_cast<float*>(out);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = sgemm::vec_ok(x, w, K, N);
+  return (int)sgemm::with_tile(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    return vec ? launch<TL, true>(xf, wf, of, B, K, N, st)
+               : launch<TL, false>(xf, wf, of, B, K, N, st);
+  });
 }

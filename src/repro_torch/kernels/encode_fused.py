@@ -19,6 +19,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.am_search_packed import (
     DEFAULT_BLOCK_B, am_search_packed,
 )
+from repro_torch.kernels.binary_mvm import SGEMM_TILE
 
 
 def encode_pack(feats: torch.Tensor, projection: torch.Tensor,
@@ -26,6 +27,13 @@ def encode_pack(feats: torch.Tensor, projection: torch.Tensor,
     """(B, f) float32 features, (f, D) float32 bipolar projection ->
     (B, ceil(D/8)) uint8, bit 1 iff feats @ projection >= 0, LSB-first
     along D with tail bits 0 — ``pack_rows(binarize_query(H))``."""
+    return encode_pack_tiled(feats, projection, SGEMM_TILE)
+
+
+def encode_pack_tiled(feats: torch.Tensor, projection: torch.Tensor,
+                      tile: int) -> torch.Tensor:
+    """``encode_pack`` through block tile ``binary_mvm.SGEMM_TILES[tile]``
+    (the tile sweep's entry; counted as a launch of ``encode_pack``)."""
     b, f = feats.shape
     f2, d = projection.shape
     if f != f2:
@@ -47,7 +55,8 @@ def encode_pack(feats: torch.Tensor, projection: torch.Tensor,
     with torch.cuda.device(feats.device):
         err = lib.encode_pack_launch(feats.data_ptr(),
                                      projection.data_ptr(), out.data_ptr(),
-                                     b, f, d, _build.stream_of(feats))
+                                     b, f, d, tile,
+                                     _build.stream_of(feats))
     _build.check(err, "encode_pack")
     encode_pack.launches += 1
     return out

@@ -9,6 +9,8 @@ masked, output ``acc / max(l, 1e-20)`` in q's dtype (a row with
 ``cache_len`` 0 yields 0). Each block takes one (batch row, KV head) and
 one split of S for all the query heads of that KV head, so a K/V tile is
 read once per group; a second pass merges the splits' partials.
+bfloat16 runs on the tensor cores (``mma.sync``, K and V streamed as bf16
+through a ``cp.async`` ring); float32 on a SIMT kernel in full float32.
 
 A CPU tensor goes through the plain version (``ref.flash_decode``); a
 CUDA tensor through the kernel or raises. ``flash_decode.launches``
@@ -22,11 +24,29 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-TILE = 32          # keys per shared-memory tile: one per lane of a warp
-MIN_SPLIT = 256    # fewest keys one block streams
-BLOCKS_PER_SM = 16  # split S until the grid holds this many blocks per SM
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_SMEM = 232448  # shared memory one block may opt into (H100)
+SM_SMEM = 233472     # shared memory of one SM
+SMEM_RESERVED = 1024  # per resident block, kept by the runtime
+
+# float32, the SIMT kernel: tiles of 32 keys; S is split until the grid
+# holds about SIMT_BLOCKS_PER_SM blocks per SM (each block waits on its
+# tile loads and barriers, and more blocks overlap them).
+SIMT_TILE = 32
+SIMT_MIN_SPLIT = 256
+SIMT_BLOCKS_PER_SM = 16
+# bfloat16, the tensor-core kernel: tiles of 64 keys through a 3-stage
+# ring, one block per 16 query heads of a KV head. S is split so that one
+# wave of resident blocks fills the card: at Dh 64 a block holds 51.2 KB of
+# shared memory, so 4 fit an SM, each with 2 tiles (32 KB) in flight:
+# 128 KB per SM, well over the ~18 KB that 3.35 TB/s times ~0.7 us of HBM
+# latency asks of each of 132 SMs.
+MMA_TILE = 64
+MMA_MIN_SPLIT = 128
+MMA_STAGES = 3
+MMA_QROWS = 16
+MMA_MIN_BLOCKS = {32: 4, 64: 4, 128: 2, 256: 1}  # __launch_bounds__
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,13 +54,37 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(b: int, kv: int, s: int, sms: int) -> tuple[int, int]:
-    """(n_splits, split_len): S cut into splits of ``split_len`` keys (a
-    TILE multiple, at least MIN_SPLIT) so that B * KV * n_splits blocks
-    give every SM about BLOCKS_PER_SM blocks."""
-    want = max(1, -(-BLOCKS_PER_SM * sms // max(1, b * kv)))
-    split_len = max(MIN_SPLIT, -(-s // want))
-    split_len = -(-split_len // TILE) * TILE
+def head_dim_pad(dh: int) -> int:
+    """The tensor-core kernel's head dim: Dh padded with zero columns."""
+    return next(p for p in (32, 64, 128, 256) if dh <= p)
+
+
+def smem_bytes(groups: int, dh: int, dtype: torch.dtype) -> int:
+    """Shared memory of one pass-1 block (``simt_smem_bytes`` and
+    ``mma_smem_bytes`` in ``csrc/flash_decode.cu``)."""
+    if dtype == torch.float32:
+        return 4 * (2 * groups * dh + SIMT_TILE * (dh + 1) + SIMT_TILE * dh
+                    + groups * SIMT_TILE + 3 * groups)
+    return 2 * head_dim_pad(dh) * (MMA_STAGES * 2 * MMA_TILE + MMA_QROWS)
+
+
+def split_plan(b: int, kv: int, s: int, sms: int, *, dtype: torch.dtype,
+               groups: int, dh: int) -> tuple[int, int]:
+    """(n_splits, split_len): S cut into ``n_splits`` splits of
+    ``split_len`` keys (a multiple of the kernel's tile); every split but
+    the last is full and none is empty."""
+    if dtype == torch.float32:
+        tile, min_split = SIMT_TILE, SIMT_MIN_SPLIT
+        want = max(1, -(-SIMT_BLOCKS_PER_SM * sms // max(1, b * kv)))
+    else:
+        tile, min_split = MMA_TILE, MMA_MIN_SPLIT
+        per_sm = min(MMA_MIN_BLOCKS[head_dim_pad(dh)],
+                     SM_SMEM // (smem_bytes(groups, dh, dtype)
+                                 + SMEM_RESERVED))
+        blocks = b * kv * -(-groups // MMA_QROWS)  # per split
+        want = max(1, per_sm * sms // max(1, blocks))
+    split_len = max(min_split, -(-s // want))
+    split_len = -(-split_len // tile) * tile
     return max(1, -(-s // split_len)), split_len
 
 
@@ -88,8 +132,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if s == 0:
         return out.zero_()
     groups = h // kv
-    n_splits, split_len = split_plan(b, kv, s, _sm_count(q.device.index
-                                                         or 0))
+    if smem_bytes(groups, dh, q.dtype) > BLOCK_SMEM:
+        raise ValueError(f"flash_decode: {groups} query heads per KV head "
+                         f"at head_dim {dh} do not fit shared memory")
+    n_splits, split_len = split_plan(
+        b, kv, s, _sm_count(q.device.index or 0), dtype=q.dtype,
+        groups=groups, dh=dh)
     part_ml = torch.empty((b, kv, n_splits, groups, 2), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((b, kv, n_splits, groups, dh),

@@ -545,6 +545,98 @@ def test_flash_decode(dev, h, kv, dh, s, dtype):
     assert not got[1].any()
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (a view with storage_offset 1)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def flash_decode_case(rng, b, s, h, kv, dh, dt, dev):
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev).to(dt)
+               for shape in ((b, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    lens = torch.tensor([s, 0, min(s, 1), min(s, s // 2 + 1)][:b],
+                        dtype=torch.int32, device=dev)
+    return q, k, v, lens
+
+
+def assert_flash_decode(got, want, dt):
+    err = (got.float() - want.float()).abs()
+    tol = (3e-5 + 3e-5 * want.float().abs() if dt == torch.float32
+           else bf16_ulp(want) + 3e-5)
+    assert (err <= tol).all(), err.max().item()
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 64, 65, 320, 4097])
+@pytest.mark.parametrize("dh", [20, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_tile_and_stage_edges(dev, s, dh, dtype):
+    """S across the 64-key tile and the 3-stage ring's edges, Dh padded
+    (20) and at every padded width, G = H / KV in {1, 5, 6, 16, 32} (two
+    blocks of 16 heads at 32); ragged lens with 0 and 1."""
+    dt = getattr(torch, dtype)
+    for g in (1, 5, 6, 16, 32):
+        rng = np.random.default_rng([22, s, dh, g])
+        q, k, v, lens = flash_decode_case(rng, 4, s, 2 * g, 2, dh, dt, dev)
+        got = flash_decode.flash_decode(q, k, v, lens)
+        assert_flash_decode(got, ref.flash_decode(q, k, v, lens), dt)
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("dh", [20, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_misaligned_cache_views(dev, dh, dtype):
+    """K / V views that start off a 16-byte boundary take the kernel's
+    scalar-load variant and give the same result."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng([23, dh])
+    q, k, v, lens = flash_decode_case(rng, 4, 300, 10, 2, dh, dt, dev)
+    km, vm = misaligned(k), misaligned(v)
+    got = flash_decode.flash_decode(q, km, vm, lens)
+    want = ref.flash_decode(q, k, v, lens)
+    assert_flash_decode(got, want, dt)
+    assert torch.equal(got, flash_decode.flash_decode(q, k, v, lens))
+
+
+@pytest.mark.parametrize("k", [9, 100, 617, 784])
+@pytest.mark.parametrize("tile", range(len(binary_mvm.SGEMM_TILES)))
+def test_binary_mvm_and_encode_pack_every_tile(dev, k, tile):
+    """Every block tile of the shared mainloop at B = 1 and at a ragged
+    B: dyadic features bit-exact (binary_mvm against the plain product,
+    encode_pack against the plain packing); float features within
+    2^-20 * sum|x*w|."""
+    for b, n in ((1, 1024), (131, 200)):
+        rng = np.random.default_rng([24, k, b, n])
+        w = bipolar(rng, (k, n), dev)
+        xd = feats(rng, (b, k), dev, True)
+        assert torch.equal(binary_mvm.binary_mvm_tiled(xd, w, tile), xd @ w)
+        assert torch.equal(binary_mvm.binary_mvm(xd, w), xd @ w)
+        assert torch.equal(encode_fused.encode_pack(xd, w),
+                           ref.encode_pack(xd, w))
+        xf = feats(rng, (b, k), dev, False)
+        err = (binary_mvm.binary_mvm_tiled(xf, w, tile) - xf @ w).abs()
+        assert (err <= 2.0 ** -20 * (xf.abs() @ w.abs())).all()
+
+
+@pytest.mark.parametrize("k", [9, 100, 784])
+def test_binary_mvm_and_encode_pack_misaligned_views(dev, k):
+    """Operands that start off a 16-byte boundary (storage_offset 1) take
+    the scalar-copy variant and agree bit for bit with aligned ones."""
+    rng = np.random.default_rng([25, k])
+    w = bipolar(rng, (k, 256), dev)
+    x = feats(rng, (37, k), dev, False)
+    want = binary_mvm.binary_mvm(x, w)
+    for xv, wv in ((misaligned(x), w), (x, misaligned(w)),
+                   (misaligned(x), misaligned(w))):
+        assert torch.equal(binary_mvm.binary_mvm(xv, wv), want)
+        assert torch.equal(encode_fused.encode_pack(xv, wv),
+                           encode_fused.encode_pack(x, w))
+
+
 @pytest.mark.parametrize("h,n,p", [(50, 16, 64), (24, 128, 64), (3, 32, 8),
                                    (2, 100, 128)])
 @pytest.mark.parametrize("q", [1, 20, 256])
