@@ -9,7 +9,7 @@ script exits non-zero without the final result line:
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
 1. the build: nvcc compiles the twelve kernel sources of ``src/repro_torch/
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
-   ptxas' register report);
+   ptxas' register, stack and spill report);
 2. each kernel against its plain PyTorch version on the card, over the
    differential geometry grid, tie and padding cases and the full-width
    shapes: ``pack_bits``, ``am_search_packed`` (both modes, every block
@@ -42,13 +42,15 @@ script exits non-zero without the final result line:
    trained AM deployed three ways (``target="unpacked"``,
    ``target="packed", mode="unpack"``, ``target="packed"``) -> the same
    request stream served through each; launch counts zeroed just before
-   and read just after; the kernel fit's binary AM agrees with the plain
+   and read just after, and every fit launch on ``qail_update``'s int8
+   route (its route counts); the kernel fit's binary AM agrees with the plain
    fit's on >= 99.9 % of cells and its test accuracy within 0.005; all
    pipelines and the plain predict agree on every request, and no
    dispatch fell back to the plain tier;
 5. the kernel fit against the plain fit under dyadic conditions
    (features on a 2^-4 grid, lr = 2^-4): ``fp``, ``binary`` and every
-   epoch's miss bit-equal, at D = C = 128 and at full width, 10 epochs;
+   epoch's miss bit-equal, at D = C = 128 and at full width, 10 epochs,
+   every kernel-fit launch on the int8 route;
 6. the serving CLI: staged, ``--fused``, ``--target unpacked`` and
    ``--mode unpack``;
 7. the trainer CLI (``repro_torch.launch.train --arch memhd --smoke
@@ -63,7 +65,8 @@ script exits non-zero without the final result line:
    6-bit-ADC sim (== the plain ``ref.am_search_imc`` on the same burned
    AM), served through ``serve_batches`` (phase ``imc_path``);
    ``fit(cell_bits=4, use_kernel=True)`` -> ``deploy(target="multibit")``
-   served (== the plain ``multibit_predict``; phase ``multibit_path``);
+   served (== the plain ``multibit_predict``, every QAT launch on
+   ``qail_update``'s int8 route; phase ``multibit_path``);
    ``python -m repro_torch.launch.robustness_report`` at its defaults and
    at 1024 x 1024 (phase ``robustness``); launch counts zeroed just
    before each path and read just after, no ``torch-ref`` tier;
@@ -94,7 +97,9 @@ script exits non-zero without the final result line:
    serving CLI at mamba2-130m (``lm_cli``);
 12. the ``kernels`` line: launches on the paths, device time, the plain
    version's time and the bound of each kernel at the paths' shapes
-   (``qail_update`` also on random targets, where most rows miss; the
+   (``qail_update`` also on random targets, where most rows miss, both on
+   its int8 route, and on a noise-perturbed AM view, checked to take its
+   fp32 route (``ms_fp32_route``, with that route's bound); the
    hierarchical kernels at the huge-label shape; ``flash_decode`` at
    B = 8, S = 32,768 and ``ssd_chunk`` at B = 8, Q = 256), and
    ``library_ms`` (cuBLAS SGEMM through ``torch.matmul`` for
@@ -102,7 +107,10 @@ script exits non-zero without the final result line:
    ``flash_decode``); the ``flash_decode`` row also carries the served
    shape's time and SDPA's there (B = 4, S = 320: ``ms_serve_shape``,
    ``library_ms_serve_shape``) and the float32 instance's time at the
-   row's shape (``ms_f32``). Before it, on a line of its own, the tile
+   row's shape (``ms_f32``); the ``ssd_chunk`` row the forward's batch
+   (B = 2: ``ms_serve_shape``, its bound) and the bound at the fp32 FMA rate
+   (``bound_ms_fp32_fma``) beside the tensor-core one. Before it, on a
+   line of its own, the tile
    sweep of the fp32 mainloop that ``binary_mvm`` and ``encode_pack``
    share (``sgemm_tile_sweep``: every tile bit-exact, then timed).
 
@@ -126,6 +134,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 # Hopper issues __popc at 16 results per clock per SM (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute 9.0).
 POPC_PER_CLK_PER_SM = 16
@@ -183,6 +193,7 @@ FD_ROW = dict(b=8, s=32768, h=25, kv=5, dh=64)
 # ... and at hymba's decode as lm_serve runs it (B 4, cache 320).
 FD_SERVE = dict(b=4, s=320, h=25, kv=5, dh=64)
 SSD_ROW = dict(b=8, q=256, h=50, n=16, p=64)
+SSD_SERVE_B = 2  # ... and at the forward's batch (lm_forward: B 2)
 
 
 def check(cond, what) -> None:
@@ -223,6 +234,30 @@ def bound(nbytes, ops, rate):
     and the operations over ``rate``."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def check_int8_routes(launches, what) -> dict:
+    """qail_update's route counts since the last reset: every launch of
+    the path on the int8 route (integer operands: ±1 queries against a ±1
+    AM or multi-bit codes)."""
+    from repro_torch.kernels import qail_update
+    routes = qail_update.route_counts()
+    check(routes == {"int8": launches, "fp32": 0},
+          ("qail_update routes", what, routes, launches))
+    return routes
+
+
+def ssd_bound(b, q, h, n, p, nbytes):
+    """ssd_chunk's bound at float32 accuracy on the tensor cores: the
+    causal triangle of C B^T (exact bf16 products) plus the float32
+    products (the triangle of G (x dt), C S and the state update), three
+    TF32 products each; against the bytes. (ms, what bounds it)."""
+    t_ops = (b * h * q * (q + 1) * n / BF16_FLOP_PER_S
+             + 3 * b * h * (q * (q + 1) * p + 4 * q * n * p)
+             / TF32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def time_device_ms(fn, samples: int = 21, calls: int = 10) -> float:
@@ -284,7 +319,7 @@ class Smoke:
         path = _build.build()
         _build.lib()
         regs = [ln.strip() for ln in _build.build_log.splitlines()
-                if "Used" in ln or "Compiling entry" in ln]
+                if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
         log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
              "library": os.path.relpath(str(path), HERE), "ptxas": regs})
 
@@ -830,6 +865,7 @@ class Smoke:
         fit_launches = kernels.launches()["qail_update"]
         check(fit_launches == n_batches * EPOCHS,
               ("qail_update launches", fit_launches, n_batches * EPOCHS))
+        fit_routes = check_int8_routes(fit_launches, "fit")
 
         targets = {"unpacked": dict(target="unpacked"),
                    "packed_unpack": dict(target="packed", mode="unpack"),
@@ -877,6 +913,7 @@ class Smoke:
              "fit_seconds_kernel": round(t_fit, 3),
              "fit_seconds_plain": round(self.plain_fit["seconds"], 3),
              "qail_update_launches_in_fit": fit_launches,
+             "qail_update_routes_in_fit": fit_routes,
              "miss_curve_kernel": [r["train_miss"] for r in hist["curve"]],
              "miss_curve_plain": self.plain_fit["miss"],
              "test_accuracy_kernel": acc_kernel,
@@ -1052,6 +1089,7 @@ class Smoke:
         n_batches = -(-ds.train_x.shape[0] // self.amc.batch_size)
         check(launches["qail_update"] == n_batches * MULTIBIT_EPOCHS,
               ("qail_update launches", launches["qail_update"]))
+        routes = check_int8_routes(launches["qail_update"], "multibit QAT")
         check(launches["am_search_multibit"] > 0,
               "am_search_multibit not launched")
         self.path_launches["am_search_multibit"] = launches[
@@ -1074,7 +1112,8 @@ class Smoke:
              "planes_bytes": planes_bytes,
              "unpacked_float_bytes": 4 * 1024 * 1024,
              "cycles": dep.cycles, "eq_plain_multibit_predict": True,
-             "launches": launches, "dispatch_tiers": tiers})
+             "launches": launches, "qail_update_routes": routes,
+             "dispatch_tiers": tiers})
         log({"phase": "serve_report_multibit", **rep})
         self.profile_serving(dep, self.reqs, False, pipeline="multibit")
 
@@ -1309,6 +1348,7 @@ class Smoke:
         22 significant bits over a 256-row batch)."""
         import dataclasses
         torch = self.torch
+        from repro_torch import kernels
         from repro_torch.core import EncoderConfig, MemhdModel
         x = torch.round(self.ds.train_x * 16) / 16
         out = []
@@ -1318,6 +1358,7 @@ class Smoke:
                                       lr=0.0625, epochs=DYADIC_EPOCHS)
             fits = {}
             for use_kernel in (True, False):
+                kernels.reset_launches()
                 t0 = time.perf_counter()
                 m = MemhdModel.create(0, enc, amc, device=self.dev)
                 m, hist = m.fit(1, x, self.ds.train_y, use_kernel=use_kernel)
@@ -1325,6 +1366,10 @@ class Smoke:
                 fits[use_kernel] = (m.am_state,
                                     [r["train_miss"] for r in hist["curve"]],
                                     time.perf_counter() - t0)
+                if use_kernel:
+                    n = kernels.launches()["qail_update"]
+                    check(n > 0, ("dyadic fit launches", width))
+                    routes = check_int8_routes(n, ("dyadic fit", width))
             (k_am, k_miss, k_s), (p_am, p_miss, p_s) = fits[True], fits[False]
             for key in ("fp", "binary"):
                 check(torch.equal(k_am[key], p_am[key]),
@@ -1333,7 +1378,7 @@ class Smoke:
             out.append({"dim": width, "columns": width,
                         "epochs": DYADIC_EPOCHS, "fp_equal": True,
                         "binary_equal": True, "miss_equal": True,
-                        "miss_curve": k_miss,
+                        "miss_curve": k_miss, "qail_update_routes": routes,
                         "fit_seconds_kernel": round(k_s, 3),
                         "fit_seconds_plain": round(p_s, 3)})
         log({"phase": "train_dyadic", "fits": out})
@@ -1784,6 +1829,10 @@ class Smoke:
             (sy.float() - wy.float()).abs().max().item(),
             (ss - ws).abs().max().item())
         sb, sq, sh, sn, sp = (sr[k] for k in ("b", "q", "h", "n", "p"))
+
+        def ssd_bytes(b):  # x, B, C (bf16) in, dt, da, state in, y, state out
+            return (2 * 2 * b * sq * sh * sp + 2 * 2 * b * sq * sh * sn
+                    + 4 * 2 * b * sq * sh + 4 * 2 * b * sh * sn * sp)
         cases = [
             ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode.py:71",
@@ -1796,14 +1845,30 @@ class Smoke:
             ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
              "src/repro/kernels/ssd_chunk.py:86",
              lambda: sc.ssd_chunk(*sargs), lambda: ref.ssd_chunk(*sargs),
-             # Operations: the causal triangle (Q(Q+1)/2 entries) of
-             # C B^T (2N each) and of its product with x dt (2P each),
-             # plus C S and the state update (2QNP each).
-             bound(2 * 2 * sb * sq * sh * sp + 2 * 2 * sb * sq * sh * sn
-                   + 4 * 2 * sb * sq * sh + 4 * 2 * sb * sh * sn * sp,
-                   sb * sh * (sq * (sq + 1) * (sn + sp)
-                              + 4 * sq * sn * sp), FP32_FLOP_PER_S)),
+             ssd_bound(sb, sq, sh, sn, sp, ssd_bytes(sb))),
         ]
+        # The ssd_chunk row's extra fields: the forward's batch (B 2), and
+        # the bound at the fp32 FMA rate (every product a float32 FMA: the
+        # causal triangle (Q(Q+1)/2 entries) of C B^T (2N each) and of its
+        # product with x dt (2P each), plus C S and the state update (2QNP
+        # each)).
+        s2 = self.ssd_inputs(np.random.default_rng(19), SSD_SERVE_B, sq, sh,
+                             sn, sp)
+        s2 = [a.to(bf) for a in s2[:3]] + list(s2[3:])
+        self.ssd_equal(sc.ssd_chunk(*s2), ref.ssd_chunk(*s2), "serve shape")
+        fma_ms, fma_by = bound(
+            ssd_bytes(sb), sb * sh * (sq * (sq + 1) * (sn + sp)
+                                      + 4 * sq * sn * sp), FP32_FLOP_PER_S)
+        serve_ms, serve_by = ssd_bound(SSD_SERVE_B, sq, sh, sn, sp,
+                                       ssd_bytes(SSD_SERVE_B))
+        self.ssd_extra = {
+            "timed": {"ms_serve_shape": lambda: sc.ssd_chunk(*s2),
+                      "plain_ms_serve_shape": lambda: ref.ssd_chunk(*s2)},
+            "fields": {"shape_serve": dict(SSD_ROW, b=SSD_SERVE_B),
+                       "bound_ms_serve_shape": serve_ms,
+                       "bound_by_serve_shape": serve_by,
+                       "bound_ms_fp32_fma": fma_ms,
+                       "bound_by_fp32_fma": fma_by}}
         library = {}
         sdpa = sdpa_of(fq, fk, fv)
         try:
@@ -1842,6 +1907,7 @@ class Smoke:
     # -- phase 12 --------------------------------------------------------------
     def kernel_line(self):
         np, torch = self.np, self.torch
+        from repro_torch import generator
         from repro_torch.core import encoding
         from repro_torch.kernels import am_search as ams
         from repro_torch.kernels import am_search_packed as asp
@@ -1875,6 +1941,8 @@ class Smoke:
         kqp = ref.pack_rows(encoding.encode_query(km.enc_params, km.enc_cfg,
                                                   feats))
         kam_t = km.deploy(target="packed").am_packed_t
+        qail_bytes = 4 * (2 * TRAIN_B * d + d * c + c + 2 * TRAIN_B + c * d
+                          + 1)
 
         cases = [
             ("pack_bits", "src/repro_torch/kernels/csrc/pack_bits.cu",
@@ -1905,8 +1973,9 @@ class Smoke:
                                              tmask, lr=lr),
              lambda: ref.qail_update_delta(tq, h, tam_t, owners, ty, tmask,
                                            lr),
-             bound(4 * (2 * TRAIN_B * d + d * c + c + 2 * TRAIN_B + c * d
-                        + 1), 2 * TRAIN_B * c * d, FP32_FLOP_PER_S)),
+             # The fit's operands are integers: int8 sims (the route the
+             # kernel takes), so the bytes bound it.
+             bound(qail_bytes, 2 * TRAIN_B * c * d, INT8_OPS_PER_S)),
             ("am_search", "src/repro_torch/kernels/csrc/am_search.cu",
              "src/repro/kernels/am_search.py:88",
              lambda: ams.am_search(q, am_binary.T),
@@ -2033,13 +2102,41 @@ class Smoke:
         row = out[[r["name"] for r in out].index("flash_decode")]
         row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
         row["shape_serve"] = FD_SERVE
+        row = out[[r["name"] for r in out].index("ssd_chunk")]
+        row.update({k: time_device_ms(fn, **({"samples": 21, "calls": 2}
+                                             if k.startswith("plain") else {}))
+                    for k, fn in self.ssd_extra["timed"].items()})
+        row.update(self.ssd_extra["fields"])
         # qail_update once more on random targets at the training shape:
         # the trained AM's batch above has no misses, so there the delta
-        # pass adds nothing. The bound is the same (sims dominate).
+        # pass adds nothing. The bound is the same (the same bytes).
         rq = self.qail_operands(np.random.default_rng([1234, TRAIN_B, d, c]),
                                 TRAIN_B, d, c, tie=False, dyadic=False)
+        # The fp32 route: the trained AM view under conductance noise (a
+        # float view, as noise-aware QAIL scores), checked to take it.
+        noisy = tam_t + 0.05 * torch.randn(
+            tam_t.shape, generator=generator(6, self.dev), device=self.dev)
+        routes = {}
+        for name, args in (("trained", (tq, h, tam_t, owners, ty, tmask)),
+                           ("random_targets", rq[:-1]),
+                           ("noisy", (tq, h, noisy, owners, ty, tmask))):
+            qail_update.reset_routes()
+            dl, nm = qail_update.qail_update(*args, lr=lr)
+            routes[name] = qail_update.route_counts()
+            check(bool(torch.isfinite(dl).all()), ("qail delta", name))
+        check(routes == {"trained": {"int8": 1, "fp32": 0},
+                         "random_targets": {"int8": 1, "fp32": 0},
+                         "noisy": {"int8": 0, "fp32": 1}},
+              ("qail_update routes", routes))
         row = out[[r["name"] for r in out].index("qail_update")]
         row.update({
+            "routes": routes, "route_of_ms": "int8",
+            "bound_ms_fp32_route": bound(qail_bytes, 2 * TRAIN_B * c * d,
+                                         FP32_FLOP_PER_S)[0],
+            "bound_by_fp32_route": bound(qail_bytes, 2 * TRAIN_B * c * d,
+                                         FP32_FLOP_PER_S)[1],
+            "ms_fp32_route": time_device_ms(lambda: qail_update.qail_update(
+                tq, h, noisy, owners, ty, tmask, lr=lr)),
             "n_miss": qail_update.qail_update(tq, h, tam_t, owners, ty,
                                               tmask, lr=lr)[1].item(),
             "n_miss_random_targets":
@@ -2057,6 +2154,8 @@ class Smoke:
              "packed_search_popc_bound_ms": b * c * -(-dp // 4)
                                             / popc_rate * 1e3,
              "int8_ops_per_s": INT8_OPS_PER_S,
+             "bf16_flop_per_s": BF16_FLOP_PER_S,
+             "tf32_flop_per_s": TF32_FLOP_PER_S,
              "fp32_flop_per_s": FP32_FLOP_PER_S,
              "fp32_flop_per_s_from_clock": sms * 128 * 2 * clk_mhz * 1e6,
              "hbm_bytes_per_s": HBM_BYTES_PER_S,

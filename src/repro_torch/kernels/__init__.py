@@ -35,8 +35,10 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
 
 
 def reset_launches() -> None:
+    """Zero every launch counter and ``qail_update``'s route counts."""
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
+    _qu.reset_routes()
 
 
 def launches() -> dict[str, int]:

@@ -31,7 +31,7 @@ SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
            "am_search_sparse.cu", "flash_decode.cu", "ssd_chunk.cu")
 # Included by sources; part of the hash.
 HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh",
-           "packed_topk.cuh")
+           "packed_topk.cuh", "mma_sync.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -50,8 +50,9 @@ SIGNATURES = {
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "am_search_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I,
                          _P),
-    "qail_update_launch": (_P, _P, _P, _I64, _I64, _P, _P, _P, _F, _P, _P,
-                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qail_update_launch": (_P, _P, _P, _I64, _I64, _P, _P, _P, _F, _P,
+                           _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P),
     "binary_mvm_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "am_search_imc_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _F, _F, _P),
@@ -65,7 +66,7 @@ SIGNATURES = {
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P),
     "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I64, _I64, _I64, _I64, _I64, _I, _P),
+                         _I64, _I64, _I64, _I64, _I64, _I, _I64, _P),
 }
 
 _lock = threading.Lock()

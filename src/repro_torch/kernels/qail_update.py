@@ -14,6 +14,13 @@ row order, so two runs agree bit for bit. ``am_t`` may be any strided
 ``block_b`` picks the query tile of the similarity pass; the result does
 not depend on it.
 
+The kernel picks its similarity route on the device, per call: when q
+and the AM view are integers in [-127, 127] (±1 queries against the
+binary AM or multi-bit QAT codes) the sims run exactly on int8 tensor
+cores; otherwise (a noise-perturbed float view) in fp32 FMAs. Both give
+the plain version's targets. ``route_counts()`` reads how many calls took
+each route (one device sync); ``reset_routes()`` zeroes them.
+
 A CPU tensor goes through the plain version (``ref.qail_update_delta``);
 a CUDA tensor through the kernel or raises. ``qail_update.launches``
 counts kernel launches.
@@ -26,7 +33,62 @@ from repro_torch.kernels import _build, ref
 
 BN = 64  # AM columns per similarity tile (csrc/sims_argmax.cuh)
 BLOCK_B_CHOICES = (16, 32, 64)  # queries per similarity tile
-DEFAULT_BLOCK_B = 32
+DEFAULT_BLOCK_B = 16
+# csrc/qail_update.cu: int8 bytes of k per ring stage (D pads to it), the
+# convert pass's square tile.
+K_SLAB = 128
+CONV_TILE = 64
+ROUTES = ("int8", "fp32")
+_ROUTES: dict[torch.device, torch.Tensor] = {}  # device -> (2,) int32
+
+
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def plan(b: int, d: int, c: int, block_b: int) -> dict:
+    """The kernel's tiles and the byte offsets of its scratch (``Plan`` in
+    ``csrc/qail_update.cu``, which refuses a call whose size differs):
+    the int8 copies of q (bp, dp) and of the AM (cp, dp), one flag word
+    per convert tile, one counter per query tile, and the (2, B, n_ct)
+    partials (float, then int32)."""
+    n_ct, n_rt = -(-c // BN), -(-b // block_b)
+    dp = -(-d // K_SLAB) * K_SLAB
+    bp, cp = n_rt * block_b, n_ct * BN
+    kt = dp // CONV_TILE
+    n_am_tiles = kt * (cp // CONV_TILE)
+    n_conv = n_am_tiles + kt * -(-bp // CONV_TILE)
+    sizes = {"q8": bp * dp, "am8": cp * dp, "flags": 4 * n_conv,
+             "counters": 4 * n_rt, "part_s": 4 * 2 * b * n_ct,
+             "part_i": 4 * 2 * b * n_ct}
+    offsets, at = {}, 0
+    for name, size in sizes.items():
+        offsets[name] = at
+        at += _align256(size)
+    return {"n_ct": n_ct, "n_rt": n_rt, "dp": dp, "bp": bp, "cp": cp,
+            "n_conv": n_conv, "n_am_tiles": n_am_tiles, "sizes": sizes,
+            "offsets": offsets, "scratch_bytes": at}
+
+
+def routes(device: torch.device) -> torch.Tensor:
+    """The (2,) int32 device counter of calls per route on ``device``."""
+    if device not in _ROUTES:
+        _ROUTES[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _ROUTES[device]
+
+
+def route_counts() -> dict[str, int]:
+    """Calls per similarity route since the last reset, over all devices."""
+    out = dict.fromkeys(ROUTES, 0)
+    for t in _ROUTES.values():
+        for name, n in zip(ROUTES, t.tolist()):
+            out[name] += n
+    return out
+
+
+def reset_routes() -> None:
+    for t in _ROUTES.values():
+        t.zero_()
 
 
 def _check(q, upd, am_t, centroid_class, labels, mask, block_b):
@@ -73,9 +135,8 @@ def qail_update_targets(q: torch.Tensor, upd: torch.Tensor,
     _build.check_operand(labels, "labels", torch.int32, 1)
     _build.check_operand(mask, "mask", torch.float32, 1)
     dev = q.device
-    n_ct = -(-c // BN)
-    part_s = torch.empty((2, b, n_ct), dtype=torch.float32, device=dev)
-    part_i = torch.empty((2, b, n_ct), dtype=torch.int32, device=dev)
+    scratch_bytes = plan(b, d, c, block_b)["scratch_bytes"]
+    scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
     pred_t = torch.empty((b,), dtype=torch.int32, device=dev)
     true_t = torch.empty((b,), dtype=torch.int32, device=dev)
     mis = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -86,8 +147,8 @@ def qail_update_targets(q: torch.Tensor, upd: torch.Tensor,
         err = lib.qail_update_launch(
             q.data_ptr(), upd.data_ptr(), am_t.data_ptr(), am_t.stride(0),
             am_t.stride(1), centroid_class.data_ptr(), labels.data_ptr(),
-            mask.data_ptr(), float(lr), part_s.data_ptr(),
-            part_i.data_ptr(), pred_t.data_ptr(), true_t.data_ptr(),
+            mask.data_ptr(), float(lr), scratch.data_ptr(), scratch_bytes,
+            routes(dev).data_ptr(), pred_t.data_ptr(), true_t.data_ptr(),
             mis.data_ptr(), delta.data_ptr(), n_miss.data_ptr(), b, d, c,
             block_b, _build.stream_of(q))
     _build.check(err, "qail_update")

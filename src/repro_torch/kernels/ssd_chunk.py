@@ -5,7 +5,12 @@ Port of ``repro.kernels.ssd_chunk`` (``csrc/ssd_chunk.cu``): for every
 y = (C Bᵀ ∘ decay)(x·dt) + (C ∘ e^cum) S and the state leaving the chunk
 S' = e^{cum_Q} S + (B ∘ e^{cum_Q - cum})ᵀ (x·dt), all in float32. The
 chunk-to-chunk recurrence stays in the caller (``models.layers.
-ssd_forward``), as in the reference.
+ssd_forward``), as in the reference. The products run on the tensor cores
+at float32 accuracy (three TF32 products per float32 product).
+
+``launch_plan`` is the kernel's grid and shared memory, computed here so
+that the CPU tests can check it: every (batch row, head) gets one block
+per 64-row tile of y and one per 32 rows of the new state.
 
 A CPU tensor goes through the plain version (``ref.ssd_chunk``); a CUDA
 tensor through the kernel or raises. ``ssd_chunk.launches`` counts
@@ -19,6 +24,61 @@ from repro_torch.kernels import _build, ref
 
 MAX_DIM = 128  # largest d_state N and head_dim P the kernel takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_SMEM = 232448  # shared memory one block may opt into (H100)
+# csrc/ssd_chunk.cu: y rows per block and keys per tile, rows of the new
+# state per state block, B tiles in flight.
+TILE = 64
+STATE_ROWS = 32
+STAGES = 2
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def col_tiles(p: int) -> int:
+    """n8 tiles over P of the instance that takes head dim ``p``."""
+    return next(c for c in (2, 4, 8, 16) if p <= 8 * c)
+
+
+def smem_bytes(q: int, n: int, p: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block (``Geom`` in ``csrc/ssd_chunk.cu``):
+    cum, dt and the per-key exponentials (Q padded to 64, float32); the C
+    tile; an area for a float32 x tile as TF32 (hi, lo) pairs (4 KB per n8
+    tile over P), the entering state and the key halves' sums; x tiles
+    (two of bfloat16, read in place, or one raw float32 tile) and two B
+    tiles. Rows are padded to 4 mod 32 floats or 8 mod 32 bf16."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    pad = 4 if es == 4 else 8
+    sn, sp, ss = _up(n, 32) + pad, _up(p, 32) + pad, _up(p, 32) + 8
+    x_stages = 1 if es == 4 else 2
+    xf = max(2048 * col_tiles(p) * (2 if es == 4 else 1), _up(n, 8) * ss * 4)
+    return (3 * _up(q, TILE) * 4 + TILE * sn * es + xf
+            + TILE * (x_stages * sp + STAGES * sn) * es)
+
+
+def launch_plan(b: int, q: int, h: int, n: int, p: int,
+                dtype: torch.dtype) -> dict:
+    """Blocks per (batch row, head): ``state_blocks`` slices of the new
+    state, then ``y_blocks`` row tiles of y, heaviest first; the grid, the
+    shared memory and the n8 tiles over P of the instance chosen."""
+    y_blocks, state_blocks = -(-q // TILE), -(-n // STATE_ROWS)
+    return {"y_blocks": y_blocks, "state_blocks": state_blocks,
+            "blocks": (y_blocks + state_blocks) * b * h,
+            "smem": smem_bytes(q, n, p, dtype), "col_tiles": col_tiles(p)}
+
+
+def unit_work(unit: int, q: int, n: int, p: int) -> dict:
+    """What block ``unit`` of a (batch row, head) computes: rows of the new
+    state (every column), or y rows and the key tiles they walk."""
+    y_blocks, state_blocks = -(-q // TILE), -(-n // STATE_ROWS)
+    if unit < state_blocks:
+        n0 = unit * STATE_ROWS
+        return {"state_rows": range(n0, min(n, n0 + STATE_ROWS)),
+                "state_cols": range(p), "key_tiles": range(y_blocks)}
+    tile = y_blocks - 1 - (unit - state_blocks)
+    return {"y_rows": range(TILE * tile, min(q, TILE * tile + TILE)),
+            "key_tiles": range(tile + 1)}
 
 
 def _batch_stride(t: torch.Tensor, name: str) -> int:
@@ -72,6 +132,10 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     _build.check_operand(state, "state", torch.float32, 4)
     if not (1 <= n <= MAX_DIM and 1 <= p <= MAX_DIM):
         raise ValueError(f"ssd_chunk: N={n}, P={p} outside [1, {MAX_DIM}]")
+    smem = smem_bytes(q, n, p, x.dtype)
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"ssd_chunk: Q={q} needs {smem} bytes of shared "
+                         f"memory per block, over {BLOCK_SMEM}")
     strides = [_batch_stride(t, name) for t, name in
                ((x, "x"), (b, "b"), (c, "c"), (dt, "dt"), (da, "da"))]
     y = torch.empty((bsz, q, h, p), dtype=x.dtype, device=x.device)
@@ -86,7 +150,7 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         err = lib.ssd_chunk_launch(
             x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
             da.data_ptr(), state.data_ptr(), y.data_ptr(), s_new.data_ptr(),
-            bsz, q, h, n, p, *strides, DTYPES[x.dtype],
+            bsz, q, h, n, p, *strides, DTYPES[x.dtype], smem,
             _build.stream_of(x))
     _build.check(err, "ssd_chunk")
     ssd_chunk.launches += 1

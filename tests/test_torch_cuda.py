@@ -168,6 +168,85 @@ def test_qail_update(dev, b, c, d, dyadic_lr, block_b):
         assert torch.equal(again[0], delta)  # no atomics: deterministic
 
 
+def qail_exact(dev, q, upd, am_t, owners, labels, mask, lr, block_b,
+               route):
+    """qail_update_targets on ``route``, bit-equal to the plain version
+    (lr and upd dyadic: every delta sum exact)."""
+    c = am_t.shape[1]
+    qail_update.reset_routes()
+    delta, n_miss, pred_t, true_t, mis = qail_update.qail_update_targets(
+        q, upd, am_t, owners, labels, mask, lr=lr, block_b=block_b)
+    w_pred, w_true, w_mis = ref.qail_targets(q, am_t, owners, labels, mask)
+    w_delta, w_miss = ref.qail_delta(upd, w_pred, w_true, w_mis, lr, c)
+    assert torch.equal(pred_t.long(), w_pred)
+    assert torch.equal(true_t.long(), w_true)
+    assert torch.equal(mis, w_mis)
+    assert n_miss.item() == w_miss.item()
+    assert torch.equal(delta, w_delta)
+    want = {"int8": 0, "fp32": 0}
+    want[route] = 1
+    assert qail_update.route_counts() == want
+
+
+@pytest.mark.parametrize("b,c,d", [(17, 13, 13), (64, 130, 100),
+                                   (33, 257, 257), (5, 3, 8),
+                                   (300, 65, 129), (256, 1024, 1024)])
+@pytest.mark.parametrize("codes", [1, 7, 127])
+@pytest.mark.parametrize("block_b", qail_update.BLOCK_B_CHOICES)
+def test_qail_update_int8_route_is_exact(dev, b, c, d, codes, block_b):
+    """±1 queries against a ±1 AM or multi-bit codes in [-codes, codes]:
+    the int8 route, bit-equal to the plain version, through a contiguous
+    (D, C) AM, the transposed view of a (C, D) AM and a tie-heavy AM
+    (duplicated columns)."""
+    rng = np.random.default_rng([17, b, c, d, codes])
+    q, upd, _, owners, labels, mask, lr = qail_operands(rng, b, c, d, dev,
+                                                        True)
+    am = torch.as_tensor(rng.integers(-codes, codes + 1, (c, d))
+                         .astype(np.float32), device=dev)
+    if codes == 1:
+        am = torch.where(am >= 0, 1.0, -1.0)
+    am[0, 0] = float(codes)  # the largest code is present
+    dup = am[torch.arange(c, device=dev) % max(1, c // 3)]
+    for am_t in (am.T.contiguous(), am.T, dup.T):
+        qail_exact(dev, q, upd, am_t, owners, labels, mask, lr, block_b,
+                   "int8")
+
+
+@pytest.mark.parametrize("value", [0.5, 128.0, -129.0])
+@pytest.mark.parametrize("block_b", qail_update.BLOCK_B_CHOICES)
+def test_qail_update_takes_the_fp32_route_off_int8(dev, value, block_b):
+    """One AM element that is not an integer in [-127, 127] sends the
+    call through the fp32 route, still equal to the plain version."""
+    rng = np.random.default_rng([18, block_b])
+    b, c, d = 96, 130, 257
+    q, upd, am_t, owners, labels, mask, lr = qail_operands(rng, b, c, d, dev,
+                                                           True)
+    am_t = am_t.clone()
+    am_t[d // 2, c // 2] = value
+    qail_exact(dev, q, upd, am_t, owners, labels, mask, lr, block_b, "fp32")
+    qail_exact(dev, q, upd, am_t.T.contiguous().T, owners, labels, mask, lr,
+               block_b, "fp32")
+
+
+def test_qail_update_int8_route_needs_exact_sums(dev):
+    """Codes of 127 on both sides over D = 1,041 dims can reach
+    127 * 127 * D > 2^24, where float32 sums round: the fp32 route."""
+    rng = np.random.default_rng(19)
+    b, c, d = 32, 64, 1041
+    _, upd, _, owners, labels, mask, lr = qail_operands(rng, b, c, d, dev,
+                                                        True)
+    q = torch.as_tensor(rng.integers(-127, 128, (b, d)).astype(np.float32),
+                        device=dev)
+    am_t = torch.as_tensor(rng.integers(-127, 128, (d, c))
+                           .astype(np.float32), device=dev)
+    q[0, 0] = am_t[0, 0] = 127.0
+    qail_update.reset_routes()
+    qail_update.qail_update(q, upd, am_t, owners, labels, mask, lr=lr)
+    assert qail_update.route_counts() == {"int8": 0, "fp32": 1}
+    qail_exact(dev, q[:, :1040].contiguous(), upd[:, :1040].contiguous(),
+               am_t[:1040], owners, labels, mask, lr, 32, "int8")
+
+
 def test_fit_through_the_kernel_equals_the_plain_fit(dev):
     # Dyadic features and lr = 2^-4 with normalize="none": every sum is
     # exact, so the kernel fit and the plain fit agree bit for bit.
@@ -662,6 +741,57 @@ def test_ssd_chunk(dev, h, n, p, q, dtype):
         tol = tol + bf16_ulp(wy)
     assert y.dtype == dt_ and ((y.float() - wy.float()).abs() <= tol).all()
     assert ((s_new - ws).abs() <= 1e-4 + 1e-4 * ws.abs()).all()
+
+
+@pytest.mark.parametrize("q", [1, 63, 64, 65, 129, 256, 257])
+@pytest.mark.parametrize("n", [1, 16, 128])
+@pytest.mark.parametrize("p", [20, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_grid(dev, q, n, p, dtype):
+    """Every row tile, ragged tails, both dtypes, B of 1, 2 and 8 and
+    strided batch rows, at the unchanged tolerance of test_ssd_chunk."""
+    b = (1, 2, 8)[(q + n + p) % 3]
+    rng = np.random.default_rng([22, q, n, p, b])
+    dt_ = getattr(torch, dtype)
+    h = 3
+
+    def t(shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    x, bm, cm = (t((b, q + 5, h, d)).to(dt_) for d in (p, n, n))
+    dt = t((b, q + 5, h)).abs() * 0.1
+    da = -dt * t((b, q + 5, h)).abs()
+    s0 = t((b, h, n, p))
+    args = [a[:, 5:] for a in (x, bm, cm, dt, da)] + [s0]
+    y, s_new = ssd_chunk.ssd_chunk(*args)
+    wy, ws = ref.ssd_chunk(*args)
+    tol = 1e-4 + 1e-4 * wy.float().abs()
+    if dt_ == torch.bfloat16:
+        tol = tol + bf16_ulp(wy)
+    assert y.dtype == dt_ and ((y.float() - wy.float()).abs() <= tol).all()
+    assert ((s_new - ws).abs() <= 1e-4 + 1e-4 * ws.abs()).all()
+
+
+def test_ssd_chunk_whole_chunk_equals_two_halves(dev):
+    """Two chained chunks of 128 == one chunk of 256, within tolerance."""
+    rng = np.random.default_rng(23)
+    h, n, p = 50, 16, 64
+
+    def t(shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    x, bm, cm = (t((2, 256, h, d)) for d in (p, n, n))
+    dt = t((2, 256, h)).abs() * 0.1
+    da = -dt * t((2, 256, h)).abs()
+    s0 = t((2, h, n, p))
+    wy, ws = ssd_chunk.ssd_chunk(x, bm, cm, dt, da, s0)
+    y1, s1 = ssd_chunk.ssd_chunk(x[:, :128], bm[:, :128], cm[:, :128],
+                                 dt[:, :128], da[:, :128], s0)
+    y2, s2 = ssd_chunk.ssd_chunk(x[:, 128:], bm[:, 128:], cm[:, 128:],
+                                 dt[:, 128:], da[:, 128:], s1)
+    y = torch.cat([y1, y2], 1)
+    assert ((y - wy).abs() <= 1e-4 + 1e-4 * wy.abs()).all()
+    assert ((s2 - ws).abs() <= 1e-4 + 1e-4 * ws.abs()).all()
 
 
 def test_lm_path_launches_its_kernels(dev):
