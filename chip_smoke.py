@@ -248,13 +248,16 @@ def check_int8_routes(launches, what) -> dict:
 
 
 def ssd_bound(b, q, h, n, p, nbytes):
-    """ssd_chunk's bound at float32 accuracy on the tensor cores: the
-    causal triangle of C B^T (exact bf16 products) plus the float32
-    products (the triangle of G (x dt), C S and the state update), three
-    TF32 products each; against the bytes. (ms, what bounds it)."""
-    t_ops = (b * h * q * (q + 1) * n / BF16_FLOP_PER_S
-             + 3 * b * h * (q * (q + 1) * p + 4 * q * n * p)
-             / TF32_FLOP_PER_S)
+    """ssd_chunk's bound at float32 accuracy with bf16 x, B and C, each
+    product counted at the type and number of terms it needs: the causal
+    triangle of C B^T, one exact bf16 product; the triangle of G x (G
+    float32 in three bf16 terms, x exact), three bf16 products; C S and
+    the state update (a float32 operand in TF32 hi and lo against an exact
+    one), two TF32 products each; against the bytes. (ms, what bounds
+    it)."""
+    tri = b * h * q * (q + 1)  # 2 flops per entry of the Q(Q+1)/2 triangle
+    t_ops = (tri * (n + 3 * p) / BF16_FLOP_PER_S
+             + 2 * 4 * b * h * q * n * p / TF32_FLOP_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -265,16 +268,27 @@ def time_device_ms(fn, samples: int = 21, calls: int = 10) -> float:
 
     Each sample parks the stream behind ``torch.cuda._sleep`` while the
     host enqueues ``calls`` calls, so the events bracket back-to-back
-    device work and not the host's launch overhead."""
+    device work and not the host's launch overhead. The sleep lasts four
+    times the host's enqueue of ``calls`` calls after the warm-up (at
+    least ~1 ms, at most ~0.2 s): a fast kernel behind a heavy wrapper
+    would otherwise be timed at the host's rate."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # _sleep counts SM clock cycles: 2e9 a second is above the H100's
+    # top clock, so the sleep lasts at least as long as asked.
+    cycles = min(max(2_000_000, int(4 * enqueue_s * 2e9)), 400_000_000)
     times = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(calls):
             fn()

@@ -66,7 +66,8 @@ SIGNATURES = {
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P),
     "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I64, _I64, _I64, _I64, _I64, _I, _I64, _P),
+                         _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I64,
+                         _P),
 }
 
 _lock = threading.Lock()

@@ -17,14 +17,18 @@
 // (B, H) Pallas grid, one (batch, head) per step with the whole chunk in
 // VMEM: the (Q, Q) decay and C B^T matrices and four MXU products).
 //
-// Bound on the H100: operations. The function needs the causal triangle
+// Bound on the H100: bytes. The function needs the causal triangle
 // (Q(Q+1)/2 entries) of C B^T and of its product with x dt, plus C S and
-// the state update: per (b, h) Q(Q+1)N + Q(Q+1)P + 4QNP flops. At
-// hymba-1.5b's chunk (Q = 256, N = 16, P = 64) and B = 8 (400 pairs):
-// 0.42 GFLOP of the C B^T triangle, exact in bf16 (989 TFLOP/s), and
-// 2.1 GFLOP of float32 products, three TF32 products each at float32
-// accuracy (495 TFLOP/s): 0.013 ms, against ~33 MB of operands (0.010 ms)
-// and 0.038 ms at the 67 TFLOP/s fp32 FMA rate.
+// the state update: per (b, h) Q(Q+1)N + Q(Q+1)P + 4QNP flops. With the
+// served model's bf16 x, B and C, each product counted at the type and
+// number of terms it needs at float32 accuracy: C B^T one exact bf16
+// product, G x three bf16 products (G float32 in three bf16 terms against
+// exact x), C S and the state update two TF32 products (one float32
+// operand in two terms against an exact one). At hymba-1.5b's chunk
+// (Q = 256, N = 16, P = 64) and B = 8 (400 pairs): 0.42 GFLOP of C B^T and
+// 3 x 1.68 GFLOP of G x at 989 TFLOP/s, and 2 x 0.42 GFLOP at 495 TFLOP/s,
+// 0.0072 ms, against 36.9 MB of operands at 3.35 TB/s, 0.0110 ms (B = 2:
+// 0.00275 ms), and 0.038 ms at the 67 TFLOP/s fp32 FMA rate.
 //
 // Design. Every product runs on mma.sync tensor cores with f32
 // accumulation, at float32 accuracy:
@@ -65,8 +69,10 @@
 //   rows of N, then adds e^{cum_Q} S.
 // Shared-memory rows are padded so that fragment loads are free of bank
 // conflicts (row strides of 4 mod 32 floats, 8 mod 32 bf16). Any Q >= 1,
-// N and P up to 128; the wrapper's plan (kernels/ssd_chunk.py) computes
-// the same shared-memory size, which the launcher checks.
+// N and P up to 128. The wrapper's plan (kernels/ssd_chunk.py launch_plan)
+// gives the launcher the blocks per (b, h), the n8 tiles over P and the
+// shared memory; the launcher refuses a plan that differs from Geom's, and
+// the kernel maps its blocks by the plan's counts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -137,6 +143,7 @@ struct Args {
   float* s_new;
   int B, Q, H, N, P;
   long long sx, sb, sc, sdt, sda;
+  int y_blocks, state_blocks;  // blocks per (b, h): the wrapper's plan
 };
 
 // Rows [r0, r0 + 64) of a (Q, H, W) operand's head h into a tile with row
@@ -208,7 +215,7 @@ ssd_chunk_kernel(Args a) {
   const Geom g(Q, N, P, sizeof(T));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int QT = g.qp / TILE, SB = (N + STATE_ROWS - 1) / STATE_ROWS;
+  const int QT = a.y_blocks, SB = a.state_blocks;
   const int BH = a.B * H;
   const int unit = blockIdx.x / BH, bh = blockIdx.x - unit * BH;
   const int bb = bh / H, h = bh - bb * H;
@@ -601,16 +608,18 @@ cudaError_t launch_t(const Args& a, int blocks, size_t smem,
 }
 
 template <typename T, bool ASYNC>
-cudaError_t launch_cols(const Args& a, int blocks, size_t smem,
+cudaError_t launch_cols(const Args& a, int cols, int blocks, size_t smem,
                         cudaStream_t st) {
-  if (a.P <= 16) return launch_t<T, 2, ASYNC>(a, blocks, smem, st);
-  if (a.P <= 32) return launch_t<T, 4, ASYNC>(a, blocks, smem, st);
-  if (a.P <= 64) return launch_t<T, 8, ASYNC>(a, blocks, smem, st);
-  return launch_t<T, 16, ASYNC>(a, blocks, smem, st);
+  switch (cols) {
+    case 2: return launch_t<T, 2, ASYNC>(a, blocks, smem, st);
+    case 4: return launch_t<T, 4, ASYNC>(a, blocks, smem, st);
+    case 8: return launch_t<T, 8, ASYNC>(a, blocks, smem, st);
+    default: return launch_t<T, 16, ASYNC>(a, blocks, smem, st);
+  }
 }
 
 template <typename T>
-cudaError_t launch_dtype(const Args& a, int blocks, size_t smem,
+cudaError_t launch_dtype(const Args& a, int cols, int blocks, size_t smem,
                          cudaStream_t st) {
   // 16-byte copies need rows of a multiple of 16 bytes and 16-byte
   // aligned bases and batch strides (the state: rows of P floats).
@@ -620,37 +629,40 @@ cudaError_t launch_dtype(const Args& a, int blocks, size_t smem,
       ((uintptr_t)a.x | (uintptr_t)a.b | (uintptr_t)a.c |
        (uintptr_t)a.state) % 16 == 0 &&
       ((a.sx * es) | (a.sb * es) | (a.sc * es)) % 16 == 0;
-  return vec ? launch_cols<T, true>(a, blocks, smem, st)
-             : launch_cols<T, false>(a, blocks, smem, st);
+  return vec ? launch_cols<T, true>(a, cols, blocks, smem, st)
+             : launch_cols<T, false>(a, cols, blocks, smem, st);
 }
 
 }  // namespace
 
-// smem: the wrapper's shared-memory count for (Q, N, P, dtype), checked
-// against the kernel's own. Returns the cudaError_t of the launch (0 on
-// success).
+// y_blocks, state_blocks, col_tiles, smem: the wrapper's launch plan for
+// (B, Q, H, N, P, dtype), refused (cudaErrorInvalidValue) unless it is the
+// kernel's own. Returns the cudaError_t of the launch (0 on success).
 extern "C" int ssd_chunk_launch(const void* x, const void* b, const void* c,
                                 const void* dt, const void* da,
                                 const void* state, void* y, void* s_new,
                                 int B, int Q, int H, int N, int P,
                                 long long sx, long long sb, long long sc,
                                 long long sdt, long long sda, int dtype,
+                                int y_blocks, int state_blocks, int cols,
                                 long long smem, void* stream) {
   if (B <= 0 || H <= 0 || Q <= 0) return 0;
   if (N < 1 || N > 128 || P < 1 || P > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Geom g(Q, N, P, dtype == 0 ? 4 : 2);
-  const long long units =
-      (long long)(g.qp / TILE + (N + STATE_ROWS - 1) / STATE_ROWS);
-  const long long blocks = units * B * H;
-  if ((long long)g.bytes != smem || g.bytes > MAX_SMEM || blocks > INT_MAX)
+  const long long blocks = ((long long)y_blocks + state_blocks) * B * H;
+  if (y_blocks != g.qp / TILE ||
+      state_blocks != (N + STATE_ROWS - 1) / STATE_ROWS ||
+      cols != col_tiles(P) || (long long)g.bytes != smem ||
+      g.bytes > MAX_SMEM || blocks > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const Args a{x, b, c, static_cast<const float*>(dt),
                static_cast<const float*>(da), static_cast<const float*>(state),
                y, static_cast<float*>(s_new), B, Q, H, N, P, sx, sb, sc, sdt,
-               sda};
+               sda, y_blocks, state_blocks};
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(dtype == 0
-                   ? launch_dtype<float>(a, (int)blocks, g.bytes, st)
-                   : launch_dtype<__nv_bfloat16>(a, (int)blocks, g.bytes, st));
+                   ? launch_dtype<float>(a, cols, (int)blocks, g.bytes, st)
+                   : launch_dtype<__nv_bfloat16>(a, cols, (int)blocks,
+                                                 g.bytes, st));
 }

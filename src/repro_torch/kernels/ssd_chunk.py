@@ -6,11 +6,14 @@ y = (C Bᵀ ∘ decay)(x·dt) + (C ∘ e^cum) S and the state leaving the chunk
 S' = e^{cum_Q} S + (B ∘ e^{cum_Q - cum})ᵀ (x·dt), all in float32. The
 chunk-to-chunk recurrence stays in the caller (``models.layers.
 ssd_forward``), as in the reference. The products run on the tensor cores
-at float32 accuracy (three TF32 products per float32 product).
+at float32 accuracy: a float32 operand enters as two or three terms (TF32
+hi and lo, or three bf16 terms), as many as the product needs against its
+other operand (bf16 inputs are exact in one term).
 
 ``launch_plan`` is the kernel's grid and shared memory, computed here so
-that the CPU tests can check it: every (batch row, head) gets one block
-per 64-row tile of y and one per 32 rows of the new state.
+that the CPU tests can check it and handed to the launcher, which refuses
+a plan other than its own: every (batch row, head) gets one block per
+64-row tile of y and one per 32 rows of the new state.
 
 A CPU tensor goes through the plain version (``ref.ssd_chunk``); a CUDA
 tensor through the kernel or raises. ``ssd_chunk.launches`` counts
@@ -70,7 +73,8 @@ def launch_plan(b: int, q: int, h: int, n: int, p: int,
 
 def unit_work(unit: int, q: int, n: int, p: int) -> dict:
     """What block ``unit`` of a (batch row, head) computes: rows of the new
-    state (every column), or y rows and the key tiles they walk."""
+    state (every column), or y rows and the key tiles they walk (the
+    kernel's ``is_y``, ``it`` and ``n0`` in ``csrc/ssd_chunk.cu``)."""
     y_blocks, state_blocks = -(-q // TILE), -(-n // STATE_ROWS)
     if unit < state_blocks:
         n0 = unit * STATE_ROWS
@@ -132,10 +136,10 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     _build.check_operand(state, "state", torch.float32, 4)
     if not (1 <= n <= MAX_DIM and 1 <= p <= MAX_DIM):
         raise ValueError(f"ssd_chunk: N={n}, P={p} outside [1, {MAX_DIM}]")
-    smem = smem_bytes(q, n, p, x.dtype)
-    if smem > BLOCK_SMEM:
-        raise ValueError(f"ssd_chunk: Q={q} needs {smem} bytes of shared "
-                         f"memory per block, over {BLOCK_SMEM}")
+    plan = launch_plan(bsz, q, h, n, p, x.dtype)
+    if plan["smem"] > BLOCK_SMEM:
+        raise ValueError(f"ssd_chunk: Q={q} needs {plan['smem']} bytes of "
+                         f"shared memory per block, over {BLOCK_SMEM}")
     strides = [_batch_stride(t, name) for t, name in
                ((x, "x"), (b, "b"), (c, "c"), (dt, "dt"), (da, "da"))]
     y = torch.empty((bsz, q, h, p), dtype=x.dtype, device=x.device)
@@ -150,7 +154,8 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         err = lib.ssd_chunk_launch(
             x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
             da.data_ptr(), state.data_ptr(), y.data_ptr(), s_new.data_ptr(),
-            bsz, q, h, n, p, *strides, DTYPES[x.dtype], smem,
+            bsz, q, h, n, p, *strides, DTYPES[x.dtype], plan["y_blocks"],
+            plan["state_blocks"], plan["col_tiles"], plan["smem"],
             _build.stream_of(x))
     _build.check(err, "ssd_chunk")
     ssd_chunk.launches += 1

@@ -772,6 +772,25 @@ def test_ssd_chunk_grid(dev, q, n, p, dtype):
     assert ((s_new - ws).abs() <= 1e-4 + 1e-4 * ws.abs()).all()
 
 
+@pytest.mark.parametrize("field,delta", [("y_blocks", 1),
+                                         ("state_blocks", -1),
+                                         ("col_tiles", 2), ("smem", 16)])
+def test_ssd_chunk_launcher_refuses_another_plan(dev, monkeypatch, field,
+                                                 delta):
+    """The launcher takes the wrapper's launch_plan and refuses one that
+    is not the kernel's own grid, instance or shared memory."""
+    b, q, h, n, p = 2, 100, 3, 16, 64
+    x, bm, cm = (torch.ones((b, q, h, d), device=dev) for d in (p, n, n))
+    dt = torch.full((b, q, h), 0.1, device=dev)
+    s0 = torch.zeros((b, h, n, p), device=dev)
+    plan = ssd_chunk.launch_plan(b, q, h, n, p, torch.float32)
+    ssd_chunk.ssd_chunk(x, bm, cm, dt, -dt, s0)  # the plan as computed
+    monkeypatch.setattr(ssd_chunk, "launch_plan",
+                        lambda *a: {**plan, field: plan[field] + delta})
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ssd_chunk.ssd_chunk(x, bm, cm, dt, -dt, s0)
+
+
 def test_ssd_chunk_whole_chunk_equals_two_halves(dev):
     """Two chained chunks of 128 == one chunk of 256, within tolerance."""
     rng = np.random.default_rng(23)

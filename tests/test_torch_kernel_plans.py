@@ -159,6 +159,22 @@ def test_ssd_shared_memory_fits_a_block(dtype):
         assert sc.launch_plan(1, 256, 1, n, p, dtype)["col_tiles"] * 8 >= p
 
 
+
+@pytest.mark.parametrize("b,ms", [(8, 0.011004179104477612),
+                                  (2, 0.002751044776119403)])
+def test_ssd_bound_at_the_rows_shape_is_the_bytes(b, ms):
+    """At hymba's chunk with bf16 x, B and C the products, each counted at
+    its type and terms (C B^T 1 x bf16, G x 3 x bf16, C S and the state
+    2 x TF32: 7.2 us at B 8), take less than the operands' 36.9 MB at B 8
+    (11.0 us), so the bytes bound the row."""
+    q, h, n, p = 256, 50, 16, 64
+    nbytes = (2 * 2 * b * q * h * p + 2 * 2 * b * q * h * n
+              + 4 * 2 * b * q * h + 4 * 2 * b * h * n * p)
+    assert SMOKE.ssd_bound(b, q, h, n, p, nbytes) == pytest.approx(
+        (ms, "bytes"), rel=1e-12)
+    assert SMOKE.ssd_bound(b, q, h, n, p, 0)[0] == pytest.approx(
+        b / 8 * 7.2294e-3, rel=1e-4)
+
 @pytest.mark.parametrize("b,d,c", [(1, 1, 1), (17, 13, 3), (256, 1024, 1024),
                                    (300, 129, 65), (64, 100, 130),
                                    (5, 257, 1025)])
