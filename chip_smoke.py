@@ -109,7 +109,13 @@ script exits non-zero without the final result line:
    ``library_ms_serve_shape``) and the float32 instance's time at the
    row's shape (``ms_f32``); the ``ssd_chunk`` row the forward's batch
    (B = 2: ``ms_serve_shape``, its bound) and the bound at the fp32 FMA rate
-   (``bound_ms_fp32_fma``) beside the tensor-core one. Before it, on a
+   (``bound_ms_fp32_fma``) beside the tensor-core one; the
+   ``am_search_packed_unpack`` row the time at each ``block_b``
+   (``ms_by_block_b``); the ``am_search_sparse`` row the gathered entry on
+   this run's gather (``ms_gathered``, checked equal to the fused one), k
+   = 5 (``ms_k5``) and a block's SM cycles split between scoring and
+   selection (``block_cycles_scoring``, ``block_cycles_selection``, from
+   the kernel's clock64() stamps). Before it, on a
    line of its own, the tile
    sweep of the fp32 mainloop that ``binary_mvm`` and ``encode_pack``
    share (``sgemm_tile_sweep``: every tile bit-exact, then timed).
@@ -1895,6 +1901,44 @@ class Smoke:
             log({"phase": "sdpa_yardstick", "unavailable": str(e)[:300]})
         return cases, library
 
+    def sparse_extra(self, tiles, clk_mhz):
+        """The am_search_sparse row's other fields at the huge-label shape:
+        the gathered entry on this run's gather (checked equal to the
+        fused one), k = 5, and the split of a block's SM cycles between
+        scoring (tile loads and popcounts) and the selection, from the
+        kernel's clock64() stamps (mean over blocks and 5 launches)."""
+        from repro_torch.kernels import am_search_sparse as ass
+        torch = self.torch
+        hq = self.huge["qp"]
+        slab, ids, ts, tc = self.huge["layout"]
+        short8 = self.huge["short8"]
+        mt, d = self.huge["lay"].max_tiles, HUGE["d"]
+        gat, gid = ass.gather_shortlist(slab, ids, tiles)
+        gid = gid.contiguous()
+        fused = ass.am_search_sparse(hq, slab, ids, short8, ts, tc,
+                                     n_dims=d, k=1, max_tiles=mt)
+        gathered = ass.am_search_sparse_gathered(hq, gat, gid, n_dims=d, k=1)
+        check(all(torch.equal(a, b) for a, b in zip(fused, gathered)),
+              "sparse gathered != fused at the huge shape")
+        clk = torch.stack([ass.phase_clocks(
+            hq, slab, ids, short8, ts, tc, n_dims=d, k=1, max_tiles=mt)
+            for _ in range(5)]).double()
+        score = (clk[..., 1] - clk[..., 0]).mean().item()
+        select = (clk[..., 2] - clk[..., 1]).mean().item()
+        out = {
+            "ms_gathered": time_device_ms(
+                lambda: ass.am_search_sparse_gathered(hq, gat, gid, n_dims=d,
+                                                      k=1)),
+            "gathered_bytes": gat.numel() + 4 * gid.numel(),
+            "ms_k5": time_device_ms(lambda: ass.am_search_sparse(
+                hq, slab, ids, short8, ts, tc, n_dims=d, k=5, max_tiles=mt)),
+            "block_cycles_scoring": score, "block_cycles_selection": select,
+            "selection_share": select / (score + select),
+            "block_us_at_max_clock": {
+                "scoring": score / clk_mhz, "selection": select / clk_mhz}}
+        del gat, gid
+        return out
+
     def sgemm_tile_sweep(self, x, w):
         """binary_mvm and encode_pack through every block tile of their
         shared mainloop at the main path's shape (dyadic features: each
@@ -2116,6 +2160,13 @@ class Smoke:
         row = out[[r["name"] for r in out].index("flash_decode")]
         row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
         row["shape_serve"] = FD_SERVE
+        row = out[[r["name"] for r in out].index("am_search_packed_unpack")]
+        row["ms_by_block_b"] = {
+            bb: time_device_ms(lambda: asp.am_search_packed(
+                kqp, kam_t, n_dims=d, mode="unpack", block_b=bb))
+            for bb in asp.BLOCK_B_CHOICES}
+        row = out[[r["name"] for r in out].index("am_search_sparse")]
+        row.update(self.sparse_extra(tiles, clk_mhz))
         row = out[[r["name"] for r in out].index("ssd_chunk")]
         row.update({k: time_device_ms(fn, **({"samples": 21, "calls": 2}
                                              if k.startswith("plain") else {}))

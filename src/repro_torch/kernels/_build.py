@@ -45,8 +45,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "pack_bits_launch": (_P, _P, _I64, _P),
     "unpack_bits_launch": (_P, _P, _I64, _P),
-    "am_search_packed_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _P),
+    "am_search_packed_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I64, _P),
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "am_search_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I,
                          _P),
@@ -59,10 +59,11 @@ SIGNATURES = {
     "am_search_multibit_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _F, _P),
     "am_shortlist_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "am_search_sparse_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P),
+    "am_search_sparse_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P),
     "am_search_sparse_gathered_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                         _I, _I, _P),
+                                         _I, _I, _I, _I, _I, _I, _P),
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P),
     "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -7,9 +7,13 @@ uses the bipolar Hamming identity
 
     dot(q, a) = D_valid - 2 * popcount(bits(q) XOR bits(a)),
 
-with a first-wins argmax. ``mode="unpack"`` instead unpacks both
-operands to ±1 (0 past D) in shared memory and takes the float dot; the
-two modes return the same (idx, sim) bit for bit.
+with a first-wins argmax. ``mode="unpack"`` instead takes the exact
+integer dot of both operands unpacked to ±1 (0 past D) on the int8
+tensor cores; the two modes return the same (idx, sim) bit for bit.
+
+``launch_plan`` is the kernel's grid, tiles, shared memory and scratch,
+computed here so that the CPU tests can check it and handed to the
+launcher, which refuses a plan other than its own.
 
 A CPU tensor is searched by the plain version (``ref.am_search_packed``,
 ``ref.am_search_packed_unpack``); a CUDA tensor goes through the kernel
@@ -24,13 +28,18 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.pack_bits import pack_bits
 
-# Queries per block: each instantiation of the kernel template (queries
-# per thread 1, 2, 4, 8 over 4 thread rows).
+# Queries per block: each instantiation of the popcount kernel template
+# (queries per thread 1, 2, 4, 8 over 4 thread rows); in unpack mode the
+# rows of an mma tile, max(16, block_b).
 BLOCK_B_CHOICES = (4, 8, 16, 32)
 DEFAULT_BLOCK_B = 8
 MODES = ("popcount", "unpack")
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
-_UNPACK_SLAB = 128    # dims per unpacked shared-memory slab
+# csrc/am_search_packed.cu, unpack mode: columns per block, warps, bytes
+# per k slab, ring stages, shared row strides of the query and AM slabs.
+UNPACK_COLS = 128
+_WARPS, _SLAB, _STAGES, _QSTR, _ASTR = 4, 32, 4, 48, UNPACK_COLS + 16
+_MAX_GRID_Y = 65535
 
 
 def pack_rows(x: torch.Tensor) -> torch.Tensor:
@@ -47,12 +56,37 @@ def pack_rows(x: torch.Tensor) -> torch.Tensor:
     return pack_bits(x.contiguous())
 
 
-def _smem_bytes(block_b: int, dp: int, mode: str) -> int:
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
+    """The kernel's launch for B queries, Dp packed bytes and C columns.
+
+    popcount: a block of 256 threads per ``block_b`` queries walks all C
+    columns (``cols`` = C) with the query and AM words of its tile in
+    dynamic shared memory; no scratch.
+
+    unpack: a block of 4 warps per ``rows`` = max(16, block_b) queries
+    (one or two m16 tiles of ``mma.sync``) and ``cols`` = 128 columns; the
+    grid is (query tiles, column splits). The shared memory is the
+    kernel's static ``Smem`` (a 4-stage ring of 32-byte k slabs of both
+    operands, the warps' keys and shares of the rows' popcounts, the last
+    block's flag); the scratch holds a uint64 key per query and a ticket
+    word per query tile, filled with ones by the launcher.
+    """
     if mode == "unpack":
-        return 4 * (block_b * _UNPACK_SLAB + _UNPACK_SLAB * 64
-                    + 2 * block_b * 64)
+        rows = max(16, block_b)
+        tiles = -(-b // rows)
+        ring = _STAGES * rows * _QSTR + _STAGES * _SLAB * _ASTR
+        smem = _up(_up(ring, 8) + 12 * _WARPS * rows + 4, 8)
+        return {"rows": rows, "cols": UNPACK_COLS,
+                "grid": (tiles, -(-c // UNPACK_COLS)), "smem": smem,
+                "scratch_bytes": 8 * b + 4 * tiles}
     dw = -(-dp // 4)
-    return 4 * (block_b * dw + dw * 64 + 2 * block_b * 64)
+    return {"rows": block_b, "cols": c, "grid": (-(-b // block_b), 1),
+            "smem": 4 * (block_b * dw + dw * 64 + 2 * block_b * 64),
+            "scratch_bytes": 0}
 
 
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
@@ -65,8 +99,11 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
       q_packed: (B, Dp) uint8 queries, Dp = ceil(D/8), tail bits 0.
       am_packed_t: (Dp, C) uint8 transposed packed AM (``pack_am``).
       n_dims: true (unpacked) hypervector dimension D.
-      block_b: queries per thread block (one of ``BLOCK_B_CHOICES``).
-      mode: "popcount" (XOR + popcount) or "unpack" (±1 float dot).
+      block_b: queries per thread block (one of ``BLOCK_B_CHOICES``); in
+        unpack mode rounded up to the 16 rows of an ``mma.sync`` tile
+        (4, 8 and 16 give 16-row blocks, 32 two m16 tiles).
+      mode: "popcount" (XOR + popcount) or "unpack" (the ±1 dot, exact,
+        on the int8 tensor cores).
 
     Returns:
       (best_idx, best_sim): (B,) int32 winning centroid (first wins ties)
@@ -96,18 +133,26 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     _build.check_operand(am_packed_t, "am_packed_t", torch.uint8, 2)
     if block_b not in BLOCK_B_CHOICES:
         raise ValueError(f"block_b={block_b} not in {BLOCK_B_CHOICES}")
-    if _smem_bytes(block_b, dp, mode) > _SMEM_LIMIT:
+    plan = launch_plan(b, dp, c, block_b, mode)
+    if plan["smem"] > _SMEM_LIMIT:
         raise ValueError(f"D={n_dims} needs more shared memory than a "
                          f"block has at block_b={block_b}")
+    if plan["grid"][1] > _MAX_GRID_Y:
+        raise ValueError(f"C={c} needs more column splits than a grid has")
     idx = torch.empty((b,), dtype=torch.int32, device=q_packed.device)
     sim = torch.empty((b,), dtype=torch.float32, device=q_packed.device)
     if b == 0:
         return idx, sim
+    buf = (torch.empty((plan["scratch_bytes"],), dtype=torch.uint8,
+                       device=q_packed.device)
+           if plan["scratch_bytes"] else None)
     lib = _build.lib()
     with torch.cuda.device(q_packed.device):
         err = lib.am_search_packed_launch(
             q_packed.data_ptr(), am_packed_t.data_ptr(), idx.data_ptr(),
-            sim.data_ptr(), b, dp, c, n_dims, block_b, MODES.index(mode),
+            sim.data_ptr(), None if buf is None else buf.data_ptr(), b, dp,
+            c, n_dims, block_b, MODES.index(mode), plan["rows"],
+            plan["cols"], *plan["grid"], plan["smem"], plan["scratch_bytes"],
             _build.stream_of(q_packed))
     _build.check(err, "am_search_packed")
     if mode == "unpack":

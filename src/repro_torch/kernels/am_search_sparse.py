@@ -14,9 +14,16 @@ bit. Columns whose id is -1 are masked; slots with no candidate left are
 
 ``am_search_sparse`` is the whole fine pass: its kernel reads each
 query's tiles straight from the slab through the layout, so the
-reference's (B, Dp, S * max_tiles * 128) gather never exists.
+reference's (B, Dp, S * max_tiles * 128) gather never exists. A
+shortlist entry outside [0, G) and a tile outside the slab read as the
+null tile, in the kernel and the plain version alike.
 ``am_search_sparse_gathered`` takes that gather (``gather_shortlist``),
 as the TPU kernel does; it is a second entry of the same CUDA source.
+
+``launch_plan`` is the kernel's grid, tile ring and shared memory (and
+whether the keys stay there), computed here so that the CPU tests can
+check it and handed to the launcher, which refuses a plan other than its
+own.
 
 A CPU tensor goes through the plain version (gather, then
 ``ref.am_search_sparse``); a CUDA tensor through the kernel or raises.
@@ -27,22 +34,72 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.am_shortlist import check_packed, scratch
+from repro_torch.kernels.am_shortlist import check_packed, keys_fit
 
 TILE = 128  # slab columns per tile (the am_search_packed contract)
+# csrc/am_search_sparse.cu: threads per block (one block per query), ring
+# stages, most tile rows (packed bytes of D) a ring stage holds.
+THREADS, STAGES, MAX_CHUNK_ROWS = 256, 3, 128
+BLOCK_SMEM = 232448  # shared memory one block may opt into (H100)
+
+
+def launch_plan(b: int, dp: int, n_slots: int) -> dict:
+    """One block per query over ``n_slots`` candidate columns (whole
+    128-column tiles) of Dp packed bytes: a ring of ``stages`` stages of
+    ``chunk_rows`` tile rows (Dp rounded up to 4, at most 128; a larger Dp
+    is read in chunks) and the tile's 128 int32 ids; the keys stay in
+    shared memory (``keys_in_smem``) when they fit beside the ring, else
+    they go to a (B, n_slots) global scratch; ``smem`` is the dynamic
+    shared memory: the ring, the keys if kept, the query's words over
+    whole chunks, a word per slot tile and one per warp."""
+    cr = min(-(-dp // 4) * 4, MAX_CHUNK_ROWS)
+    chunks = -(-dp // cr)
+    ring = STAGES * (cr + 4) * TILE
+    in_smem = keys_fit(n_slots, ring)
+    smem = (ring + (8 * n_slots if in_smem else 0) + 4 * chunks * (cr // 4)
+            + 4 * (n_slots // TILE) + 4 * (THREADS // 32))
+    return {"grid": b, "stages": STAGES, "chunk_rows": cr,
+            "keys_in_smem": in_smem, "smem": smem}
+
+
+def _plan_for(b: int, dp: int, n_slots: int, what: str) -> dict:
+    plan = launch_plan(b, dp, n_slots)
+    if plan["smem"] > BLOCK_SMEM:
+        raise ValueError(f"{what}: {n_slots} candidate columns need "
+                         f"{plan['smem']} bytes of shared memory per "
+                         f"block, over {BLOCK_SMEM}")
+    return plan
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads it in 16-byte copies; "
+                         "its data must start 16-byte aligned")
+
+
+def _keys_scratch(plan: dict, b: int, n_slots: int, device):
+    if plan["keys_in_smem"]:
+        return None
+    return torch.empty((b, n_slots), dtype=torch.int64, device=device)
 
 
 def expand_shortlist_tiles(shortlist: torch.Tensor, tile_start: torch.Tensor,
                            tile_count: torch.Tensor, *, max_tiles: int,
                            null_tile: int) -> torch.Tensor:
     """(B, S) cluster shortlist -> (B, S * max_tiles) int64 slab tiles;
-    slots past a cluster's ``tile_count`` point at ``null_tile``."""
+    slots past a cluster's ``tile_count``, of a shortlist entry outside
+    [0, G) or outside [0, null_tile] point at ``null_tile``."""
     j = torch.arange(max_tiles, device=shortlist.device)
     sl = shortlist.long()
+    g = tile_start.shape[0]
+    known = (sl >= 0) & (sl < g)
+    sl = torch.where(known, sl, 0)
     ts = tile_start.long()[sl]  # (B, S)
-    tc = tile_count.long()[sl]
+    tc = torch.where(known, tile_count.long()[sl], 0)
     tiles = ts[:, :, None] + j[None, None, :]
-    tiles = torch.where(j[None, None, :] < tc[:, :, None], tiles, null_tile)
+    keep = (j[None, None, :] < tc[:, :, None]) & (tiles >= 0) & (
+        tiles <= null_tile)
+    tiles = torch.where(keep, tiles, null_tile)
     return tiles.reshape(shortlist.shape[0], -1)
 
 
@@ -115,17 +172,21 @@ def am_search_sparse_gathered(q_packed: torch.Tensor,
     _build.check_operand(q_packed, "q_packed", torch.uint8, 2)
     _build.check_operand(tiles_packed, "tiles_packed", torch.uint8, 3)
     _build.check_operand(tile_ids, "tile_ids", torch.int32, 2)
+    _check_aligned(tiles_packed, "tiles_packed")
+    _check_aligned(tile_ids, "tile_ids")
+    plan = _plan_for(b, dp, tc, "am_search_sparse_gathered")
     idx = torch.empty((b, k), dtype=torch.int32, device=q_packed.device)
     sim = torch.empty((b, k), dtype=torch.float32, device=q_packed.device)
     if b == 0:
         return idx, sim
-    buf = scratch(b, tc, q_packed.device)
+    buf = _keys_scratch(plan, b, tc, q_packed.device)
     lib = _build.lib()
     with torch.cuda.device(q_packed.device):
         err = lib.am_search_sparse_gathered_launch(
             q_packed.data_ptr(), tiles_packed.data_ptr(), tile_ids.data_ptr(),
             None if buf is None else buf.data_ptr(), idx.data_ptr(),
-            sim.data_ptr(), b, dp, tc, n_dims, k,
+            sim.data_ptr(), b, dp, tc, n_dims, k, plan["grid"],
+            plan["stages"], plan["chunk_rows"], plan["smem"],
             _build.stream_of(q_packed))
     _build.check(err, "am_search_sparse_gathered")
     am_search_sparse_gathered.launches += 1
@@ -183,28 +244,62 @@ def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
         _build.check_operand(t, name, torch.int32, t.dim())
     _build.check_operand(q_packed, "q_packed", torch.uint8, 2)
     _build.check_operand(am_slab_t, "am_slab_t", torch.uint8, 2)
-    s = shortlist.shape[1]
-    idx = torch.empty((b, k), dtype=torch.int32, device=q_packed.device)
-    sim = torch.empty((b, k), dtype=torch.float32, device=q_packed.device)
-    if b == 0:
-        return idx, sim
-    slots = s * max_tiles * TILE
-    if slots >= 2 ** 31:
-        raise ValueError(f"S * max_tiles * {TILE} = {slots} candidate "
-                         "columns per query is too many for the kernel")
-    buf = scratch(b, slots, q_packed.device)
-    lib = _build.lib()
-    with torch.cuda.device(q_packed.device):
-        err = lib.am_search_sparse_launch(
-            q_packed.data_ptr(), am_slab_t.data_ptr(), col_ids.data_ptr(),
-            shortlist.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), None if buf is None else buf.data_ptr(),
-            idx.data_ptr(), sim.data_ptr(), b, dp, ctot, s,
-            tile_start.shape[0], max_tiles, n_dims, k,
-            _build.stream_of(q_packed))
-    _build.check(err, "am_search_sparse")
-    am_search_sparse.launches += 1
+    _check_aligned(am_slab_t, "am_slab_t")
+    _check_aligned(col_ids, "col_ids")
+    idx, sim, _ = _launch_fused(q_packed, am_slab_t, col_ids, shortlist,
+                                tile_start, tile_count, n_dims=n_dims, k=k,
+                                max_tiles=max_tiles, clocks=False)
+    if b:
+        am_search_sparse.launches += 1
     return idx, sim
 
 
 am_search_sparse.launches = 0
+
+
+def _launch_fused(q_packed, am_slab_t, col_ids, shortlist, tile_start,
+                  tile_count, *, n_dims, k, max_tiles, clocks):
+    """Launch the fused kernel on checked CUDA operands; with ``clocks``
+    each block also records clock64() at its start, after scoring and at
+    its end, returned as a (B, 3) int64 tensor."""
+    b, dp = q_packed.shape
+    s = shortlist.shape[1]
+    dev = q_packed.device
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    sim = torch.empty((b, k), dtype=torch.float32, device=dev)
+    clk = (torch.zeros((b, 3), dtype=torch.int64, device=dev) if clocks
+           else None)
+    if b == 0:
+        return idx, sim, clk
+    slots = s * max_tiles * TILE
+    if slots >= 2 ** 31:
+        raise ValueError(f"S * max_tiles * {TILE} = {slots} candidate "
+                         "columns per query is too many for the kernel")
+    plan = _plan_for(b, dp, slots, "am_search_sparse")
+    buf = _keys_scratch(plan, b, slots, dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        err = lib.am_search_sparse_launch(
+            q_packed.data_ptr(), am_slab_t.data_ptr(), col_ids.data_ptr(),
+            shortlist.data_ptr(), tile_start.data_ptr(),
+            tile_count.data_ptr(), None if buf is None else buf.data_ptr(),
+            idx.data_ptr(), sim.data_ptr(),
+            None if clk is None else clk.data_ptr(), b, dp,
+            am_slab_t.shape[1], s, tile_start.shape[0], max_tiles, n_dims, k,
+            plan["grid"], plan["stages"], plan["chunk_rows"], plan["smem"],
+            _build.stream_of(q_packed))
+    _build.check(err, "am_search_sparse")
+    return idx, sim, clk
+
+
+def phase_clocks(q_packed, am_slab_t, col_ids, shortlist, tile_start,
+                 tile_count, *, n_dims: int, k: int, max_tiles: int,
+                 ) -> torch.Tensor:
+    """A measurement: one launch of the fused kernel on CUDA operands
+    that records, per block (query), clock64() at its start, once its
+    keys are scored and at its end ((B, 3) int64 SM cycles), so that the
+    scoring and the selection can be timed apart. Not counted in
+    ``am_search_sparse.launches``."""
+    return _launch_fused(q_packed, am_slab_t, col_ids, shortlist,
+                         tile_start, tile_count, n_dims=n_dims, k=k,
+                         max_tiles=max_tiles, clocks=True)[2]

@@ -21,7 +21,9 @@ from repro_torch.kernels import _build, ref
 NEG = ref.NEG
 _SENT = ref._SENT
 # Candidates whose keys a block keeps in shared memory (8 bytes each);
-# beyond it the kernel streams them through a global scratch buffer.
+# beyond it the kernel streams them through a global scratch buffer. A
+# kernel that also stages tiles in shared memory (am_search_sparse's ring)
+# counts them against the same 8 * SMEM_SLOTS bytes.
 SMEM_SLOTS = 16384
 
 
@@ -66,10 +68,16 @@ def check_packed(q_packed: torch.Tensor, am_t: torch.Tensor, n_dims: int,
         raise ValueError(f"{what}: unsupported device {q_packed.device}")
 
 
+def keys_fit(slots: int, reserved: int = 0) -> bool:
+    """Whether a block keeps its ``slots`` keys in shared memory beside
+    ``reserved`` bytes of other staging."""
+    return 8 * slots + reserved <= 8 * SMEM_SLOTS
+
+
 def scratch(b: int, slots: int, device) -> torch.Tensor | None:
     """The global key buffer a block needs when its candidates do not fit
     in shared memory (None when they do)."""
-    if slots <= SMEM_SLOTS:
+    if keys_fit(slots):
         return None
     return torch.empty((b, slots), dtype=torch.int64, device=device)
 

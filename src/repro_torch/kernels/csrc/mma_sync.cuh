@@ -1,5 +1,6 @@
 // mma_sync.cuh: the warp-level tensor-core and async-copy primitives that
-// qail_update.cu and ssd_chunk.cu share: 16-byte cp.async copies into
+// qail_update.cu, ssd_chunk.cu, flash_decode.cu, am_search_packed.cu and
+// am_search_sparse.cu share: 16-byte cp.async copies into
 // shared memory (with a zero-fill form for rows past an operand's end),
 // ldmatrix, and mma.sync in int8 (m16n8k32, s32 accumulate: exact), in
 // bf16 (m16n8k16, f32 accumulate) and in TF32 (m16n8k8, f32 accumulate),

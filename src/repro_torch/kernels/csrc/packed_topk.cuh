@@ -1,6 +1,7 @@
 // packed_topk.cuh: the packed-word loader (shared with am_search_packed.cu)
-// and the exact top-k search of the hierarchical kernels (am_shortlist.cu,
-// am_search_sparse.cu).
+// and the exact top-k search of the hierarchical kernels: topk_kernel
+// (am_shortlist.cu), and its key layout and selection (select_topk), which
+// am_search_sparse.cu's tile kernel shares.
 //
 // topk_kernel: one block of 256 threads per query.
 //   1. The query's packed bytes are staged into shared memory as

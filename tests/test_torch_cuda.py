@@ -100,6 +100,51 @@ def test_am_search_packed_unpack_mode(dev, b, f, d, c, block_b):
             assert torch.equal(g, w) and torch.equal(g, p)
 
 
+def unpack_equal_three_ways(q, am_t, d, block_b):
+    got = asp.am_search_packed(q, am_t, n_dims=d, block_b=block_b,
+                               mode="unpack")
+    pop = asp.am_search_packed(q, am_t, n_dims=d, block_b=block_b)
+    want = ref.am_search_packed_unpack(q, am_t, d)
+    for g, p, w in zip(got, pop, want):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    return got
+
+
+@pytest.mark.parametrize("c", [1, 127, 129, 1000])
+@pytest.mark.parametrize("d", [8, 100, 1000, 1024])
+@pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
+def test_unpack_mode_tails_of_b_c_and_d(dev, c, d, block_b):
+    """C, D and B tails of the tensor-core tiles (B 1 and 1,023, C not a
+    multiple of the 128-column split, D = 100 with Dp = 13): the unpack
+    mode equals popcount mode and the plain version bit for bit."""
+    rng = np.random.default_rng([18, c, d, block_b])
+    am_t = ref.pack_rows(bipolar(rng, (c, d), dev)).T.contiguous()
+    for b in (1, 1023):
+        unpack_equal_three_ways(ref.pack_rows(bipolar(rng, (b, d), dev)),
+                                am_t, d, block_b)
+
+
+@pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
+def test_unpack_mode_ties_across_column_splits(dev, block_b):
+    """Exact copies of a query in several 128-column splits (blocks that
+    finish in any order): the lowest index wins, whether it lies in the
+    first split or in a later one than the others' copies."""
+    rng = np.random.default_rng([18, block_b])
+    d, c, b = 1024, 1024, 300
+    am = bipolar(rng, (c, d), dev)
+    q = bipolar(rng, (b, d), dev)
+    i = torch.arange(40, device=dev)
+    win = 130 + 3 * i                      # split 1
+    for cols in (win, win + 470, win + 640):  # splits 1, 4-5, 6
+        am[cols] = q[:40]
+    am[1 + 3 * i[:20]] = q[:20]            # split 0, for rows 0-19
+    got, _ = unpack_equal_three_ways(ref.pack_rows(q),
+                                     ref.pack_rows(am).T.contiguous(), d,
+                                     block_b)
+    want = torch.where(i < 20, 1 + 3 * i, win).to(torch.int32)
+    assert torch.equal(got[:40], want)
+
+
 @pytest.mark.parametrize("b,f,d,c", GEOMS)
 def test_am_search_with_ties_and_views(dev, b, f, d, c):
     rng = np.random.default_rng([6, b, f, d, c])
@@ -541,6 +586,170 @@ def test_sparse_exact_configuration_equals_the_flat_scan(dev):
     want = am_search_sparse.am_search_sparse_plain(
         q, slab, ids, wide, ts, tc, n_dims=1024, k=7, max_tiles=mt)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def sparse_three_ways(q, slab, ids, short, ts, tc, d, k, mt):
+    """Fused kernel, gathered kernel and the plain version, bit-equal."""
+    want = am_search_sparse.am_search_sparse_plain(
+        q, slab, ids, short, ts, tc, n_dims=d, k=k, max_tiles=mt)
+    got = am_search_sparse.am_search_sparse(
+        q, slab, ids, short, ts, tc, n_dims=d, k=k, max_tiles=mt)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tiles = am_search_sparse.expand_shortlist_tiles(
+        short, ts, tc, max_tiles=mt, null_tile=slab.shape[1] // 128 - 1)
+    gat, gid = am_search_sparse.gather_shortlist(slab, ids, tiles)
+    got2 = am_search_sparse.am_search_sparse_gathered(
+        q, gat, gid.contiguous(), n_dims=d, k=k)
+    assert torch.equal(got2[0], want[0]) and torch.equal(got2[1], want[1])
+    return want
+
+
+@pytest.mark.parametrize("d", [8, 36, 100, 1000, 1100, 2048])
+def test_am_search_sparse_odd_and_long_tiles(dev, d):
+    """Dp not a multiple of 4 (1, 5, 13, 125 bytes) and Dp past the
+    128-row ring stage (138: a partial second chunk; 256: two)."""
+    rng = np.random.default_rng([24, d])
+    q = packed_rows(rng, (9, d), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, 700, d, 6, dev)
+    short = torch.as_tensor(np.stack([rng.permutation(6)[:3]
+                                      for _ in range(9)]),
+                            dtype=torch.int32, device=dev)
+    for k in (1, 4):
+        sparse_three_ways(q, slab, ids, short, ts, tc, d, k, mt)
+
+
+def test_am_search_sparse_duplicate_and_out_of_range_entries(dev):
+    """A cluster listed twice returns its columns twice (ties by slot);
+    entries outside [0, G) read as the null tile; an all-null shortlist
+    and k past the valid candidates give exhausted slots."""
+    rng = np.random.default_rng(25)
+    d, g = 1024, 7
+    q = packed_rows(rng, (6, d), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, 900, d, g, dev)
+    cases = {"dup": [[2, 2, 5], [0, 3, 0], [6, 6, 6], [1, 4, 1],
+                     [5, 2, 5], [3, 3, 3]],
+             "out": [[-1, 2, g], [g + 3, 0, -7], [1, -1, 1], [g, g, 4],
+                     [0, 1, 2], [-2, 6, g + 100]],
+             "null": [[-1, g, -5]] * 6}
+    for name, rows in cases.items():
+        short = torch.tensor(rows, dtype=torch.int32, device=dev)
+        for k in (1, 5, 3 * mt * 128 + 9):
+            want = sparse_three_ways(q, slab, ids, short, ts, tc, d, k, mt)
+            if name == "null":
+                assert (want[0] == -1).all() and (want[1] == ref.NEG).all()
+            if name == "dup" and k == 5:  # cluster 6 listed three times:
+                best = want[0][2, :3]     # its best column three times
+                assert (best == best[0]).all() and best[0] >= 0
+
+
+def test_am_search_sparse_gathered_scratch_path(dev):
+    """Past the shared-memory budget both entries stream their keys
+    through the global scratch."""
+    rng = np.random.default_rng(26)
+    d = 100
+    q = packed_rows(rng, (3, d), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, 300, d, 4, dev)
+    reps = -(-am_shortlist.SMEM_SLOTS // (4 * mt * 128)) + 1
+    short = torch.arange(4, dtype=torch.int32, device=dev).repeat(3, reps)
+    assert not am_search_sparse.launch_plan(
+        3, 13, short.shape[1] * mt * 128)["keys_in_smem"]
+    for k in (1, 9):
+        sparse_three_ways(q, slab, ids, short, ts, tc, d, k, mt)
+
+
+def test_am_shortlist_at_the_huge_label_shape(dev):
+    """am_shortlist (its kernel untouched) bit-exact at B 256, G 448,
+    D 1024, S 8 and 16."""
+    rng = np.random.default_rng(27)
+    q = packed_rows(rng, (256, 1024), dev)
+    spt = packed_rows(rng, (448, 1024), dev, dup=True).T.contiguous()
+    for s in (8, 16):
+        got = am_shortlist.am_shortlist(q, spt, n_dims=1024, s=s)
+        want = ref.am_shortlist(q, spt, 1024, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_am_search_sparse_phase_clocks(dev):
+    """The measurement launch records each block's start, end of scoring
+    and end, in order, and counts no launch."""
+    rng = np.random.default_rng(28)
+    q = packed_rows(rng, (16, 1024), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, 2000, 1024, 20, dev)
+    short = torch.as_tensor(np.stack([rng.permutation(20)[:8]
+                                      for _ in range(16)]),
+                            dtype=torch.int32, device=dev)
+    n = am_search_sparse.am_search_sparse.launches
+    clk = am_search_sparse.phase_clocks(q, slab, ids, short, ts, tc,
+                                        n_dims=1024, k=1, max_tiles=mt)
+    assert am_search_sparse.am_search_sparse.launches == n
+    assert clk.shape == (16, 3)
+    assert (clk[:, 0] > 0).all() and (clk[:, 1] >= clk[:, 0]).all()
+    assert (clk[:, 2] >= clk[:, 1]).all()
+
+
+UNPACK_FIELDS = [("rows", 16), ("cols", 64), ("grid", (1, 0)),
+                 ("grid", (0, 1)), ("smem", 8), ("scratch_bytes", 8)]
+
+
+@pytest.mark.parametrize("mode", asp.MODES)
+@pytest.mark.parametrize("field,delta", UNPACK_FIELDS)
+def test_am_search_packed_launcher_refuses_another_plan(dev, monkeypatch,
+                                                        mode, field, delta):
+    """The launcher takes the wrapper's launch_plan and refuses one that
+    is not its own grid, tiles, shared memory or scratch."""
+    rng = np.random.default_rng(29)
+    q = ref.pack_rows(bipolar(rng, (40, 200), dev))
+    am_t = ref.pack_rows(bipolar(rng, (300, 200), dev)).T.contiguous()
+    plan = asp.launch_plan(40, 25, 300, 8, mode)
+    asp.am_search_packed(q, am_t, n_dims=200, mode=mode)  # as computed
+    bad = dict(plan)
+    if field == "grid":
+        bad["grid"] = tuple(v + dv for v, dv in zip(plan["grid"], delta))
+    elif field == "scratch_bytes" and mode == "popcount":
+        bad["scratch_bytes"] = 8  # a scratch the popcount mode refuses
+    else:
+        bad[field] = plan[field] + delta
+    monkeypatch.setattr(asp, "launch_plan", lambda *a: bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        asp.am_search_packed(q, am_t, n_dims=200, mode=mode)
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("field,delta", [("grid", 1), ("stages", 1),
+                                         ("chunk_rows", -4), ("smem", 16),
+                                         ("keys_in_smem", None)])
+def test_am_search_sparse_launcher_refuses_another_plan(
+        dev, monkeypatch, gathered, field, delta):
+    """Both entries take the wrapper's launch_plan and refuse one that is
+    not their own (keys_in_smem flipped: a scratch where the launcher
+    keeps the keys in shared memory)."""
+    rng = np.random.default_rng(30)
+    q = packed_rows(rng, (4, 100), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, 300, 100, 3, dev)
+    short = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    tiles = am_search_sparse.expand_shortlist_tiles(
+        short, ts, tc, max_tiles=mt, null_tile=slab.shape[1] // 128 - 1)
+    gat, gid = am_search_sparse.gather_shortlist(slab, ids, tiles)
+
+    def run():
+        if gathered:
+            return am_search_sparse.am_search_sparse_gathered(
+                q, gat, gid.contiguous(), n_dims=100, k=2)
+        return am_search_sparse.am_search_sparse(
+            q, slab, ids, short, ts, tc, n_dims=100, k=2, max_tiles=mt)
+
+    run()  # the plan as computed
+    real = am_search_sparse.launch_plan
+
+    def bad(*a):
+        plan = real(*a)
+        if field == "keys_in_smem":
+            return {**plan, field: not plan[field]}
+        return {**plan, field: plan[field] + delta}
+
+    monkeypatch.setattr(am_search_sparse, "launch_plan", bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        run()
 
 
 def test_hierarchical_path_launches_its_kernels(dev):

@@ -3,9 +3,11 @@
 ``flash_decode``'s split of S and shared-memory count, the block tiles
 of the fp32 mainloop that ``binary_mvm`` and ``encode_pack`` share
 (``csrc/sgemm_tile.cuh``), ``ssd_chunk``'s grid and shared memory,
-``qail_update``'s tiles and scratch, and a rounding model of the split
-products ``ssd_chunk`` runs on the tensor cores. The kernels themselves
-run only on the card (``tests/test_torch_cuda.py``).
+``qail_update``'s tiles and scratch, a rounding model of the split
+products ``ssd_chunk`` runs on the tensor cores, ``am_search_packed``'s
+launch plans and a model of its unpack-mode fragments, and
+``am_search_sparse``'s tile ring, shared memory and scratch choice. The
+kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 import importlib.util
 import itertools
@@ -16,6 +18,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import am_search_packed as asp  # noqa: E402
+from repro_torch.kernels import am_search_sparse as ass  # noqa: E402
+from repro_torch.kernels import am_shortlist as asl  # noqa: E402
 from repro_torch.kernels import binary_mvm as bm  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import qail_update as qu  # noqa: E402
@@ -286,3 +291,185 @@ def test_ssd_split_products_stay_inside_the_tolerance(geom, q, route):
     wy, ws = ref.ssd_chunk(x, b, c, dt, da, state)
     assert ((y - wy).abs() <= 0.25 * (1e-4 + 1e-4 * wy.abs())).all()
     assert ((s_new - ws).abs() <= 0.25 * (1e-4 + 1e-4 * ws.abs())).all()
+
+
+# -- am_search_packed ------------------------------------------------------
+
+SMEM_LIMIT = 232448  # shared memory one block may opt into (H100)
+
+
+@pytest.mark.parametrize("b,c", [(1, 1), (1, 127), (16, 128), (17, 129),
+                                 (1023, 1000), (1024, 1024),
+                                 (300, 100_000)])
+@pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
+def test_unpack_plan_tiles_cover_b_and_c(b, c, block_b):
+    """Unpack mode: blocks of max(16, block_b) rows (whole m16 tiles) by
+    128 columns cover B and C with no empty block; the scratch holds a
+    uint64 key per query and a ticket word per query tile."""
+    pl = asp.launch_plan(b, 128, c, block_b, "unpack")
+    rows, cols = pl["rows"], pl["cols"]
+    assert rows == max(16, block_b) and rows % 16 == 0 and cols == 128
+    gx, gy = pl["grid"]
+    assert gx * rows >= b > (gx - 1) * rows
+    assert gy * cols >= c > (gy - 1) * cols
+    assert pl["scratch_bytes"] == 8 * b + 4 * gx
+
+
+@pytest.mark.parametrize("block_b,smem", [(4, 22280), (8, 22280),
+                                          (16, 22280), (32, 26120)])
+def test_unpack_plan_shared_memory_is_the_kernels_static_smem(block_b, smem):
+    """sizeof(Smem<MI>) in csrc/am_search_packed.cu: a 4-stage ring of
+    32-byte k slabs (query rows 48 bytes apart, 32 AM byte rows of 144),
+    the four warps' uint64 keys and int shares of each row's popcount,
+    and the last-block flag, rounded to 8; any D, well under a block's
+    limit."""
+    for dp in (1, 13, 128, 1000):
+        assert asp.launch_plan(64, dp, 300, block_b, "unpack")["smem"] == smem
+    assert smem <= SMEM_LIMIT // 8
+
+
+def test_unpack_plan_fills_the_card_at_the_main_shape():
+    """B = C = 1024: at least a block per SM of the 132 at every block_b,
+    and at the default (16-row blocks) about four (512 blocks)."""
+    for block_b in asp.BLOCK_B_CHOICES:
+        gx, gy = asp.launch_plan(1024, 128, 1024, block_b, "unpack")["grid"]
+        assert gx * gy >= 132
+    gx, gy = asp.launch_plan(1024, 128, 1024, asp.DEFAULT_BLOCK_B,
+                             "unpack")["grid"]
+    assert (gx, gy) == (64, 8)
+
+
+@pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
+def test_popcount_plan_is_the_unchanged_kernels_launch(block_b):
+    """Popcount mode: one block per block_b queries walks all C columns;
+    its dynamic shared memory (query words, AM words of a 64-column tile,
+    the fold) fits a block at D = 1024, and no scratch."""
+    for b, dp, c in ((1, 13, 3), (1024, 128, 1024), (5, 1000, 100_000)):
+        pl = asp.launch_plan(b, dp, c, block_b, "popcount")
+        dw = -(-dp // 4)
+        assert pl["rows"] == block_b and pl["cols"] == c
+        assert pl["grid"] == (-(-b // block_b), 1)
+        assert pl["smem"] == 4 * (block_b * dw + dw * 64 + 2 * block_b * 64)
+        assert pl["scratch_bytes"] == 0
+    assert asp.launch_plan(1024, 128, 1024, block_b,
+                           "popcount")["smem"] <= SMEM_LIMIT
+
+
+def _spread(x):
+    """csrc/am_search_packed.cu spread(): bits 0-3 of x -> bytes 0-3."""
+    return (x * np.uint32(0x00204081)) & np.uint32(0x01010101)
+
+
+def _bytes(word):
+    """uint32 words -> (..., 4) int8, byte 0 first."""
+    return word[..., None].view(np.uint8).reshape(*word.shape, 4).view(
+        np.int8)
+
+
+@pytest.mark.parametrize("d", [1, 8, 31, 100, 257, 1024])
+def test_unpack_fragments_give_the_hamming_distance(d):
+    """A model of the unpack kernel's fragments: per 32-dim step, lane tig's
+    A registers hold byte tig of the query's packed word as ±1 (low nibble
+    a[0], high a[2]; 0 past n_dims) and its B registers the same byte of
+    the column's word as {0, 1}. The mma's sum over every (step, lane, byte)
+    product, taken from the register bytes, is P - hamming: with P the
+    query's valid 1-bits, hamming = P - acc."""
+    rng = np.random.default_rng([18, d])
+    dp = -(-d // 8)
+    x = rng.integers(0, 2, size=(40, d)).astype(np.uint8)
+    y = rng.integers(0, 2, size=(40, d)).astype(np.uint8)
+    qp = np.packbits(x, axis=1, bitorder="little")
+    ap = np.packbits(y, axis=1, bitorder="little")
+    n_kw = -(-d // 32)
+    pad = 4 * n_kw - dp
+    qw = np.pad(qp, ((0, 0), (0, pad))).view("<u4")  # (40, n_kw)
+    aw = np.pad(ap, ((0, 0), (0, pad))).view("<u4")
+    acc = np.zeros(40, dtype=np.int64)
+    for kw in range(n_kw):
+        for tig in range(4):
+            xb = (qw[:, kw] >> np.uint32(8 * tig)) & np.uint32(0xFF)
+            yb = (aw[:, kw] >> np.uint32(8 * tig)) & np.uint32(0xFF)
+            nv = d - 32 * kw - 8 * tig
+            m = np.uint32(0xFF if nv >= 8 else 0 if nv <= 0 else
+                          (1 << nv) - 1)
+            for sh, mn in ((0, m & 15), (4, m >> 4)):
+                a = ~(_spread((xb >> np.uint32(sh)) & np.uint32(15))
+                      * np.uint32(0xFE))
+                a &= _spread(np.uint32(mn)) * np.uint32(0xFF)
+                bb = _spread((yb >> np.uint32(sh)) & np.uint32(15))
+                assert set(np.unique(_bytes(a))) <= {-1, 0, 1}
+                assert set(np.unique(_bytes(bb))) <= {0, 1}
+                acc += (_bytes(a).astype(np.int64)
+                        * _bytes(bb).astype(np.int64)).sum(axis=-1)
+    pop = x.sum(axis=1)
+    ham = (x != y).sum(axis=1)
+    assert np.array_equal(pop - acc, ham)
+
+
+# -- am_search_sparse ------------------------------------------------------
+
+@pytest.mark.parametrize("dp,rows,chunks", [(1, 4, 1), (13, 16, 1),
+                                            (125, 128, 1), (128, 128, 1),
+                                            (138, 128, 2), (256, 128, 2),
+                                            (1000, 128, 8)])
+def test_sparse_plan_chunks_cover_d(dp, rows, chunks):
+    """A ring stage holds Dp rounded up to 4 rows, at most 128; a longer
+    tile is read in chunks (the last zero-filled past Dp)."""
+    pl = ass.launch_plan(7, dp, 3 * 128)
+    assert pl["chunk_rows"] == rows and pl["stages"] == 3 and pl["grid"] == 7
+    assert rows % 4 == 0 and -(-dp // rows) == chunks
+    assert (chunks - 1) * rows < dp <= chunks * rows
+
+
+def test_sparse_plan_at_the_huge_label_shape():
+    """B 256, D 1024, S 8 x max_tiles 3 (3,072 slots) and S 16: the keys
+    stay in shared memory beside the 49.5 KB ring; 75,520 bytes at S 8
+    (the ring of 3 x (16 KB of rows + 128 ids), 24 KB of keys, 128 query
+    words, 24 tile words, 8 warp words)."""
+    pl = ass.launch_plan(256, 128, 8 * 3 * 128)
+    assert pl["keys_in_smem"] and pl["chunk_rows"] == 128
+    assert pl["smem"] == 3 * (128 + 4) * 128 + 8 * 3072 + 4 * (32 + 24 + 8)
+    assert pl["smem"] == 75_520
+    pl16 = ass.launch_plan(256, 128, 16 * 3 * 128)
+    assert pl16["keys_in_smem"] and pl16["smem"] <= SMEM_LIMIT // 2
+
+
+@pytest.mark.parametrize("dp", [1, 13, 128, 138, 1000])
+def test_sparse_plan_moves_keys_to_scratch_when_they_do_not_fit(dp):
+    """The keys stay in shared memory exactly while they and the ring fit
+    the 8 * SMEM_SLOTS bytes of am_shortlist's rule; past it they go to
+    the global scratch and the block's shared memory no longer grows with
+    them. Every plan fits a block up to 100,000 slot tiles' words."""
+    ring = 3 * (min(-(-dp // 4) * 4, 128) + 4) * 128
+    last = (8 * asl.SMEM_SLOTS - ring) // 8 // 128 * 128
+    assert ass.launch_plan(1, dp, last)["keys_in_smem"]
+    big = ass.launch_plan(1, dp, last + 128)
+    assert not big["keys_in_smem"]
+    assert big["smem"] < ass.launch_plan(1, dp, last)["smem"]
+    for slots in (128, last, last + 128, 4096 * 128, 40_000 * 128):
+        assert ass.launch_plan(1, dp, slots)["smem"] <= SMEM_LIMIT
+    # am_shortlist keeps its rule: keys in shared memory up to SMEM_SLOTS.
+    assert asl.keys_fit(asl.SMEM_SLOTS) and not asl.keys_fit(
+        asl.SMEM_SLOTS + 1)
+
+
+def test_sparse_plain_reads_out_of_range_entries_as_the_null_tile():
+    """expand_shortlist_tiles: a shortlist entry outside [0, G), a tile
+    past tile_count and a tile outside the slab all point at the null
+    tile, as the kernel reads them; an all-null shortlist returns only
+    exhausted slots."""
+    ts = torch.tensor([0, 1, 5], dtype=torch.int32)
+    tc = torch.tensor([1, 2, 2], dtype=torch.int32)
+    short = torch.tensor([[-1, 3, 1], [2, 0, 7]], dtype=torch.int32)
+    tiles = ass.expand_shortlist_tiles(short, ts, tc, max_tiles=2,
+                                       null_tile=5)
+    assert tiles.tolist() == [[5, 5, 5, 5, 1, 2], [5, 5, 0, 5, 5, 5]]
+    dp, ntiles = 2, 6
+    slab = torch.randint(0, 256, (dp, ntiles * 128), dtype=torch.uint8)
+    ids = torch.arange(ntiles * 128, dtype=torch.int32)
+    ids[-128:] = -1
+    q = torch.randint(0, 256, (2, dp), dtype=torch.uint8)
+    nulls = torch.tensor([[-1, 3], [9, -7]], dtype=torch.int32)
+    idx, sim = ass.am_search_sparse(q, slab, ids, nulls, ts, tc, n_dims=16,
+                                    k=3, max_tiles=2)
+    assert (idx == -1).all() and (sim == ref.NEG).all()
