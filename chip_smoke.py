@@ -9,7 +9,8 @@ script exits non-zero without the final result line:
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
 1. the build: nvcc compiles the twelve kernel sources of ``src/repro_torch/
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
-   ptxas' register, stack and spill report);
+   ptxas' register, stack and spill report; the ADC searches' instances
+   again on a line of their own, ``ptxas_adc``);
 2. each kernel against its plain PyTorch version on the card, over the
    differential geometry grid, tie and padding cases and the full-width
    shapes: ``pack_bits``, ``am_search_packed`` (both modes, every block
@@ -21,11 +22,13 @@ script exits non-zero without the final result line:
    features and within |error| <= 2^-20 * sum|x*w| on float features;
    ``unpack_bits`` bit-exact; ``am_search_imc`` on 128x128, 64x128 and
    256x128 arrays at ADC 16, 6 and 3 bits, with and without offsets, on
-   a ±1 AM, a dyadic-noise AM (bit-exact) and a sigma = 0.5 noise AM (a
-   query may differ only where a tile's partial sum lies within
-   2^-20 * sum|terms| of an ADC rounding boundary); ``am_search_multibit``
-   at every cell width (2, 4, 8 at full width) on the same arrays, with
-   offsets and a 4-bit ADC, bit-exact; ``am_shortlist`` and
+   a ±1 AM (its int8 route), a dyadic-noise AM (fp32 route, bit-exact)
+   and a sigma = 0.5 noise AM (fp32 route; a query may differ only where
+   a tile's partial sum lies within 2^-20 * sum|terms| of an ADC rounding
+   boundary); ``am_search_multibit`` at every cell width (2, 4, 8 at full
+   width) on the same arrays, with offsets and a 4-bit ADC, bit-exact on
+   ±1 queries (int8 route) and on dyadic non-integer ones (fp32 route);
+   the route of every call is checked; ``am_shortlist`` and
    ``am_search_sparse`` (fused and ``am_search_sparse_gathered``) bit-exact
    over D in {8, 100, 1000, 1024}, G and C in {1, 2, 45, 448} and ragged
    counts, S in {1, 3, G}, k in {1, 5, candidates + 2}, forced ties and
@@ -61,12 +64,14 @@ script exits non-zero without the final result line:
 9. the device-fidelity paths on the main path's trained model: the
    ``ops.encode_mvm`` / ``ops.unpack_bits`` entry points (phase
    ``entry_points``); ``deploy(target="imc")`` with the ideal sim (== the
-   plain predict on every request) and with a noisy, faulty, drifting
-   6-bit-ADC sim (== the plain ``ref.am_search_imc`` on the same burned
-   AM), served through ``serve_batches`` (phase ``imc_path``);
+   plain predict on every request, every launch on ``am_search_imc``'s
+   int8 route) and with a noisy, faulty, drifting 6-bit-ADC sim (== the
+   plain ``ref.am_search_imc`` on the same burned AM, every launch on its
+   fp32 route), served through ``serve_batches`` (phase ``imc_path``);
    ``fit(cell_bits=4, use_kernel=True)`` -> ``deploy(target="multibit")``
    served (== the plain ``multibit_predict``, every QAT launch on
-   ``qail_update``'s int8 route; phase ``multibit_path``);
+   ``qail_update``'s int8 route and every search on
+   ``am_search_multibit``'s; phase ``multibit_path``);
    ``python -m repro_torch.launch.robustness_report`` at its defaults and
    at 1024 x 1024 (phase ``robustness``); launch counts zeroed just
    before each path and read just after, no ``torch-ref`` tier;
@@ -107,7 +112,12 @@ script exits non-zero without the final result line:
    ``flash_decode``); the ``flash_decode`` row also carries the served
    shape's time and SDPA's there (B = 4, S = 320: ``ms_serve_shape``,
    ``library_ms_serve_shape``) and the float32 instance's time at the
-   row's shape (``ms_f32``); the ``ssd_chunk`` row the forward's batch
+   row's shape (``ms_f32``); the ``am_search_imc`` row (``ms`` on the
+   noisy instance, the fp32 route) the ideal instance's time and bound on
+   the int8 route (``ms_int8_route``, ``bound_ms_int8_route``) and the
+   route of each (``routes``); the ``am_search_multibit`` row the fp32
+   route on dyadic queries (``ms_fp32_route``, ``bound_ms_fp32_route``)
+   and ``routes``; the ``ssd_chunk`` row the forward's batch
    (B = 2: ``ms_serve_shape``, its bound) and the bound at the fp32 FMA rate
    (``bound_ms_fp32_fma``) beside the tensor-core one; the
    ``am_search_packed_unpack`` row the time at each ``block_b``
@@ -125,6 +135,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -253,6 +264,34 @@ def check_int8_routes(launches, what) -> dict:
     return routes
 
 
+def check_routes(mod, want, what) -> dict:
+    """The route counts of ``mod`` (am_search_imc or am_search_multibit)
+    since its last reset are ``want``."""
+    routes = mod.route_counts()
+    check(routes == want, (mod.__name__, "routes", what, routes, want))
+    return routes
+
+
+def one_route(mod, route) -> dict:
+    """One call's route counts: 1 on ``route``."""
+    return {**dict.fromkeys(mod.ROUTES, 0), route: 1}
+
+
+def ptxas_entries(build_log, names) -> list:
+    """Registers, stack and spills of every kernel instance whose mangled
+    name contains one of ``names``, from ptxas' -v report."""
+    out, cur = [], None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln
+            cur = {"entry": fn} if any(n in fn for n in names) else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and ("spill" in ln or "Used" in ln):
+            cur.setdefault("report", []).append(ln.strip())
+    return out
+
+
 def ssd_bound(b, q, h, n, p, nbytes):
     """ssd_chunk's bound at float32 accuracy with bf16 x, B and C, each
     product counted at the type and number of terms it needs: the causal
@@ -342,6 +381,9 @@ class Smoke:
                 if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
         log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
              "library": os.path.relpath(str(path), HERE), "ptxas": regs})
+        log({"phase": "ptxas_adc", "instances": ptxas_entries(
+            _build.build_log, ("imc_search", "multibit_search",
+                               "convert_pass"))})
 
     # -- phase 2 ---------------------------------------------------------------
     def check_kernels(self):
@@ -599,11 +641,15 @@ class Smoke:
                 for noise, at in (
                         ("pm1", a), ("dyadic", a + 0.5 * (torch.round(
                             z * 64) / 64)), ("float", a + 0.5 * z)):
+                    route = "int8" if noise == "pm1" else "fp32"
                     for bits in IMC_ADC_BITS:
                         for o in (None, off):
                             kw = dict(tile_rows=rows, tile_cols=cols,
                                       adc_bits=bits, adc_clip=float(rows))
+                            asi.reset_routes()
                             idx, sim = asi.am_search_imc(q, at.T, o, **kw)
+                            check_routes(asi, one_route(asi, route),
+                                         ("am_search_imc", geom, noise))
                             w_idx, w_sim = ref.am_search_imc(
                                 q, at.T, offsets=o, **kw)
                             torch.cuda.synchronize()
@@ -621,7 +667,10 @@ class Smoke:
         out["imc_max_err"] = imc_max
         out["imc_float_noise_queries_differing"] = mismatched
         # am_search_multibit: random codes at every cell width, a 16-bit
-        # ADC without offsets and a 4-bit ADC with them.
+        # ADC without offsets and a 4-bit ADC with them, on the ±1 queries
+        # (int8 route) and on dyadic non-integer ones (fp32 route).
+        qd = self.t(np.round(rng.normal(0, 2, (b, d)) * 4).astype(np.float32)
+                    / 4)
         mb_max = 0.0
         for cb in (MULTIBIT_CELL_BITS_FULL if full else range(2, 9)):
             qmax = 2 ** (cb - 1) - 1
@@ -632,16 +681,21 @@ class Smoke:
                 gd, gc = -(-d // rows), -(-c // cols)
                 off = self.t((np.round(rng.normal(0, 4, (gd, gc)) * 16)
                               / 16).astype(np.float32))
-                for adc, o in ((16, None), (4, off)):
+                for (adc, o), (qq, route) in itertools.product(
+                        ((16, None), (4, off)), ((q, "int8"), (qd, "fp32"))):
                     kw = dict(cell_bits=cb, tile_rows=rows, tile_cols=cols,
                               adc_bits=adc)
-                    idx, sim = asm.am_search_multibit(q, planes, o, **kw)
-                    w_idx, w_sim = ref.am_search_multibit(q, planes,
+                    asm.reset_routes()
+                    idx, sim = asm.am_search_multibit(qq, planes, o, **kw)
+                    w_idx, w_sim = ref.am_search_multibit(qq, planes,
                                                           offsets=o, **kw)
                     torch.cuda.synchronize()
                     e = (sim - w_sim).abs().max().item()
                     check(torch.equal(idx, w_idx) and e == 0,
-                          ("am_search_multibit", geom, cb, rows, cols, adc))
+                          ("am_search_multibit", geom, cb, rows, cols, adc,
+                           route))
+                    check_routes(asm, one_route(asm, route),
+                                 ("am_search_multibit", geom, cb, route))
                     mb_max = max(mb_max, e)
         out["multibit_max_err"] = mb_max
         if full:
@@ -1036,6 +1090,7 @@ class Smoke:
         """deploy(target="imc") on the main path's model, ideal and noisy,
         served over the main path's request stream."""
         from repro_torch.core import ImcSimConfig
+        from repro_torch.kernels import am_search_imc as asi
         from repro_torch.kernels import ref
         model, ds = self.model, self.ds
         sims = {"ideal": ImcSimConfig(), "noisy": ImcSimConfig(**NOISY_SIM)}
@@ -1044,14 +1099,27 @@ class Smoke:
             out = {}
             for name, sim in sims.items():
                 dep = model.deploy(target="imc", sim=sim)
+                asi.reset_routes()
+                n0 = asi.am_search_imc.launches
                 resp, rep = self.serve(dep)
-                out[name] = (dep, resp, rep,
-                             dep.score(ds.test_x, ds.test_y))
+                acc = dep.score(ds.test_x, ds.test_y)
+                out[name] = (dep, resp, rep, acc,
+                             asi.am_search_imc.launches - n0,
+                             asi.route_counts())
             return out
 
         out, launches, tiers = self.path_counts(run)
         check(launches["am_search_imc"] > 0, "am_search_imc not launched")
         self.path_launches["am_search_imc"] = launches["am_search_imc"]
+        # The ideal instance (±1 AM, no offsets) on the int8 route, the
+        # noisy one (float AM) on the fp32 route, every launch.
+        routes = {}
+        for name, route in (("ideal", "int8"), ("noisy", "fp32")):
+            n, got = out[name][4], out[name][5]
+            check(n > 0 and got == {**dict.fromkeys(asi.ROUTES, 0),
+                                    route: n},
+                  ("am_search_imc routes", name, got, n))
+            routes[name] = got
         from repro_torch.core import am as am_lib
         q, ofs = self.request_queries(model)
         owners = model.am_state["centroid_class"]
@@ -1072,8 +1140,8 @@ class Smoke:
                                                acc_digital))
         cycles = out["ideal"][0].cycles
         check(cycles == 64 == model.imc_cost().am.cycles, cycles)
-        self.imc_operands = (q[:FULL[0]].contiguous(), dep)
-        log({"phase": "imc_path", "cycles": cycles,
+        self.imc_operands = (q[:FULL[0]].contiguous(), dep, out["ideal"][0])
+        log({"phase": "imc_path", "cycles": cycles, "routes": routes,
              "accuracy_digital": acc_digital,
              "accuracy_ideal": out["ideal"][3],
              "accuracy_noisy": out["noisy"][3], "noisy_sim": NOISY_SIM,
@@ -1112,6 +1180,10 @@ class Smoke:
         routes = check_int8_routes(launches["qail_update"], "multibit QAT")
         check(launches["am_search_multibit"] > 0,
               "am_search_multibit not launched")
+        from repro_torch.kernels import am_search_multibit as asm
+        mb_routes = check_routes(
+            asm, {"int8": launches["am_search_multibit"], "fp32": 0},
+            "multibit serving")
         self.path_launches["am_search_multibit"] = launches[
             "am_search_multibit"]
         q, ofs = self.request_queries(tuned)
@@ -1133,6 +1205,7 @@ class Smoke:
              "unpacked_float_bytes": 4 * 1024 * 1024,
              "cycles": dep.cycles, "eq_plain_multibit_predict": True,
              "launches": launches, "qail_update_routes": routes,
+             "am_search_multibit_routes": mb_routes,
              "dispatch_tiers": tiers})
         log({"phase": "serve_report_multibit", **rep})
         self.profile_serving(dep, self.reqs, False, pipeline="multibit")
@@ -1939,6 +2012,62 @@ class Smoke:
         del gat, gid
         return out
 
+    def imc_extra(self, iq, idep, ideal, ikw) -> dict:
+        """am_search_imc on both routes at the row's shape: the noisy
+        instance (the row's ``ms``) on the fp32 route, the ideal one (±1
+        AM, no offsets, the 16-bit ADC of 128-row arrays) on the int8
+        route, where the float operands' bytes bound it."""
+        from repro_torch.kernels import am_search_imc as asi
+        b, d = iq.shape
+        c = ideal.am_analog.shape[0]
+        sim = ideal.sim
+        kw = dict(tile_rows=sim.arr.rows, tile_cols=sim.arr.cols,
+                  adc_bits=sim.adc_bits, adc_clip=sim.clip)
+        check(ideal.tile_offsets is None, "the ideal instance has offsets")
+        routes = {}
+        for name, (am, offsets, args) in (
+                ("noisy", (idep.am_analog, idep.tile_offsets, ikw)),
+                ("ideal", (ideal.am_analog, None, kw))):
+            asi.reset_routes()
+            asi.am_search_imc(iq, am.T, offsets, **args)
+            routes[name] = asi.route_counts()
+        check(routes == {"noisy": one_route(asi, "fp32"),
+                         "ideal": one_route(asi, "int8")},
+              ("am_search_imc routes", routes))
+        ms, by = bound(4 * (b * d + d * c + 2 * b), 2 * b * c * d,
+                       INT8_OPS_PER_S)
+        return {"routes": routes, "route_of_ms": "fp32",
+                "ms_int8_route": time_device_ms(
+                    lambda: asi.am_search_imc(iq, ideal.am_analog.T, **kw)),
+                "bound_ms_int8_route": ms, "bound_by_int8_route": by}
+
+    def multibit_extra(self, mq, mdep, mkw) -> dict:
+        """am_search_multibit's fp32 route at the row's shape: the same
+        queries halved (±0.5, not integers), equal to the plain version."""
+        from repro_torch.kernels import am_search_multibit as asm
+        from repro_torch.kernels import ref
+        b, d = mq.shape
+        c = mdep.am_planes_t.shape[2]
+        half = mq * 0.5
+        routes = {}
+        for name, qq in (("pm1", mq), ("half", half)):
+            asm.reset_routes()
+            idx, sim = asm.am_search_multibit(qq, mdep.am_planes_t, **mkw)
+            routes[name] = asm.route_counts()
+        w_idx, w_sim = ref.am_search_multibit(half, mdep.am_planes_t, **mkw)
+        check(self.torch.equal(idx, w_idx) and self.torch.equal(sim, w_sim),
+              "am_search_multibit fp32 route != plain")
+        check(routes == {"pm1": one_route(asm, "int8"),
+                         "half": one_route(asm, "fp32")},
+              ("am_search_multibit routes", routes))
+        ms, by = bound(4 * b * d + mdep.am_planes_t.numel() + 8 * b,
+                       2 * b * c * d, FP32_FLOP_PER_S)
+        return {"routes": routes, "route_of_ms": "int8",
+                "ms_fp32_route": time_device_ms(
+                    lambda: asm.am_search_multibit(half, mdep.am_planes_t,
+                                                   **mkw)),
+                "bound_ms_fp32_route": ms, "bound_by_fp32_route": by}
+
     def sgemm_tile_sweep(self, x, w):
         """binary_mvm and encode_pack through every block tile of their
         shared mainloop at the main path's shape (dyadic features: each
@@ -2056,7 +2185,7 @@ class Smoke:
         from repro_torch.kernels import am_search_multibit as asm
         from repro_torch.kernels import binary_mvm as bm
         efeats, eproj, rows_t = self.entry_operands
-        iq, idep = self.imc_operands
+        iq, idep, ideal = self.imc_operands
         isim = idep.sim
         ikw = dict(tile_rows=isim.arr.rows, tile_cols=isim.arr.cols,
                    adc_bits=isim.adc_bits, adc_clip=isim.clip)
@@ -2167,6 +2296,9 @@ class Smoke:
             for bb in asp.BLOCK_B_CHOICES}
         row = out[[r["name"] for r in out].index("am_search_sparse")]
         row.update(self.sparse_extra(tiles, clk_mhz))
+        rows = {r["name"]: r for r in out}
+        rows["am_search_imc"].update(self.imc_extra(iq, idep, ideal, ikw))
+        rows["am_search_multibit"].update(self.multibit_extra(mq, mdep, mkw))
         row = out[[r["name"] for r in out].index("ssd_chunk")]
         row.update({k: time_device_ms(fn, **({"samples": 21, "calls": 2}
                                              if k.startswith("plain") else {}))

@@ -35,10 +35,12 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
 
 
 def reset_launches() -> None:
-    """Zero every launch counter and ``qail_update``'s route counts."""
+    """Zero every launch counter and the route counts of ``qail_update``,
+    ``am_search_imc`` and ``am_search_multibit``."""
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
-    _qu.reset_routes()
+    for mod in (_qu, _asi, _asm):
+        mod.reset_routes()
 
 
 def launches() -> dict[str, int]:

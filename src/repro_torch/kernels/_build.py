@@ -31,7 +31,7 @@ SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
            "am_search_sparse.cu", "flash_decode.cu", "ssd_chunk.cu")
 # Included by sources; part of the hash.
 HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh",
-           "packed_topk.cuh", "mma_sync.cuh")
+           "packed_topk.cuh", "mma_sync.cuh", "int8_convert.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -54,10 +54,12 @@ SIGNATURES = {
                            _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
     "binary_mvm_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "am_search_imc_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _F, _F, _P),
-    "am_search_multibit_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _F, _P),
+    "am_search_imc_launch": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P),
+    "am_search_multibit_launch": (_P, _P, _P, _P, _I64, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P),
     "am_shortlist_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "am_search_sparse_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -181,6 +183,34 @@ def check_operand(t, name: str, dtype, ndim: int, *,
     if any(s >= 2 ** 31 for s in t.shape):
         raise ValueError(f"{name}: dimension too large for the kernel: "
                          f"{tuple(t.shape)}")
+
+
+class RouteCounts:
+    """Calls per route of a kernel that picks its route on the device: a
+    (2,) int32 counter per device, [int8, fp32], that the kernel adds to.
+    Reading the counts syncs with the device."""
+
+    NAMES = ("int8", "fp32")
+
+    def __init__(self):
+        self._by_device: dict[torch.device, torch.Tensor] = {}
+
+    def tensor(self, device: torch.device) -> torch.Tensor:
+        if device not in self._by_device:
+            self._by_device[device] = torch.zeros(2, dtype=torch.int32,
+                                                  device=device)
+        return self._by_device[device]
+
+    def counts(self) -> dict[str, int]:
+        out = dict.fromkeys(self.NAMES, 0)
+        for t in self._by_device.values():
+            for name, n in zip(self.NAMES, t.tolist()):
+                out[name] += n
+        return out
+
+    def reset(self) -> None:
+        for t in self._by_device.values():
+            t.zero_()
 
 
 def stream_of(t) -> int:

@@ -10,6 +10,13 @@ domain: with bipolar queries every partial sum is an integer, so the
 kernel equals ``ref.am_search_multibit`` bit for bit. Multiply the
 returned similarity by the quantizer scale for its dequantized value.
 
+The kernel picks its route on the device, per call: integer queries in
+[-127, 127] whose slab partials are exact (``int8_route``: ±1 queries)
+run on the int8 tensor cores against u8 codes decoded straight from the
+planes; other queries (e.g. dyadic fractions) through the SIMT fp32
+tile. ``route_counts()`` / ``reset_routes()`` as in ``am_search_imc``;
+``launch_plan`` is handed to the launcher, which refuses any other.
+
 A CPU tensor goes through the plain version; a CUDA tensor through the
 kernel or raises. ``am_search_multibit.launches`` counts kernel launches.
 """
@@ -18,12 +25,55 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.am_search_imc import check_readout
+from repro_torch.kernels.am_search_imc import (
+    BLOCK_COLS, EXACT, INT8_STAGES, K_STAGE, SUM_LD, THREADS, check_readout,
+    launch_args, plan, small_integers,
+)
 
-# AM columns per tile of the kernel (csrc/sims_argmax.cuh). Its query
-# tile is fixed at 64 rows: the reference's autotuned batch tile has no
-# counterpart yet (ROADMAP queue 1, item 15).
-BN = 64
+# csrc/am_search_multibit.cu: queries of a search block (the reference's
+# autotuned batch tile has no counterpart, ROADMAP queue 1 item 15), dims
+# per k step of the fp32 route (the SIMT tile of csrc/sims_argmax.cuh) and
+# the dynamic shared memory: the ring (each stage the int8 query rows and
+# up to 8 planes' 16 bytes of k for each column), the decoded u8 code
+# rows, the sum tile.
+BLOCK_ROWS = 64
+FP32_STEP = 16
+MAX_PLANES = 8
+SMEM = (INT8_STAGES * (BLOCK_ROWS * K_STAGE
+                       + MAX_PLANES * (K_STAGE // 8) * BLOCK_COLS)
+        + BLOCK_COLS * K_STAGE + 4 * BLOCK_ROWS * SUM_LD)
+ROUTES = _build.RouteCounts.NAMES
+_ROUTES = _build.RouteCounts()
+
+
+def launch_plan(b: int, d: int, c: int, tile_rows: int) -> dict:
+    """``am_search_multibit``'s launch for B queries against C columns of
+    D dims (``am_search_imc.plan`` without the AM copy)."""
+    return plan(b, d, c, tile_rows, rows=BLOCK_ROWS, am_copy=False,
+                threads=THREADS, smem=SMEM, fp32_step=FP32_STEP)
+
+
+def int8_route(q: torch.Tensor, cell_bits: int, tile_rows: int) -> bool:
+    """Whether the kernel takes its int8 route for these queries: integers
+    in [-127, 127] with max|q| * (Qmax + 1) * min(tile_rows, D) <= 2^24,
+    Qmax + 1 the largest |u - Qmax| a code can hold."""
+    qmax = 2 ** (cell_bits - 1) - 1
+    return small_integers(q) and (int(q.abs().max()) * (qmax + 1)
+                                  * min(tile_rows, q.shape[1]) <= EXACT)
+
+
+def routes(device: torch.device) -> torch.Tensor:
+    """The (2,) int32 device counter of calls per route on ``device``."""
+    return _ROUTES.tensor(device)
+
+
+def route_counts() -> dict[str, int]:
+    """Calls per route since the last reset, over all devices."""
+    return _ROUTES.counts()
+
+
+def reset_routes() -> None:
+    _ROUTES.reset()
 
 
 def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor,
@@ -35,7 +85,7 @@ def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor,
     """Bit-sliced associative search over the multi-bit packed AM.
 
     Args:
-      q: (B, D) float32 bipolar queries.
+      q: (B, D) float32 queries (bipolar on the serving path).
       am_planes_t: (cell_bits, ceil(D/8), C) uint8 offset-code planes.
       offsets: (ceil(D/tile_rows), ceil(C/tile_cols)) float32 per-array
         code-domain readout offsets, or None.
@@ -82,18 +132,19 @@ def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor,
     sim = torch.empty((b,), dtype=torch.float32, device=q.device)
     if b == 0:
         return idx, sim
-    n_ct = -(-c // BN)
-    part_s = torch.empty((b, n_ct), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((b, n_ct), dtype=torch.int32, device=q.device)
+    p = launch_plan(b, d, c, tile_rows)
+    scratch = torch.empty((p["scratch_bytes"],), dtype=torch.uint8,
+                          device=q.device)
     step = 2.0 * adc_clip / (2 ** adc_bits)
     lib = _build.lib()
     with torch.cuda.device(q.device):
         err = lib.am_search_multibit_launch(
             q.data_ptr(), am_planes_t.data_ptr(),
             None if offsets is None else offsets.data_ptr(),
-            part_s.data_ptr(), part_i.data_ptr(), idx.data_ptr(),
-            sim.data_ptr(), b, d, c, cell_bits, dp, tile_rows, tile_cols,
-            float(adc_clip), step, _build.stream_of(q))
+            scratch.data_ptr(), p["scratch_bytes"],
+            routes(q.device).data_ptr(), idx.data_ptr(), sim.data_ptr(), b,
+            d, c, cell_bits, dp, tile_rows, tile_cols, float(adc_clip),
+            step, *launch_args(p), _build.stream_of(q))
     _build.check(err, "am_search_multibit")
     am_search_multibit.launches += 1
     return idx, sim

@@ -1,8 +1,9 @@
 // mma_sync.cuh: the warp-level tensor-core and async-copy primitives that
-// qail_update.cu, ssd_chunk.cu, flash_decode.cu, am_search_packed.cu and
-// am_search_sparse.cu share: 16-byte cp.async copies into
-// shared memory (with a zero-fill form for rows past an operand's end),
-// ldmatrix, and mma.sync in int8 (m16n8k32, s32 accumulate: exact), in
+// qail_update.cu, ssd_chunk.cu, flash_decode.cu, am_search_packed.cu,
+// am_search_sparse.cu, am_search_imc.cu and am_search_multibit.cu share:
+// 16-byte cp.async copies into shared memory (with a zero-fill form for
+// rows past an operand's end), ldmatrix, and mma.sync in int8 (m16n8k32,
+// s8 x s8 or s8 x u8, s32 accumulate: exact), in
 // bf16 (m16n8k16, f32 accumulate) and in TF32 (m16n8k8, f32 accumulate),
 // with the splits that carry a float32 operand through them: TF32 hi/lo
 // (~2^-21 relative) and three bf16 terms against an exact bf16 operand.
@@ -77,6 +78,17 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32 int8, row) @ b (32x8 uint8, col), s32 accumulate: exact.
+// Fragments as for mma_s8; each byte of b is read as 0 .. 255.
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

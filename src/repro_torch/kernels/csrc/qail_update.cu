@@ -74,6 +74,7 @@
 //   two one-hots cancel and the row adds nothing, as W's zero entry does.
 //   The tile is stored as 16-byte stores where D and the pointers allow.
 //   Block (0, 0) sums mis in row order into n_miss.
+#include "int8_convert.cuh"
 #include "mma_sync.cuh"
 #include "sims_argmax.cuh"
 
@@ -83,10 +84,10 @@ constexpr int TPB = sims::TPB;     // 256 threads: 8 warps
 constexpr int BN = sims::BN;       // 64 AM columns per sims tile
 constexpr int BKB = 128;           // int8 bytes of k per ring stage
 constexpr int NST = 4;             // ring stages
-constexpr int CONV = 64;           // convert tile (dims x rows)
+constexpr int CONV = conv::TILE;   // convert tile (dims x rows)
 constexpr int DT = 256;            // delta dims per block: 4 per thread
 constexpr int CT = 8;              // delta centroids per block: 2 per thread
-constexpr unsigned INEXACT = 0x80000000u;
+constexpr unsigned INEXACT = conv::INEXACT;
 
 long long align256(long long v) { return (v + 255) / 256 * 256; }
 
@@ -115,7 +116,7 @@ struct Plan {
 
 // -- convert ------------------------------------------------------------------
 
-__global__ void __launch_bounds__(TPB)
+__global__ void __launch_bounds__(conv::THREADS)
 qail_convert(const float* __restrict__ q, const float* __restrict__ am_t,
              long long sd, long long sc, int B, int D, int C, int bp,
              int cp, int dp, int n_am_tiles, int8_t* __restrict__ q8,
@@ -137,42 +138,10 @@ qail_convert(const float* __restrict__ q, const float* __restrict__ am_t,
   }
   const int r0 = (blk / kt) * CONV, k0 = (blk % kt) * CONV;
   if (blockIdx.x == 0)
-    for (int i = tid; i < n_rt; i += TPB) counters[i] = 0;
-  if (tid == 0) s_max = 0;
-  __syncthreads();
-  bool inexact = false;
-  int mx = 0;
-#pragma unroll
-  for (int e = tid; e < CONV * CONV; e += TPB) {
-    int k, r;  // walk the contiguous axis fastest
-    if (sk == 1) {
-      r = e / CONV, k = e % CONV;
-    } else {
-      k = e / CONV, r = e % CONV;
-    }
-    const int gk = k0 + k, gr = r0 + r;
-    float v = 0.f;
-    if (gk < D && gr < rows) v = src[gk * sk + gr * sr];
-    const float a = fabsf(v);
-    if (!(a <= 127.f) || v != rintf(v))
-      inexact = true;  // also NaN and inf
-    else
-      mx = max(mx, (int)a);
-    t[r][k] = v;
-  }
-  atomicMax(&s_max, mx);
-  inexact = __syncthreads_or(inexact);
-  // 4 dims per 32-bit word, one row's 16 words per 16 threads.
-  for (int w = tid; w < CONV * CONV / 4; w += TPB) {
-    const int r = w / (CONV / 4), kw = w % (CONV / 4), gr = r0 + r;
-    if (gr >= rows_pad) continue;
-    uint32_t word = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      word |= (uint32_t)(__float2int_rn(t[r][4 * kw + e]) & 0xff) << (8 * e);
-    *reinterpret_cast<uint32_t*>(dst + (size_t)gr * dp + k0 + 4 * kw) = word;
-  }
-  if (tid == 0) flags[blockIdx.x] = inexact ? INEXACT : (unsigned)s_max;
+    for (int i = tid; i < n_rt; i += conv::THREADS) counters[i] = 0;
+  const unsigned flag = conv::tile(src, sk, sr, rows, rows_pad, D, dp, r0,
+                                   k0, dst, t, &s_max);
+  if (tid == 0) flags[blockIdx.x] = flag;
 }
 
 // -- sims + Eq. 4/5 folds -----------------------------------------------------
@@ -553,7 +522,7 @@ extern "C" int qail_update_launch(const void* q, const void* upd,
   const float* fam = static_cast<const float*>(am_t);
   cudaError_t e;
   if (B > 0) {
-    qail_convert<<<pl.n_conv, TPB, 0, s>>>(fq, fam, sd, sc, B, D, C, pl.bp,
+    qail_convert<<<pl.n_conv, conv::THREADS, 0, s>>>(fq, fam, sd, sc, B, D, C, pl.bp,
                                            pl.cp, pl.dp, pl.n_am_tiles, q8,
                                            am8, flags, counters, pl.n_rt);
     e = cudaGetLastError();

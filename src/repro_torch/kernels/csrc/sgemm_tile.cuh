@@ -1,10 +1,12 @@
-// sgemm_tile.cuh: the true-fp32 projection product shared by
-// binary_mvm.cu and encode_pack.cu.
+// sgemm_tile.cuh: the true-fp32 product mainloop shared by binary_mvm.cu,
+// encode_pack.cu and am_search_imc.cu.
 //
 // Computes one BM x BN tile of H = x @ w, x (B, K) and w (K, N) row major,
 // for the TPU kernels src/repro/kernels/binary_mvm.py: binary_mvm and
 // src/repro/kernels/encode_fused.py: encode_pack (128 x 128 MXU tiles
-// accumulating across K in VMEM).
+// accumulating across K in VMEM); and, with w read k-major and the K walk
+// cut into ADC slabs (tile_k_slabs, at the end), am_search_imc's fp32
+// route.
 //
 // Bound on the H100: operations. 2*B*K*N fp32 FMA terms at 67 TFLOP/s
 // (1.64 GFLOP, 24.5 us at B = 1024, K = 784, N = 1024), against 10.4 MB of
@@ -38,6 +40,7 @@
 // delivers 128 bytes per clock against 128 fp32 FMAs per clock.
 #pragma once
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,15 +98,11 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
                  "l"(src), "r"(n));
 }
 
-// One K step (k0 .. k0 + BK) of x and w into a stage.
+// One K step (k0 .. k0 + BK) of x (B, K) into the stage's A tile.
 template <class TL, bool VEC>
-__device__ __forceinline__ void load_stage(const float* __restrict__ x,
-                                           const float* __restrict__ w,
-                                           int B, int K, int N, int m0,
-                                           int n0, int k0, float* stage) {
+__device__ __forceinline__ void load_a(const float* __restrict__ x, int B,
+                                       int K, int m0, int k0, float* As) {
   constexpr int BK = TL::BK;
-  float* As = stage;
-  float* Bs = stage + TL::A_FLOATS;
   const int tid = threadIdx.x;
   if (VEC) {
 #pragma unroll
@@ -115,15 +114,6 @@ __device__ __forceinline__ void load_stage(const float* __restrict__ x,
       cp_async(As + TL::a_off(row, kc), ok ? x + (size_t)gr * K + gk : x, 16,
                ok);
     }
-#pragma unroll
-    for (int i = 0; i < BK * TL::BN / 4 / TL::NT; ++i) {
-      const int e = tid + TL::NT * i;
-      const int kk = e / (TL::BN / 4), c4 = e % (TL::BN / 4);
-      const int gk = k0 + kk, gc = n0 + 4 * c4;
-      const bool ok = gk < K && gc < N;  // N % 4 == 0: whole chunks
-      cp_async(Bs + kk * TL::BN + (c4 & 1) * (TL::BN / 2) + 4 * (c4 >> 1),
-               ok ? w + (size_t)gk * N + gc : w, 16, ok);
-    }
   } else {
 #pragma unroll 4
     for (int i = 0; i < TL::BM * BK / TL::NT; ++i) {
@@ -134,6 +124,30 @@ __device__ __forceinline__ void load_stage(const float* __restrict__ x,
       cp_async(As + TL::a_off(row, kk >> 2) + (kk & 3),
                ok ? x + (size_t)gr * K + gk : x, 4, ok);
     }
+  }
+}
+
+// One K step (k0 .. k0 + BK) of x and w into a stage.
+template <class TL, bool VEC>
+__device__ __forceinline__ void load_stage(const float* __restrict__ x,
+                                           const float* __restrict__ w,
+                                           int B, int K, int N, int m0,
+                                           int n0, int k0, float* stage) {
+  constexpr int BK = TL::BK;
+  float* Bs = stage + TL::A_FLOATS;
+  const int tid = threadIdx.x;
+  load_a<TL, VEC>(x, B, K, m0, k0, stage);
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < BK * TL::BN / 4 / TL::NT; ++i) {
+      const int e = tid + TL::NT * i;
+      const int kk = e / (TL::BN / 4), c4 = e % (TL::BN / 4);
+      const int gk = k0 + kk, gc = n0 + 4 * c4;
+      const bool ok = gk < K && gc < N;  // N % 4 == 0: whole chunks
+      cp_async(Bs + kk * TL::BN + (c4 & 1) * (TL::BN / 2) + 4 * (c4 >> 1),
+               ok ? w + (size_t)gk * N + gc : w, 16, ok);
+    }
+  } else {
 #pragma unroll 4
     for (int i = 0; i < BK * TL::BN / TL::NT; ++i) {
       const int e = tid + TL::NT * i;
@@ -225,6 +239,159 @@ __device__ __forceinline__ void tile(const float* __restrict__ x,
 inline bool vec_ok(const void* x, const void* w, int K, int N) {
   return K % 4 == 0 && N % 4 == 0 &&
          (((uintptr_t)x | (uintptr_t)w) & 15) == 0;
+}
+
+// -- k-major B with slab closes (am_search_imc.cu's fp32 route) -------------
+//
+// Here w is read as N rows of K: element (k, n) at w[n * sn + k * sk],
+// the transposed view of a (C, D) AM (sk = 1, sn = D) with no copy. Both
+// operands are then k-contiguous, and the B tile is kept like the A tile:
+// a BK-float row per column, its 16-byte chunks XOR-swizzled by the
+// column (col % 8 at BK = 32, (col / 2) % 4 at BK = 16). Thread (tr, tc)
+// owns rows TM*tr .. + TM-1 and the strided columns tc + COLS*c (c < 8),
+// so the 8 threads of a quarter-warp read 8 neighbouring columns, which
+// the swizzle puts in 8 distinct bank groups (the A reads of a
+// quarter-warp are one broadcast). Each 4-dim chunk feeds TM*8*4 FMAs
+// from TM + 8 float4 reads.
+// The K walk is cut into slabs of tile_rows: a step that a slab boundary
+// cuts runs its dims one by one up to the boundary, calls close(acc, g)
+// with the slab's partials (summed from 0, one __fmaf_rn per term in
+// increasing k, never TF32), which must zero them, and goes on.
+
+template <class TL>
+__device__ __forceinline__ int bk_off(int col, int kc) {
+  static_assert(TL::COLS == 8, "a quarter-warp reads 8 neighbouring columns");
+  return col * TL::BK +
+         4 * (kc ^ (TL::KC == 8 ? col & 7 : (col >> 1) & (TL::KC - 1)));
+}
+
+template <class TL, bool VA, bool VB>
+__device__ __forceinline__ void load_stage_k(const float* __restrict__ x,
+                                             const float* __restrict__ w,
+                                             long long sn, long long sk,
+                                             int B, int K, int N, int m0,
+                                             int n0, int k0, float* stage) {
+  constexpr int BK = TL::BK;
+  float* Bs = stage + TL::A_FLOATS;
+  const int tid = threadIdx.x;
+  load_a<TL, VA>(x, B, K, m0, k0, stage);
+  if (VB) {  // sk == 1, K % 4 == 0
+#pragma unroll
+    for (int i = 0; i < TL::BN * BK / 4 / TL::NT; ++i) {
+      const int e = tid + TL::NT * i;
+      const int col = e / (BK / 4), kc = e % (BK / 4);
+      const int gc = n0 + col, gk = k0 + 4 * kc;
+      const bool ok = gc < N && gk < K;
+      cp_async(Bs + bk_off<TL>(col, kc), ok ? w + gc * sn + gk : w, 16, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < TL::BN * BK / TL::NT; ++i) {
+      const int e = tid + TL::NT * i;
+      const int col = e / BK, kk = e % BK;
+      const int gc = n0 + col, gk = k0 + kk;
+      const bool ok = gc < N && gk < K;
+      cp_async(Bs + bk_off<TL>(col, kk >> 2) + (kk & 3),
+               ok ? w + gc * sn + gk * sk : w, 4, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The slab walk of the (BM x BN) tile at (m0, n0) of x @ w^T over slabs
+// [g*tile_rows, min((g+1)*tile_rows, K)): close(acc, g) at each slab's
+// end. smem: NST * TL::STAGE floats, 16-byte aligned.
+template <class TL, bool VA, bool VB, class Close>
+__device__ __forceinline__ void tile_k_slabs(const float* __restrict__ x,
+                             const float* __restrict__ w, long long sn,
+                             long long sk, int B, int K, int N, int m0,
+                             int n0, int tile_rows, float* smem,
+                             Close&& close) {
+  constexpr int BK = TL::BK, TM = TL::TM;
+  const int tid = threadIdx.x;
+  const int tc = tid % TL::COLS, tr = tid / TL::COLS;
+  float acc[TM][8];
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  const int gd = (K + tile_rows - 1) / tile_rows;
+  int g = 0, end = min(tile_rows, K);
+  auto next = [&]() {
+    close(acc, g);
+    ++g;
+    end = g < gd ? min((g + 1) * tile_rows, K) : INT_MAX;
+  };
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nk)
+      load_stage_k<TL, VA, VB>(x, w, sn, sk, B, K, N, m0, n0, s * BK,
+                               smem + s * TL::STAGE);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 2));
+    __syncthreads();  // step kt landed; step kt - 1's stage is free
+    const int nx = kt + NST - 1;
+    if (nx < nk)
+      load_stage_k<TL, VA, VB>(x, w, sn, sk, B, K, N, m0, n0, nx * BK,
+                               smem + (nx % NST) * TL::STAGE);
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    const float* As = smem + (kt % NST) * TL::STAGE;
+    const float* Bs = As + TL::A_FLOATS;
+    const int k0 = kt * BK;
+    if (end >= k0 + BK) {  // no boundary inside the step: 4 k a chunk
+#pragma unroll
+      for (int kc = 0; kc < TL::KC; ++kc) {
+        float4 a[TM], b[8];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+          a[r] = *reinterpret_cast<const float4*>(
+              As + TL::a_off(TM * tr + r, kc));
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          b[c] = *reinterpret_cast<const float4*>(
+              Bs + bk_off<TL>(tc + TL::COLS * c, kc));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] =
+                  __fmaf_rn(lane_of(a[r], i), lane_of(b[c], i), acc[r][c]);
+      }
+      if (end == k0 + BK) next();
+      continue;
+    }
+    for (int lo = 0; lo < BK;) {  // a slab ends inside the step
+      const int hi = min(BK, end - k0);
+#pragma unroll 1
+      for (int kk = lo; kk < hi; ++kk) {
+        float a[TM], b[8];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+          a[r] = As[TL::a_off(TM * tr + r, kk >> 2) + (kk & 3)];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          b[c] = Bs[bk_off<TL>(tc + TL::COLS * c, kk >> 2) + (kk & 3)];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[r][c] = __fmaf_rn(a[r], b[c], acc[r][c]);
+      }
+      lo = hi;
+      if (k0 + hi == end) next();
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 }  // namespace sgemm

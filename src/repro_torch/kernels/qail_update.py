@@ -38,8 +38,8 @@ DEFAULT_BLOCK_B = 16
 # convert pass's square tile.
 K_SLAB = 128
 CONV_TILE = 64
-ROUTES = ("int8", "fp32")
-_ROUTES: dict[torch.device, torch.Tensor] = {}  # device -> (2,) int32
+ROUTES = _build.RouteCounts.NAMES
+_ROUTES = _build.RouteCounts()
 
 
 def _align256(n: int) -> int:
@@ -72,23 +72,16 @@ def plan(b: int, d: int, c: int, block_b: int) -> dict:
 
 def routes(device: torch.device) -> torch.Tensor:
     """The (2,) int32 device counter of calls per route on ``device``."""
-    if device not in _ROUTES:
-        _ROUTES[device] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _ROUTES[device]
+    return _ROUTES.tensor(device)
 
 
 def route_counts() -> dict[str, int]:
     """Calls per similarity route since the last reset, over all devices."""
-    out = dict.fromkeys(ROUTES, 0)
-    for t in _ROUTES.values():
-        for name, n in zip(ROUTES, t.tolist()):
-            out[name] += n
-    return out
+    return _ROUTES.counts()
 
 
 def reset_routes() -> None:
-    for t in _ROUTES.values():
-        t.zero_()
+    _ROUTES.reset()
 
 
 def _check(q, upd, am_t, centroid_class, labels, mask, block_b):

@@ -431,6 +431,156 @@ def test_am_search_imc_and_multibit(dev, b, f, d, c, rows, cols):
             assert torch.equal(got[1], want[1])
 
 
+IMC_ROUTE_GEOMS = [(3, 130, 257, 128), (5, 100, 50, 40), (2, 9, 3, 256),
+                   (4, 300, 70, 7), (64, 256, 130, 100),
+                   (1024, 1024, 1024, 128)]
+
+
+@pytest.mark.parametrize("b,d,c,rows", IMC_ROUTE_GEOMS)
+@pytest.mark.parametrize("noise,route", [("pm1", "int8"),
+                                         ("dyadic", "fp32"),
+                                         ("float", "fp32")])
+def test_am_search_imc_routes_are_bit_exact(dev, b, d, c, rows, noise,
+                                            route):
+    """A ±1 AM takes the int8 route, a dyadic- or sigma 0.5-noise AM the
+    fp32 route (one count per call), and both equal the plain version bit
+    for bit over ±1 queries, at array heights that cut 32-dim k steps,
+    with and without offsets (without, at a power-of-two step, the int8
+    route closes slabs in integer counts of steps), through the transposed
+    view and through a contiguous (D, C) AM (4-byte copies)."""
+    rng = np.random.default_rng([40, b, d, c, rows])
+    q = bipolar(rng, (b, d), dev)
+    am = bipolar(rng, (c, d), dev)[torch.arange(c, device=dev) % max(1, c // 3)]
+    z = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                        device=dev)
+    if noise == "dyadic":
+        am = am + 0.5 * torch.round(z * 64) / 64
+    elif noise == "float":
+        am = am + 0.5 * z
+    gd, gc = -(-d // rows), -(-c // 32)
+    off = torch.as_tensor((np.round(rng.normal(0, 2, (gd, gc)) * 16) / 16)
+                          .astype(np.float32), device=dev)
+    assert am_search_imc.int8_route(q, am.T, rows) == (route == "int8")
+    for at in (am.T, am.T.contiguous()):
+        for bits, o in ((16, None), (6, off), (3, off), (3, None)):
+            kw = dict(tile_rows=rows, tile_cols=32, adc_bits=bits,
+                      adc_clip=float(rows))
+            am_search_imc.reset_routes()
+            got = am_search_imc.am_search_imc(q, at, o, **kw)
+            want = ref.am_search_imc(q, at, offsets=o, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            counts = {"int8": 0, "fp32": 0}
+            counts[route] = 1
+            assert am_search_imc.route_counts() == counts
+
+
+def test_am_search_imc_misaligned_queries_and_unsafe_sums(dev):
+    """On the fp32 route, a query view 4 bytes off a 16-byte boundary
+    takes 4-byte copies; integer operands whose slab partial could pass
+    2^24 (127 * 127 * 1100 rows) take the fp32 route; both equal the plain
+    version."""
+    rng = np.random.default_rng(41)
+    b, d, c = 7, 1100, 90
+    base = torch.as_tensor(rng.choice([-1.0, 1.0], b * d + 1)
+                           .astype(np.float32), device=dev)
+    q = base[1:].view(b, d)
+    am = bipolar(rng, (c, d), dev)
+    noisy = am + 0.5 * torch.as_tensor(rng.normal(size=(c, d)),
+                                       dtype=torch.float32, device=dev)
+    kw = dict(tile_rows=128, tile_cols=128, adc_bits=6, adc_clip=128.0)
+    am_search_imc.reset_routes()
+    got = am_search_imc.am_search_imc(q, noisy.T, **kw)
+    want = ref.am_search_imc(q, noisy.T, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert am_search_imc.route_counts() == {"int8": 0, "fp32": 1}
+    q127, am127 = 127 * q.contiguous(), 127 * am
+    kw = dict(tile_rows=1100, tile_cols=128, adc_bits=16, adc_clip=2.0 ** 24)
+    assert not am_search_imc.int8_route(q127, am127.T, 1100)
+    am_search_imc.reset_routes()
+    got = am_search_imc.am_search_imc(q127, am127.T, **kw)
+    want = ref.am_search_imc(q127, am127.T, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert am_search_imc.route_counts() == {"int8": 0, "fp32": 1}
+
+
+@pytest.mark.parametrize("cell_bits", range(2, 9))
+@pytest.mark.parametrize("b,d,c,rows", [(3, 130, 257, 128), (5, 100, 48, 40),
+                                        (2, 9, 3, 8), (70, 1024, 300, 256)])
+def test_am_search_multibit_routes_are_bit_exact(dev, cell_bits, b, d, c,
+                                                 rows):
+    """±1 queries take the int8 route (u8 codes over all of [0, 2^b - 1]),
+    dyadic non-integer queries and a query of 200 the fp32 route; every
+    call equals the plain version bit for bit, one route count a call."""
+    rng = np.random.default_rng([42, cell_bits, b, d, c, rows])
+    u = rng.integers(0, 2 ** cell_bits, (c, d))
+    u[0] = 2 ** cell_bits - 1
+    planes = ref.pack_planes(torch.as_tensor(u, device=dev), cell_bits)
+    q = bipolar(rng, (b, d), dev)
+    dy = torch.as_tensor(np.round(rng.normal(0, 2, (b, d)) * 4) / 4,
+                         dtype=torch.float32, device=dev)
+    big = q.clone()
+    big[0, 0] = 200.0
+    gd, gc = -(-d // rows), -(-c // 16)
+    off = torch.as_tensor((np.round(rng.normal(0, 4, (gd, gc)) * 16) / 16)
+                          .astype(np.float32), device=dev)
+    for qq, route in ((q, "int8"), (dy, "fp32"), (big, "fp32")):
+        assert am_search_multibit.int8_route(qq, cell_bits, rows) == (
+            route == "int8")
+        for adc, o in ((16, None), (4, off), (4, None)):
+            kw = dict(cell_bits=cell_bits, tile_rows=rows, tile_cols=16,
+                      adc_bits=adc)
+            am_search_multibit.reset_routes()
+            got = am_search_multibit.am_search_multibit(qq, planes, o, **kw)
+            want = ref.am_search_multibit(qq, planes, offsets=o, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            counts = {"int8": 0, "fp32": 0}
+            counts[route] = 1
+            assert am_search_multibit.route_counts() == counts
+
+
+ADC_FIELDS = [("grid", (1, 0)), ("grid", (0, 1)), ("threads", 32),
+              ("smem", 16), ("slabs", 1), ("k_stages", 1), ("k_steps", 1),
+              ("conv_grid", 1), ("scratch_bytes", 256)]
+
+
+@pytest.mark.parametrize("kernel", ["imc", "multibit"])
+@pytest.mark.parametrize("field,delta", ADC_FIELDS)
+def test_adc_launchers_refuse_another_plan(dev, monkeypatch, kernel, field,
+                                           delta):
+    """Both launchers take the wrapper's launch_plan and refuse one that
+    is not their own grid, threads, shared memory, slab walk, convert
+    grid or scratch."""
+    rng = np.random.default_rng(43)
+    q = bipolar(rng, (70, 200), dev)
+    if kernel == "imc":
+        mod, am = am_search_imc, bipolar(rng, (130, 200), dev).T
+
+        def run():
+            return am_search_imc.am_search_imc(q, am, tile_rows=100,
+                                               tile_cols=64)
+    else:
+        mod = am_search_multibit
+        planes = ref.pack_planes(torch.as_tensor(
+            rng.integers(0, 16, (130, 200)), device=dev), 4)
+
+        def run():
+            return am_search_multibit.am_search_multibit(
+                q, planes, cell_bits=4, tile_rows=64, tile_cols=64)
+
+    run()  # the plan as computed
+    plan = mod.launch_plan(70, 200, 130, 100 if kernel == "imc" else 64)
+    bad = dict(plan)
+    if field == "grid":
+        bad["grid"] = tuple(v + dv for v, dv in zip(plan["grid"], delta))
+    else:
+        bad[field] = plan[field] + delta
+    monkeypatch.setattr(mod, "launch_plan", lambda *a: bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        run()
+
+
 def test_device_fidelity_paths_launch_their_kernels(dev):
     from repro_torch.core import (
         EncoderConfig, ImcSimConfig, MemhdConfig, MemhdModel,

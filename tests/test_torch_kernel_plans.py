@@ -5,9 +5,11 @@ of the fp32 mainloop that ``binary_mvm`` and ``encode_pack`` share
 (``csrc/sgemm_tile.cuh``), ``ssd_chunk``'s grid and shared memory,
 ``qail_update``'s tiles and scratch, a rounding model of the split
 products ``ssd_chunk`` runs on the tensor cores, ``am_search_packed``'s
-launch plans and a model of its unpack-mode fragments, and
-``am_search_sparse``'s tile ring, shared memory and scratch choice. The
-kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+launch plans and a model of its unpack-mode fragments,
+``am_search_sparse``'s tile ring, shared memory and scratch choice, and
+the launch plans, route tests and a model of the int8 routes'
+arithmetic of ``am_search_imc`` and ``am_search_multibit``. The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 import importlib.util
 import itertools
@@ -18,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import am_search_imc as asi  # noqa: E402
+from repro_torch.kernels import am_search_multibit as asm  # noqa: E402
 from repro_torch.kernels import am_search_packed as asp  # noqa: E402
 from repro_torch.kernels import am_search_sparse as ass  # noqa: E402
 from repro_torch.kernels import am_shortlist as asl  # noqa: E402
@@ -473,3 +477,285 @@ def test_sparse_plain_reads_out_of_range_entries_as_the_null_tile():
     idx, sim = ass.am_search_sparse(q, slab, ids, nulls, ts, tc, n_dims=16,
                                     k=3, max_tiles=2)
     assert (idx == -1).all() and (sim == ref.NEG).all()
+
+
+# -- am_search_imc and am_search_multibit -------------------------------------
+
+H100_SMS = 132
+SMEM_PER_SM = 233472  # shared memory of an H100 SM; 1 KB of it per block
+ADC_PLANS = {"imc": asi.launch_plan, "multibit": asm.launch_plan}
+
+
+def _slab_walk(d, tile_rows, kp):
+    """The int8 routes' K walk (csrc/adc_tile.cuh Int8Walk): each 32-dim k
+    step in whole or in the segments a slab boundary cuts it into, with
+    the slab closed at its end. Yields ("seg", lo, hi) in global dims and
+    ("close", g)."""
+    gd = -(-d // tile_rows)
+
+    def end_of(g):
+        return min((g + 1) * tile_rows, d) if g < gd else float("inf")
+
+    g, end = 0, end_of(0)
+    for k in range(0, kp, 32):
+        if end >= k + 32:
+            yield ("seg", k, k + 32)
+            if end == k + 32:
+                yield ("close", g)
+                g, end = g + 1, end_of(g + 1)
+            continue
+        lo = 0
+        while lo < 32:
+            hi = min(32, end - k)
+            yield ("seg", k + lo, k + hi)
+            lo = hi
+            if k + hi == end:
+                yield ("close", g)
+                g, end = g + 1, end_of(g + 1)
+
+
+@pytest.mark.parametrize("kernel,tile_rows", [
+    ("imc", 64), ("imc", 128), ("imc", 256), ("imc", 100), ("imc", 7),
+    ("multibit", 64), ("multibit", 128), ("multibit", 256),
+    ("multibit", 40), ("multibit", 8)])
+@pytest.mark.parametrize("b,d,c", [(1, 9, 3), (3, 130, 257), (5, 100, 50),
+                                   (1024, 1024, 1024), (65, 1000, 129)])
+def test_adc_plan_covers_b_c_and_every_slab_once(kernel, tile_rows, b, d,
+                                                 c):
+    """Blocks of 64 columns by 128 (imc) or 64 (multibit) queries cover B
+    and C with no empty block; the slab walk
+    cuts every dim into exactly one segment, closes slabs 0 .. gd - 1 in
+    order, each at its end, and covers the int8 ring's k_stages; the
+    fp32 steps (32 dims for imc's mainloop, 16 for multibit's SIMT tile)
+    cover D; the convert pass has a block per 64 x 64 tile of
+    the int8 copies; the scratch regions are 256-byte aligned and
+    disjoint."""
+    p = ADC_PLANS[kernel](b, d, c, tile_rows)
+    gx, gy = p["grid"]
+    rows = {"imc": asi.BLOCK_ROWS, "multibit": asm.BLOCK_ROWS}[kernel]
+    assert gx * 64 >= c > (gx - 1) * 64 and gy * rows >= b > (gy - 1) * rows
+    gd = p["slabs"]
+    assert gd * tile_rows >= d > (gd - 1) * tile_rows
+    kp = p["k_stages"] * 128
+    assert kp >= d > kp - 128 and kp == p["kp"]
+    st = {"imc": asi.FP32_STEP, "multibit": asm.FP32_STEP}[kernel]
+    assert p["k_steps"] * st >= d > (p["k_steps"] - 1) * st
+    seen = np.zeros(kp, dtype=int)
+    closes, at = [], 0
+    for ev in _slab_walk(d, tile_rows, kp):
+        if ev[0] == "seg":
+            _, lo, hi = ev
+            assert lo == at < hi and hi - lo <= 32
+            assert lo // 32 == (hi - 1) // 32
+            seen[lo:hi] += 1
+            at = hi
+            # a segment never spans a slab boundary below D
+            assert lo >= d or lo // tile_rows == (min(hi, d) - 1) // tile_rows
+        else:
+            closes.append(ev[1])
+            assert at == min((ev[1] + 1) * tile_rows, d)
+    assert (seen == 1).all() and closes == list(range(gd))
+    n_am = (kp // 64) * gx if kernel == "imc" else 0
+    assert p["n_am_tiles"] == n_am
+    assert p["conv_grid"] == n_am + (kp // 64) * gy * rows // 64
+    off, sizes = p["offsets"], {"q8": gy * rows * kp,
+                                "am8": gx * 64 * kp if kernel == "imc" else 0,
+                                "flags": 4 * p["conv_grid"], "keys": 8 * b,
+                                "tickets": 4 * gy}
+    names = list(sizes)
+    for name, nxt in zip(names, names[1:] + [None]):
+        assert off[name] % 256 == 0
+        stop = off[nxt] if nxt else p["scratch_bytes"]
+        assert off[name] + sizes[name] <= stop
+
+
+@pytest.mark.parametrize("kernel", sorted(ADC_PLANS))
+def test_adc_shared_memory_fits_a_block(kernel):
+    """The dynamic shared memory is the kernel's constant: imc the larger
+    of the int8 ring (4 stages of 128 query + 64 column rows of 128 bytes)
+    and the fp32 ring (3 stages of 32 dims of both float tiles), then the
+    128 x 65 float sum tile; multibit the ring (64 int8 query rows and up
+    to 8 planes' bytes), the decoded code rows and the 64 x 65 sum tile. A
+    block fits, with the static shared memory and 1 KB of reserve."""
+    want = {"imc": 4 * 192 * 128 + 4 * 128 * 65,
+            "multibit": 4 * (64 * 128 + 8 * 16 * 64) + 64 * 128
+            + 4 * 64 * 65}[kernel]
+    assert 3 * 192 * 32 * 4 <= 4 * 192 * 128  # the fp32 ring fits the int8
+    for b, d, c in ((1, 8, 1), (1024, 1024, 1024), (7, 100_000, 3)):
+        assert ADC_PLANS[kernel](b, d, c, 128)["smem"] == want
+    assert want + 1024 <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kernel", sorted(ADC_PLANS))
+def test_adc_plan_fills_one_wave_at_the_main_shape(kernel):
+    """B = C = D = 1024 at 128-row arrays, blocks of 256 threads: imc 128
+    blocks, one an SM (shared memory), on 128 of the 132 SMs; multibit 256
+    blocks, two an SM. One wave."""
+    p = ADC_PLANS[kernel](1024, 1024, 1024, 128)
+    blocks = p["grid"][0] * p["grid"][1]
+    per_sm = min(SMEM_PER_SM // (p["smem"] + 1024), 2048 // p["threads"])
+    assert (blocks, p["threads"], per_sm) == {
+        "imc": (128, 256, 1), "multibit": (256, 256, 2)}[kernel]
+    assert 0.95 * H100_SMS <= blocks <= H100_SMS * per_sm
+
+
+def _adc_count(p, e, clipq):
+    """csrc/adc_tile.cuh adc_count: the ADC of integer partials p as
+    counts of steps (step = 2^e), round half to even, in integers."""
+    if e <= 0:
+        v = p << -e
+    else:
+        fl = p >> e
+        rem, half = p - (fl << e), 1 << (e - 1)
+        v = fl + ((rem > half) | ((rem == half) & (fl & 1 == 1)))
+    return np.clip(v, -clipq, clipq)
+
+
+def _adc_model(q, u, offsets, tile_rows, tile_cols, adc_bits, adc_clip,
+               qmax=0, int_close=False):
+    """The int8 routes' arithmetic in numpy: the walk of _slab_walk, each
+    segment an exact integer product of the int8 queries (0 past D) and
+    the codes u (am_search_imc: the int8 AM; am_search_multibit: the u8
+    offset codes), s32 on the card; a slab closes with float32(sum q*u -
+    qmax * sum q) + offset, the ADC in float32 (a true division, round
+    half to even, a product) and the float32 sum over slabs in order; or,
+    with ``int_close`` (no offsets, a power-of-two step), with the integer
+    count of steps (``_adc_count``), the counts summed and the sum times
+    step. Returns (idx, sim) of the first-wins argmax."""
+    b, d = q.shape
+    c = u.shape[1]
+    kp = -(-d // 128) * 128
+    q8 = np.zeros((b, kp), np.int64)
+    q8[:, :d] = q
+    a8 = np.zeros((kp, c), np.int64)
+    a8[:d] = u[:d]
+    clip = np.float32(adc_clip)
+    step = np.float32(2.0 * adc_clip / 2 ** adc_bits)
+    total = np.zeros((b, c), np.float32)
+    counts = np.zeros((b, c), np.int64)
+    e = int(np.log2(step))
+    if int_close:
+        assert offsets is None and 2.0 ** e == step
+    acc = np.zeros((b, c), np.int64)
+    rs = np.zeros((b, 1), np.int64)
+    for ev in _slab_walk(d, tile_rows, kp):
+        if ev[0] == "seg":
+            acc += q8[:, ev[1]:ev[2]] @ a8[ev[1]:ev[2]]
+            rs += q8[:, ev[1]:ev[2]].sum(1, keepdims=True)
+            continue
+        g = ev[1]
+        p = acc - qmax * rs
+        assert np.abs(p).max() <= 2 ** 24
+        if int_close:
+            counts += _adc_count(p, e, int(clip / step))
+            acc[:], rs[:] = 0, 0
+            continue
+        off = (np.zeros(c, np.float32) if offsets is None else
+               np.repeat(offsets[g], tile_cols)[:c].astype(np.float32))
+        x = np.minimum(np.maximum(p.astype(np.float32) + off, -clip), clip)
+        total = total + np.rint(x / step).astype(np.float32) * step
+        acc[:], rs[:] = 0, 0
+    if int_close:
+        total = counts.astype(np.float32) * step
+    return total.argmax(1).astype(np.int32), total.max(1)
+
+
+@pytest.mark.parametrize("d,tile_rows", [(130, 128), (130, 64), (100, 40),
+                                         (256, 100), (33, 8), (9, 256),
+                                         (300, 7)])
+@pytest.mark.parametrize("adc_bits,offsets", [(16, False), (6, True),
+                                              (3, True), (3, False)])
+def test_imc_int8_model_equals_the_plain_search(d, tile_rows, adc_bits,
+                                                offsets):
+    """±1 and small-integer operands with duplicated columns (ties):
+    the int8 route's arithmetic equals ref.am_search_imc bit for bit,
+    slabs that end inside a 32-dim k step included; without offsets and
+    at a power-of-two step, also its integer close."""
+    rng = np.random.default_rng([31, d, tile_rows, adc_bits])
+    b, c, cols = 6, 70, 32
+    for q, am in ((rng.choice([-1, 1], (b, d)), rng.choice([-1, 1], (c, d))),
+                  (rng.integers(-3, 4, (b, d)), rng.integers(-5, 6, (c, d)))):
+        am = am[np.arange(c) % 23]
+        gd, gc = -(-d // tile_rows), -(-c // cols)
+        off = (np.round(rng.normal(0, 2, (gd, gc)) * 16) / 16
+               ).astype(np.float32) if offsets else None
+        kw = dict(tile_rows=tile_rows, tile_cols=cols, adc_bits=adc_bits,
+                  adc_clip=float(tile_rows))
+        qt = torch.as_tensor(q, dtype=torch.float32)
+        at = torch.as_tensor(am.T, dtype=torch.float32)
+        assert asi.int8_route(qt, at, tile_rows)
+        w_idx, w_sim = ref.am_search_imc(
+            qt, at, offsets=None if off is None else torch.as_tensor(off),
+            **kw)
+        closes = [False]
+        step = 2.0 * kw["adc_clip"] / 2 ** adc_bits
+        if off is None and 2.0 ** np.round(np.log2(step)) == step:
+            closes.append(True)
+        for int_close in closes:
+            idx, sim = _adc_model(q, am.T, off, int_close=int_close, **kw)
+            assert np.array_equal(idx, w_idx.numpy())
+            assert np.array_equal(sim, w_sim.numpy())
+
+
+@pytest.mark.parametrize("cell_bits", range(2, 9))
+@pytest.mark.parametrize("d,tile_rows", [(130, 128), (100, 40), (33, 8),
+                                         (1000, 256)])
+def test_multibit_int8_model_equals_the_plain_search(cell_bits, d,
+                                                     tile_rows):
+    """u8 codes over the whole [0, 2^b - 1] (u = 2^b - 1 is code Qmax + 1,
+    which recentred s8 would overflow at 8 bits) against ±1 queries:
+    sum q*u - Qmax * sum q per slab equals ref.am_search_multibit bit for
+    bit, with a 16-bit ADC and with a 4-bit ADC, with and without offsets
+    (without them also through the integer close)."""
+    rng = np.random.default_rng([32, cell_bits, d, tile_rows])
+    b, c, cols = 5, 40, 16
+    qmax = 2 ** (cell_bits - 1) - 1
+    u = rng.integers(0, 2 ** cell_bits, (c, d))
+    u[0] = 2 ** cell_bits - 1
+    planes = ref.pack_planes(torch.as_tensor(u), cell_bits)
+    q = rng.choice([-1, 1], (b, d))
+    qt = torch.as_tensor(q, dtype=torch.float32)
+    assert asm.int8_route(qt, cell_bits, tile_rows)
+    codes = ref.unpack_planes(planes).numpy()  # (Dp*8, C) offset codes
+    assert np.array_equal(codes[:d], u.T)
+    gd, gc = -(-d // tile_rows), -(-c // cols)
+    off = (np.round(rng.normal(0, 4, (gd, gc)) * 16) / 16).astype(np.float32)
+    for adc_bits, o in ((16, None), (4, off), (4, None)):
+        kw = dict(tile_rows=tile_rows, tile_cols=cols, adc_bits=adc_bits,
+                  adc_clip=ref.multibit_adc_clip(cell_bits, tile_rows))
+        w_idx, w_sim = ref.am_search_multibit(
+            qt, planes, cell_bits=cell_bits,
+            offsets=None if o is None else torch.as_tensor(o), **kw)
+        for int_close in (False, True) if o is None else (False,):
+            idx, sim = _adc_model(q, codes, o, qmax=qmax,
+                                  int_close=int_close, **kw)
+            assert np.array_equal(idx, w_idx.numpy())
+            assert np.array_equal(sim, w_sim.numpy())
+
+
+def test_adc_route_predicates():
+    """The route tests mirrored from the search passes: int8 for ±1
+    operands (and multi-bit codes), fp32 for a sigma 0.5 noisy AM, for a
+    query of 200, for a non-integer query, and where a slab partial could
+    exceed 2^24 (127 * 127 * 1041 rows)."""
+    rng = np.random.default_rng(33)
+    q = torch.as_tensor(rng.choice([-1.0, 1.0], (8, 256)), dtype=torch.float32)
+    am_t = torch.as_tensor(rng.choice([-1.0, 1.0], (256, 40)),
+                           dtype=torch.float32)
+    noisy = am_t + 0.5 * torch.as_tensor(rng.normal(size=(256, 40)),
+                                         dtype=torch.float32)
+    big, frac = q.clone(), q.clone()
+    big[3, 7] = 200.0
+    frac[0, 0] = 0.5
+    assert asi.int8_route(q, am_t, 128)
+    assert not asi.int8_route(q, noisy, 128)
+    assert not asi.int8_route(big, am_t, 128)
+    assert not asi.int8_route(frac, am_t, 128)
+    full = torch.full((2, 2048), 127.0)
+    assert asi.int8_route(full, full.T, 1040)
+    assert not asi.int8_route(full, full.T, 1041)
+    for cb in range(2, 9):
+        assert asm.int8_route(q, cb, 128)
+        assert not asm.int8_route(big, cb, 128)
+        assert not asm.int8_route(frac, cb, 128)
+    assert asm.int8_route(full, 8, 1032) and not asm.int8_route(full, 8, 1033)
