@@ -9,12 +9,16 @@ script exits non-zero without the final result line:
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
 1. the build: nvcc compiles the twelve kernel sources of ``src/repro_torch/
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
-   ptxas' register, stack and spill report; the ADC searches' instances
-   again on a line of their own, ``ptxas_adc``);
+   ptxas' register, stack and spill report; the instances of the ADC
+   searches and of the search pass ``am_search`` shares with
+   ``am_search_imc`` again on a line of their own, ``ptxas_adc``);
 2. each kernel against its plain PyTorch version on the card, over the
    differential geometry grid, tie and padding cases and the full-width
    shapes: ``pack_bits``, ``am_search_packed`` (both modes, every block
-   size) and ``am_search`` bit-exact; ``encode_pack`` bit-exact on dyadic
+   size; ties planted in several column splits at B = 300 and 32) and
+   ``am_search`` bit-exact (±1 queries on its int8 route, dyadic ones on
+   its fp32 route, the route of every call checked); ``encode_pack``
+   bit-exact on dyadic
    features and within the stated tolerance on float features;
    ``qail_update`` (every block size) bit-exact in its targets, misses
    and (at a dyadic lr and payload) its delta, and within |delta error|
@@ -45,8 +49,9 @@ script exits non-zero without the final result line:
    trained AM deployed three ways (``target="unpacked"``,
    ``target="packed", mode="unpack"``, ``target="packed"``) -> the same
    request stream served through each; launch counts zeroed just before
-   and read just after, and every fit launch on ``qail_update``'s int8
-   route (its route counts); the kernel fit's binary AM agrees with the plain
+   and read just after, every fit launch on ``qail_update``'s int8
+   route and every unpacked serving launch on ``am_search``'s (their
+   route counts); the kernel fit's binary AM agrees with the plain
    fit's on >= 99.9 % of cells and its test accuracy within 0.005; all
    pipelines and the plain predict agree on every request, and no
    dispatch fell back to the plain tier;
@@ -112,7 +117,13 @@ script exits non-zero without the final result line:
    ``flash_decode``); the ``flash_decode`` row also carries the served
    shape's time and SDPA's there (B = 4, S = 320: ``ms_serve_shape``,
    ``library_ms_serve_shape``) and the float32 instance's time at the
-   row's shape (``ms_f32``); the ``am_search_imc`` row (``ms`` on the
+   row's shape (``ms_f32``); the ``am_search`` row (``ms`` on the ±1
+   queries, the int8 route, bound by the bytes) the fp32 route on dyadic
+   queries (``ms_fp32_route``, ``bound_ms_fp32_route``) and ``routes``;
+   the ``am_search_packed`` (popcount) row the time at each ``block_b``
+   (``ms_by_block_b``, ``grid_by_block_b``) and at a served request's
+   B = 32 (``ms_b32``, ``bound_ms_b32``, ``plan_b32``); the
+   ``am_search_imc`` row (``ms`` on the
    noisy instance, the fp32 route) the ideal instance's time and bound on
    the int8 route (``ms_int8_route``, ``bound_ms_int8_route``) and the
    route of each (``routes``); the ``am_search_multibit`` row the fp32
@@ -265,8 +276,8 @@ def check_int8_routes(launches, what) -> dict:
 
 
 def check_routes(mod, want, what) -> dict:
-    """The route counts of ``mod`` (am_search_imc or am_search_multibit)
-    since its last reset are ``want``."""
+    """The route counts of ``mod`` (am_search, am_search_imc or
+    am_search_multibit) since its last reset are ``want``."""
     routes = mod.route_counts()
     check(routes == want, (mod.__name__, "routes", what, routes, want))
     return routes
@@ -382,7 +393,7 @@ class Smoke:
         log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
              "library": os.path.relpath(str(path), HERE), "ptxas": regs})
         log({"phase": "ptxas_adc", "instances": ptxas_entries(
-            _build.build_log, ("imc_search", "multibit_search",
+            _build.build_log, ("search_pass", "multibit_search",
                                "convert_pass"))})
 
     # -- phase 2 ---------------------------------------------------------------
@@ -448,8 +459,46 @@ class Smoke:
                          **self.check_new_kernels(rng, geom),
                          **self.check_fidelity_kernels(rng, geom)})
         log({"phase": "kernels_vs_plain", "ok": True, "grid": rows,
-             "max_abs_err_full_width": self.max_err})
+             "max_abs_err_full_width": self.max_err,
+             "popcount_split_ties": self.check_split_ties()})
         self.check_hier_kernels()
+
+    def check_split_ties(self) -> dict:
+        """Both packed modes, every block_b, at B = 300 and 32 (the
+        popcount grid's 128- and 16-column splits): exact copies of a query
+        planted in several column splits, the lowest index wins wherever
+        it lies."""
+        np, torch = self.np, self.torch
+        from repro_torch.kernels import am_search_packed as asp
+        from repro_torch.kernels import ref
+        rng = np.random.default_rng([18, 300])
+        d = c = 1024
+        am = self.bipolar(rng, (c, d))
+        q = self.bipolar(rng, (300, d))
+        i = torch.arange(40, device=self.dev)
+        win = 130 + 3 * i
+        for cols in (win, win + 470, win + 640):
+            am[cols] = q[:40]
+        am[1 + 3 * i[:20]] = q[:20]
+        want_idx = torch.where(i < 20, 1 + 3 * i, win).to(torch.int32)
+        am_t = ref.pack_rows(am).T.contiguous()
+        splits = {}
+        for b in (300, 32):
+            qp = ref.pack_rows(q[:b]).contiguous()
+            w_idx, w_sim = ref.am_search_packed(qp, am_t, d)
+            check(torch.equal(w_idx[:min(b, 40)], want_idx[:b]),
+                  "planted ties: plain")
+            for mode in asp.MODES:
+                for bb in asp.BLOCK_B_CHOICES:
+                    idx, sim = asp.am_search_packed(qp, am_t, n_dims=d,
+                                                    block_b=bb, mode=mode)
+                    torch.cuda.synchronize()
+                    check(torch.equal(idx, w_idx) and torch.equal(sim, w_sim),
+                          ("split ties", mode, b, bb))
+                    if mode == "popcount":
+                        splits[f"B{b}_block_b{bb}"] = asp.launch_plan(
+                            b, d // 8, c, bb, mode)["cols"]
+        return {"columns_per_split": splits}
 
     def check_hier_kernels(self):
         """am_shortlist and am_search_sparse (fused and gathered) against
@@ -545,17 +594,22 @@ class Smoke:
         am = self.bipolar(rng, (c, d))
         dup = am[torch.arange(c, device=self.dev) % max(1, c // 3)]
         for a in (am, dup):
-            # am_search: ±1 and dyadic float queries, through the (D, C)
-            # transposed view of the resident (C, D) AM and a copy.
-            for q in (self.bipolar(rng, (b, d)),
-                      self.feats(rng, b, d, dyadic=True) - 0.5):
+            # am_search: ±1 queries (its int8 route) and dyadic float ones
+            # (its fp32 route), through the (D, C) transposed view of the
+            # resident (C, D) AM and a copy.
+            for q, route in ((self.bipolar(rng, (b, d)), "int8"),
+                             (self.feats(rng, b, d, dyadic=True) - 0.5,
+                              "fp32")):
                 w_idx, w_sim = ref.am_search(q, a.T)
                 for am_t in (a.T, a.T.contiguous()):
+                    ams.reset_routes()
                     idx, sim = ams.am_search(q, am_t)
                     torch.cuda.synchronize()
                     err = (sim - w_sim).abs().max().item()
                     check(torch.equal(idx, w_idx) and err == 0,
-                          ("am_search", geom, err))
+                          ("am_search", geom, route, err))
+                    check_routes(ams, one_route(ams, route),
+                                 ("am_search", geom))
                     if full:
                         self.max_err["am_search"] = max(
                             self.max_err["am_search"], err)
@@ -969,6 +1023,10 @@ class Smoke:
         for name in NEW_KERNELS:
             check(launches[name] > 0, f"{name} was not launched on the "
                                       "training path")
+        from repro_torch.kernels import am_search as ams
+        search_routes = check_routes(
+            ams, {"int8": launches["am_search"], "fp32": 0},
+            "unpacked serving")
         check("torch-ref" not in json.dumps(tiers), tiers)
         for r in reqs:
             plain = model.predict(self.t(r.feats)).cpu().numpy()
@@ -988,6 +1046,7 @@ class Smoke:
              "fit_seconds_plain": round(self.plain_fit["seconds"], 3),
              "qail_update_launches_in_fit": fit_launches,
              "qail_update_routes_in_fit": fit_routes,
+             "am_search_routes_in_serving": search_routes,
              "miss_curve_kernel": [r["train_miss"] for r in hist["curve"]],
              "miss_curve_plain": self.plain_fit["miss"],
              "test_accuracy_kernel": acc_kernel,
@@ -2092,6 +2151,57 @@ class Smoke:
              "chosen": list(bm.SGEMM_TILES[bm.SGEMM_TILE]), "tiles": rows})
 
     # -- phase 12 --------------------------------------------------------------
+    def am_search_extra(self, q, am_binary) -> dict:
+        """am_search on both routes at the row's shape: the row's ±1
+        queries (int8) and dyadic non-integer queries of the same batch
+        (fp32, equal to the plain version), checked to take them."""
+        from repro_torch.kernels import am_search as ams
+        from repro_torch.kernels import ref
+        b, d = q.shape
+        c = am_binary.shape[0]
+        dy = self.t(self.np.random.default_rng([20, b, d]).integers(
+            -128, 128, size=(b, d)).astype("float32") / 256)
+        routes = {}
+        for name, qq in (("pm1", q), ("dyadic", dy)):
+            ams.reset_routes()
+            idx, sim = ams.am_search(qq, am_binary.T)
+            routes[name] = ams.route_counts()
+        w_idx, w_sim = ref.am_search(dy, am_binary.T)
+        check(self.torch.equal(idx, w_idx) and self.torch.equal(sim, w_sim),
+              "am_search fp32 route != plain")
+        check(routes == {"pm1": one_route(ams, "int8"),
+                         "dyadic": one_route(ams, "fp32")},
+              ("am_search routes", routes))
+        ms, by = bound(4 * (b * d + d * c + 2 * b), 2 * b * c * d,
+                       FP32_FLOP_PER_S)
+        return {"routes": routes, "route_of_ms": "int8",
+                "ms_fp32_route": time_device_ms(
+                    lambda: ams.am_search(dy, am_binary.T)),
+                "bound_ms_fp32_route": ms, "bound_by_fp32_route": by}
+
+    def popcount_extra(self, qp, am_t) -> dict:
+        """Popcount mode at every block_b (B = 1024) and at a served
+        request's B = 32 (default block_b), with the launch plans."""
+        from repro_torch.kernels import am_search_packed as asp
+        b, dp = qp.shape
+        c = am_t.shape[1]
+        d = FULL[2]
+        q32 = qp[:32].contiguous()
+        ms32, by32 = bound(q32.numel() + am_t.numel() + 8 * 32,
+                           2 * 32 * c * d, INT8_OPS_PER_S)
+        return {
+            "ms_by_block_b": {bb: time_device_ms(
+                lambda: asp.am_search_packed(qp, am_t, n_dims=d, block_b=bb))
+                for bb in asp.BLOCK_B_CHOICES},
+            "grid_by_block_b": {bb: asp.launch_plan(
+                b, dp, c, bb, "popcount")["grid"]
+                for bb in asp.BLOCK_B_CHOICES},
+            "ms_b32": time_device_ms(
+                lambda: asp.am_search_packed(q32, am_t, n_dims=d)),
+            "bound_ms_b32": ms32, "bound_by_b32": by32,
+            "plan_b32": asp.launch_plan(32, dp, c, asp.DEFAULT_BLOCK_B,
+                                        "popcount")}
+
     def kernel_line(self):
         np, torch = self.np, self.torch
         from repro_torch import generator
@@ -2163,12 +2273,14 @@ class Smoke:
              # The fit's operands are integers: int8 sims (the route the
              # kernel takes), so the bytes bound it.
              bound(qail_bytes, 2 * TRAIN_B * c * d, INT8_OPS_PER_S)),
+            # ±1 queries against the ±1 AM: the int8 route, where the
+            # float operands' bytes bound it.
             ("am_search", "src/repro_torch/kernels/csrc/am_search.cu",
              "src/repro/kernels/am_search.py:88",
              lambda: ams.am_search(q, am_binary.T),
              lambda: ref.am_search(q, am_binary.T),
              bound(4 * (b * d + d * c + 2 * b), 2 * b * c * d,
-                   FP32_FLOP_PER_S)),
+                   INT8_OPS_PER_S)),
             ("am_search_packed_unpack",
              "src/repro_torch/kernels/csrc/am_search_packed.cu",
              "src/repro/kernels/am_search_packed.py:167",
@@ -2289,6 +2401,9 @@ class Smoke:
         row = out[[r["name"] for r in out].index("flash_decode")]
         row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
         row["shape_serve"] = FD_SERVE
+        rows = {r["name"]: r for r in out}
+        rows["am_search"].update(self.am_search_extra(q, am_binary))
+        rows["am_search_packed"].update(self.popcount_extra(qp, am_t))
         row = out[[r["name"] for r in out].index("am_search_packed_unpack")]
         row["ms_by_block_b"] = {
             bb: time_device_ms(lambda: asp.am_search_packed(
@@ -2296,7 +2411,6 @@ class Smoke:
             for bb in asp.BLOCK_B_CHOICES}
         row = out[[r["name"] for r in out].index("am_search_sparse")]
         row.update(self.sparse_extra(tiles, clk_mhz))
-        rows = {r["name"]: r for r in out}
         rows["am_search_imc"].update(self.imc_extra(iq, idep, ideal, ikw))
         rows["am_search_multibit"].update(self.multibit_extra(mq, mdep, mkw))
         row = out[[r["name"] for r in out].index("ssd_chunk")]

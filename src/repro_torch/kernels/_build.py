@@ -31,7 +31,8 @@ SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
            "am_search_sparse.cu", "flash_decode.cu", "ssd_chunk.cu")
 # Included by sources; part of the hash.
 HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh",
-           "packed_topk.cuh", "mma_sync.cuh", "int8_convert.cuh")
+           "packed_topk.cuh", "mma_sync.cuh", "int8_convert.cuh",
+           "search_pass.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -48,8 +49,8 @@ SIGNATURES = {
     "am_search_packed_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I64, _P),
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "am_search_launch": (_P, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I,
-                         _P),
+    "am_search_launch": (_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "qail_update_launch": (_P, _P, _P, _I64, _I64, _P, _P, _P, _F, _P,
                            _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),

@@ -1,22 +1,62 @@
-"""Associative search over the unpacked ±1 AM: fp32 similarity + argmax.
+"""Associative search over the unpacked AM: similarity + first-wins argmax.
 
 Port of ``repro.kernels.am_search`` (``csrc/am_search.cu``). The kernel
-computes sims = q @ am_t in true fp32 (no TF32: queries may be float H)
-and keeps the first maximal column per query. ``am_t`` may be any
-strided (D, C) view, so the transposed view of a resident (C, D) AM is
-searched without a copy.
+computes sims = q @ am_t and keeps the first maximal column per query.
+``am_t`` may be any strided (D, C) view, so the transposed view of a
+resident (C, D) AM is searched without a copy.
+
+The kernel picks its route on the device, per call: when q and the AM
+view are integers in [-127, 127] and max|q| * max|am| * D <= 2^24
+(``int8_route``: ±1 queries against the ±1 AM, the unpacked serving
+path) the products run exactly on the int8 tensor cores; otherwise
+(float or dyadic queries) in true fp32 FMAs (no TF32), summed in
+increasing k. ``route_counts()`` reads how many calls took each route
+(one device sync); ``reset_routes()`` zeroes them. ``launch_plan`` is
+the kernel's grid, slab walk, shared memory and scratch (those of
+``am_search_imc`` with one slab of D and no ADC), handed to the
+launcher, which refuses any other.
 
 A CPU tensor is searched by the plain version (``ref.am_search``); a
 CUDA tensor goes through the kernel or raises. ``am_search.launches``
-counts kernel launches.
+counts kernel calls.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import am_search_imc as asi
 
-BN = 64  # AM columns per tile of the kernel (csrc/sims_argmax.cuh)
+ROUTES = _build.RouteCounts.NAMES
+_ROUTES = _build.RouteCounts()
+
+
+def launch_plan(b: int, d: int, c: int) -> dict:
+    """The launch for B queries against a (D, C) AM: ``am_search_imc``'s
+    (``csrc/search_pass.cuh``) with one slab of D."""
+    return asi.plan(b, d, c, d, rows=asi.BLOCK_ROWS, am_copy=True,
+                    threads=asi.THREADS, smem=asi.SMEM,
+                    fp32_step=asi.FP32_STEP)
+
+
+def int8_route(q: torch.Tensor, am_t: torch.Tensor) -> bool:
+    """Whether the kernel takes its int8 route for these operands: the
+    search pass's test of the convert pass's flags, mirrored."""
+    return asi.int8_route(q, am_t, q.shape[1])
+
+
+def routes(device: torch.device) -> torch.Tensor:
+    """The (2,) int32 device counter of calls per route on ``device``."""
+    return _ROUTES.tensor(device)
+
+
+def route_counts() -> dict[str, int]:
+    """Calls per route since the last reset, over all devices."""
+    return _ROUTES.counts()
+
+
+def reset_routes() -> None:
+    _ROUTES.reset()
 
 
 def am_search(q: torch.Tensor, am_t: torch.Tensor,
@@ -51,15 +91,18 @@ def am_search(q: torch.Tensor, am_t: torch.Tensor,
     sim = torch.empty((b,), dtype=torch.float32, device=q.device)
     if b == 0:
         return idx, sim
-    n_ct = -(-c // BN)
-    part_s = torch.empty((b, n_ct), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((b, n_ct), dtype=torch.int32, device=q.device)
+    if d == 0:
+        raise ValueError("the AM has no dims")
+    p = launch_plan(b, d, c)
+    scratch = torch.empty((p["scratch_bytes"],), dtype=torch.uint8,
+                          device=q.device)
     lib = _build.lib()
     with torch.cuda.device(q.device):
         err = lib.am_search_launch(
             q.data_ptr(), am_t.data_ptr(), am_t.stride(0), am_t.stride(1),
-            part_s.data_ptr(), part_i.data_ptr(), idx.data_ptr(),
-            sim.data_ptr(), b, d, c, _build.stream_of(q))
+            scratch.data_ptr(), p["scratch_bytes"],
+            routes(q.device).data_ptr(), idx.data_ptr(), sim.data_ptr(), b,
+            d, c, *asi.launch_args(p), _build.stream_of(q))
     _build.check(err, "am_search")
     am_search.launches += 1
     return idx, sim

@@ -41,7 +41,8 @@ INT8_STAGES = 4
 SUM_LD = BLOCK_COLS + 1
 CONV_TILE = 64
 EXACT = 2 ** 24  # float32 integers are exact up to here
-# csrc/am_search_imc.cu: queries of a search block, dims per k step of the
+# csrc/search_pass.cuh (the search pass of am_search_imc.cu and
+# am_search.cu): queries of a search block, dims per k step of the
 # fp32 route (sgemm_tile.cuh T0) and the dynamic shared memory, the larger
 # of the int8 ring (query and column rows) and the fp32 ring (3 steps of
 # both float tiles), then the sum tile.

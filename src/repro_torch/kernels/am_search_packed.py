@@ -28,17 +28,25 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.pack_bits import pack_bits
 
-# Queries per block: each instantiation of the popcount kernel template
-# (queries per thread 1, 2, 4, 8 over 4 thread rows); in unpack mode the
-# rows of an mma tile, max(16, block_b).
+# Queries per block (rows of a query tile): in popcount mode a warp per 4
+# rows; in unpack mode the rows of an mma tile, max(16, block_b).
 BLOCK_B_CHOICES = (4, 8, 16, 32)
 DEFAULT_BLOCK_B = 8
 MODES = ("popcount", "unpack")
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
-# csrc/am_search_packed.cu, unpack mode: columns per block, warps, bytes
-# per k slab, ring stages, shared row strides of the query and AM slabs.
+# csrc/am_search_packed.cu, both modes: bytes per k slab and ring stages;
+# unpack mode: columns per block, warps, shared row strides of the query
+# and AM slabs.
+_SLAB, _STAGES = 32, 4
 UNPACK_COLS = 128
-_WARPS, _SLAB, _STAGES, _QSTR, _ASTR = 4, 32, 4, 48, UNPACK_COLS + 16
+_WARPS, _QSTR, _ASTR = 4, 48, UNPACK_COLS + 16
+# popcount mode: a lane's (and a warp's) query rows, the columns of a
+# split at one lane along K, the most lanes along K, and the warps that
+# fill an H100 (a warp for each of its 132 x 4 SM sub-partitions).
+_QT = 4
+POPCOUNT_COLS = 128
+_MAX_KS = 8
+FILL_WARPS = 4 * 132
 _MAX_GRID_Y = 65535
 
 
@@ -60,20 +68,54 @@ def _up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+_SCRATCH: dict[tuple, torch.Tensor] = {}
+
+
+def fold_scratch(device: torch.device, stream: int,
+                 nbytes: int) -> torch.Tensor:
+    """The fold's scratch (keys and tickets) for launches on ``stream``:
+    both modes start from all ones and leave it all ones, so a buffer is
+    filled once, when it is made or grown, and then reused by the
+    stream's launches, which run in order."""
+    key = (device, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.full((max(nbytes, 4096),), 255, dtype=torch.uint8,
+                         device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def k_split(b: int, c: int, block_b: int) -> int:
+    """Popcount mode's lanes along K (``popcount::k_split``): the least of
+    1, 2, 4, 8 that gives the launch ``FILL_WARPS`` warps, else 8."""
+    tiles, warps = -(-b // block_b), block_b // _QT
+    ks = 1
+    while (ks < _MAX_KS
+           and tiles * -(-c // (POPCOUNT_COLS // ks)) * warps < FILL_WARPS):
+        ks *= 2
+    return ks
+
+
 def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
     """The kernel's launch for B queries, Dp packed bytes and C columns.
 
-    popcount: a block of 256 threads per ``block_b`` queries walks all C
-    columns (``cols`` = C) with the query and AM words of its tile in
-    dynamic shared memory; no scratch.
+    Both modes: a grid of (query tiles, column splits), and a scratch of a
+    uint64 key per query and a ticket word per query tile, all ones before
+    and after a launch (``fold_scratch``).
+
+    popcount: ``rows`` = block_b queries (a warp per 4) by ``cols`` =
+    128 / ``k_split`` columns: a lane keeps 4 x 4 Hamming sums over the
+    words of K that fall to it (one in ``k_split``). The dynamic shared
+    memory is the 4-stage ring of 32-byte k slabs of both operands (rows x
+    32 query bytes, then 32 AM byte rows of the split's columns), the same
+    at any D.
 
     unpack: a block of 4 warps per ``rows`` = max(16, block_b) queries
-    (one or two m16 tiles of ``mma.sync``) and ``cols`` = 128 columns; the
-    grid is (query tiles, column splits). The shared memory is the
-    kernel's static ``Smem`` (a 4-stage ring of 32-byte k slabs of both
-    operands, the warps' keys and shares of the rows' popcounts, the last
-    block's flag); the scratch holds a uint64 key per query and a ticket
-    word per query tile, filled with ones by the launcher.
+    (one or two m16 tiles of ``mma.sync``) and ``cols`` = 128 columns. The
+    shared memory is the kernel's static ``Smem`` (a 4-stage ring of
+    32-byte k slabs of both operands, the warps' keys and shares of the
+    rows' popcounts, the last block's flag).
     """
     if mode == "unpack":
         rows = max(16, block_b)
@@ -83,10 +125,13 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
         return {"rows": rows, "cols": UNPACK_COLS,
                 "grid": (tiles, -(-c // UNPACK_COLS)), "smem": smem,
                 "scratch_bytes": 8 * b + 4 * tiles}
-    dw = -(-dp // 4)
-    return {"rows": block_b, "cols": c, "grid": (-(-b // block_b), 1),
-            "smem": 4 * (block_b * dw + dw * 64 + 2 * block_b * 64),
-            "scratch_bytes": 0}
+    ks = k_split(b, c, block_b)
+    cols = POPCOUNT_COLS // ks
+    tiles = -(-b // block_b)
+    return {"rows": block_b, "cols": cols, "k_split": ks,
+            "grid": (tiles, -(-c // cols)),
+            "smem": _STAGES * (block_b * _SLAB + _SLAB * cols),
+            "scratch_bytes": 8 * b + 4 * tiles}
 
 
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
@@ -99,9 +144,10 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
       q_packed: (B, Dp) uint8 queries, Dp = ceil(D/8), tail bits 0.
       am_packed_t: (Dp, C) uint8 transposed packed AM (``pack_am``).
       n_dims: true (unpacked) hypervector dimension D.
-      block_b: queries per thread block (one of ``BLOCK_B_CHOICES``); in
-        unpack mode rounded up to the 16 rows of an ``mma.sync`` tile
-        (4, 8 and 16 give 16-row blocks, 32 two m16 tiles).
+      block_b: rows of a query tile (one of ``BLOCK_B_CHOICES``): in
+        popcount mode a block of block_b / 4 warps; in unpack mode rounded
+        up to the 16 rows of an ``mma.sync`` tile (4, 8 and 16 give 16-row
+        blocks, 32 two m16 tiles).
       mode: "popcount" (XOR + popcount) or "unpack" (the ±1 dot, exact,
         on the int8 tensor cores).
 
@@ -143,17 +189,16 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     sim = torch.empty((b,), dtype=torch.float32, device=q_packed.device)
     if b == 0:
         return idx, sim
-    buf = (torch.empty((plan["scratch_bytes"],), dtype=torch.uint8,
-                       device=q_packed.device)
-           if plan["scratch_bytes"] else None)
+    stream = _build.stream_of(q_packed)
+    buf = fold_scratch(q_packed.device, stream, plan["scratch_bytes"])
     lib = _build.lib()
     with torch.cuda.device(q_packed.device):
         err = lib.am_search_packed_launch(
             q_packed.data_ptr(), am_packed_t.data_ptr(), idx.data_ptr(),
-            sim.data_ptr(), None if buf is None else buf.data_ptr(), b, dp,
+            sim.data_ptr(), buf.data_ptr(), b, dp,
             c, n_dims, block_b, MODES.index(mode), plan["rows"],
             plan["cols"], *plan["grid"], plan["smem"], plan["scratch_bytes"],
-            _build.stream_of(q_packed))
+            stream)
     _build.check(err, "am_search_packed")
     if mode == "unpack":
         am_search_packed.unpack_launches += 1

@@ -1,7 +1,8 @@
 // adc_tile.cuh: the per-array ADC and the tiled analog search shared by
-// am_search_imc.cu and am_search_multibit.cu: the slab close, the int8
-// tensor-core slab walk, the SIMT slab walk of the multi-bit fp32 route,
-// the convert pass, the launch plan and the first-wins fold.
+// am_search_imc.cu and am_search_multibit.cu (and, with one slab of D and
+// no ADC, by am_search.cu through search_pass.cuh): the slab close, the
+// int8 tensor-core slab walk, the SIMT slab walk of the multi-bit fp32
+// route, the convert pass, the launch plan and the first-wins fold.
 //
 // The AM is cut into (tile_rows x tile_cols) physical arrays. For every
 // (query, column) the K walk closes each tile_rows slab before it moves
@@ -182,7 +183,8 @@ __host__ __device__ inline long long align256(long long v) {
 }
 
 // The grid, the slab walk and the scratch of a search; the wrappers
-// (kernels/am_search_imc.py and am_search_multibit.py: launch_plan)
+// (kernels/am_search_imc.py, am_search_multibit.py and am_search.py:
+// launch_plan)
 // compute the same numbers and the launchers refuse any other. bm: the
 // block's queries; am_copy: the AM view is converted too (am_search_imc);
 // step: dims per k step of the fp32 route.

@@ -1,70 +1,73 @@
-// am_search: fp32 associative search over the unpacked ±1 AM with a
-// first-wins argmax.
+// am_search: associative search over the unpacked AM with a first-wins
+// argmax.
 //
-//   q     (B, D) float32  queries (±1, or float H when queries are not
-//                         binarized)
-//   am_t  (D, C) float32  ±1 transposed AM, element strides (sd, sc): the
-//                         transposed view of the resident (C, D) AM
-//   idx   (B,)   int32    winning centroid
-//   sim   (B,)   float32  its similarity q . am[:, idx]
+//   q        (B, D) float32  queries (±1, or float H when queries are not
+//                            binarized)
+//   am_t     (D, C) float32  the transposed AM, element strides (sd, sc):
+//                            the transposed view of the resident (C, D) AM
+//   idx      (B,) int32      winning centroid
+//   sim      (B,) float32    its similarity q . am[:, idx]
+//   routes   (2,) int32      in/out: +1 to [0] (int8 route) or [1] (fp32)
+//   scratch                  int8 copies, flags, keys and tickets (layout:
+//                            adc::Plan with one slab of D, mirrored by the
+//                            wrapper)
 //
 // Replaces the TPU kernel src/repro/kernels/am_search.py: am_search (a
 // (B/bB, C/128, D/128) Pallas grid accumulating 128x128 MXU products in
 // VMEM and carrying the running winner across C steps in scratch).
 //
-// Bound on the H100: operations. At B = C = D = 1024 it reads 8 MB but
-// does 2*B*C*D = 2.15 GFLOP of fp32 FMA, 32 us at the 67 TFLOP/s fp32 rate
-// outside the tensor cores (which TF32 would reach, but TF32 keeps 10
-// mantissa bits and float queries need all 24).
+// Bound on the H100. On the main path (unpacked serving) both operands
+// are ±1: the search is 2*B*C*D = 2.15 G-op of exact int8 tensor-core
+// work at B = C = D = 1024 (1.1 us at 1,979 TOP/s), and the 8 MB of float
+// operands bound it: 2.5 us at 3.35 TB/s. Float queries (H, not
+// binarized) need true fp32: 2.15 GFLOP at 67 TFLOP/s, 32 us (TF32 keeps
+// 10 mantissa bits; float queries need all 24).
 //
-// Design (sims_argmax.cuh): pass 1 gives each (64-query, 64-column) tile
-// its own block — 16 x 16 = 256 blocks at the main path's shape, where a
-// TPU-style "one block walks all C" would fill only 16 SMs — and writes
-// each row's tile winner to a (B, C/64) partial buffer; pass 2 folds the
-// partials per query in column-tile order. Nothing carries between blocks
-// and no atomics are used, so the result is deterministic.
-#include "sims_argmax.cuh"
+// Design: am_search_imc's two launches (search_pass.cuh) without its ADC:
+// the convert pass writes int8 copies of q and of the AM view with a flag
+// per 64 x 64 tile; the search pass (128-query x 64-column blocks of 256
+// threads, one wave at the main shape) takes, on the device, the same
+// route in every block:
+// * int8, when every value is an integer in [-127, 127] and
+//   max|q| * max|am| * D <= 2^24: mma.sync.m16n8k32 (s32) through a
+//   4-stage cp.async ring of 128-dim slabs, one slab of D, no close: the
+//   exact integer dot, which converts to the same float32 the plain
+//   version's sum gives;
+// * fp32 otherwise: the pipelined mainloop of sgemm_tile.cuh (binary_mvm's
+//   128 x 64 tile, one __fmaf_rn per term in increasing k, no TF32),
+//   reading the AM view k-major with no copy: over ±1 and dyadic queries
+//   every partial sum is exact, so the sims equal the plain version's.
+// Each block folds its rows into a 64-bit key per query (atomicMin:
+// larger sim, then lower index, in any block order), and the row tile's
+// last block writes (idx, sim): no partial buffer and no second fold.
+#include "search_pass.cuh"
 
-namespace {
-
-constexpr int TM = 4;  // queries per thread: 64-query tiles
-
-__global__ void __launch_bounds__(sims::TPB)
-am_search_partial(const float* __restrict__ q,
-                  const float* __restrict__ am_t, long long sd,
-                  long long sc, float* __restrict__ part_s,
-                  int* __restrict__ part_i, int B, int D, int C) {
-  __shared__ float qs[sims::BK][16 * TM + 1];
-  __shared__ float as[sims::BK][sims::BN + 1];
-  __shared__ float red_s[16 * TM * 16];
-  __shared__ int red_i[16 * TM * 16];
-  float acc[TM][sims::TN];
-  const int row0 = blockIdx.y * 16 * TM, col0 = blockIdx.x * sims::BN;
-  sims::tile<TM>(q, am_t, sd, sc, B, D, C, row0, col0, qs, as, acc);
-  sims::fold_tile<TM>(acc, row0, col0, B, C, sims::AnyColumn{}, red_s,
-                      red_i, part_s, part_i, gridDim.x, blockIdx.x);
-}
-
-}  // namespace
-
-// part_s / part_i: (B, ceil(C/64)) scratch from the caller. Returns the
-// cudaError_t of the launches (0 on success).
+// scratch: scratch_bytes bytes from the caller; routes: (2,) int32 route
+// counts. grid_x, grid_y, threads, smem, slabs, k_stages, k_steps,
+// conv_grid and scratch_bytes are the wrapper's launch plan
+// (kernels/am_search.py: launch_plan), refused (cudaErrorInvalidValue)
+// unless it is adc::Plan's for (B, D, C) with one slab of D and this
+// kernel's threads and shared memory. Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int am_search_launch(const void* q, const void* am_t,
-                                long long sd, long long sc, void* part_s,
-                                void* part_i, void* idx, void* sim, int B,
-                                int D, int C, void* stream) {
+                                long long sd, long long sc, void* scratch,
+                                long long scratch_bytes, void* routes,
+                                void* idx, void* sim, int B, int D, int C,
+                                int grid_x, int grid_y, int threads,
+                                int smem, int slabs, int k_stages,
+                                int k_steps, int conv_grid, void* stream) {
   if (B <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int n_ct = (C + sims::BN - 1) / sims::BN;
-  const int n_rt = (B + 16 * TM - 1) / (16 * TM);
-  if (n_rt > 65535) return (int)cudaErrorInvalidValue;
-  am_search_partial<<<dim3(n_ct, n_rt), sims::TPB, 0, s>>>(
+  if (C <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const adc::Plan pl(B, D, C, D, search_pass::BM, true,
+                     search_pass::FT::BK);
+  if (!search_pass::is_plan(pl, threads, smem, grid_x, grid_y, slabs,
+                            k_stages, k_steps, conv_grid, scratch_bytes))
+    return (int)cudaErrorInvalidValue;
+  // No readout: the ADC argument only feeds the route's identity test,
+  // which this search does not read.
+  return search_pass::launch<false>(
       static_cast<const float*>(q), static_cast<const float*>(am_t), sd, sc,
-      static_cast<float*>(part_s), static_cast<int*>(part_i), B, D, C);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sims::fold_rows<<<(B + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      n_ct, B, static_cast<int32_t*>(idx), static_cast<float*>(sim));
-  return (int)cudaGetLastError();
+      nullptr, scratch, pl, static_cast<int*>(routes),
+      static_cast<int32_t*>(idx), static_cast<float*>(sim), B, D, C, D,
+      adc::BN, adc::Adc(1.f, 1.f, nullptr, 1), (cudaStream_t)stream);
 }

@@ -7,9 +7,11 @@
 //   am_t  (Dp, C) uint8   packed transposed AM (column c = centroid c)
 //   idx   (B,)    int32   winning centroid
 //   sim   (B,)    float32 n_dims - 2 * popcount(q XOR am[:, idx])
-//   scratch               unpack mode: (B,) uint64 keys, then one ticket
-//                         word per query tile; the launcher fills it with
-//                         ones on the stream before the kernel runs
+//   scratch               both modes: (B,) uint64 keys, then one ticket
+//                         word per query tile, all ones when the kernel
+//                         starts, and left all ones when it ends (the
+//                         wrapper fills a buffer with ones once and
+//                         keeps it for its device and stream)
 //
 // Replaces the TPU kernel src/repro/kernels/am_search_packed.py:
 // am_search_packed, both modes (a (B/bB, C/128, Dp/16) Pallas grid doing
@@ -21,24 +23,45 @@
 // operands are 128 KB + 128 KB, and the search is, on ±1/0 operands exact
 // in int8, a 2*B*C*D = 2.1 G-op int8 product: 1.1 us at 1,979 TOP/s.
 // Counted as 32-bit popcounts instead (B*C*D/32 = 33.6 M __popc at 16 per
-// clock per SM) it is about 8 us.
+// clock per SM) it is about 8 us: popcount mode's floor.
 //
-// Popcount mode (am_search_packed_kernel):
-// * Popcount works on 32-bit words (__popc). Dp is zero-padded to a
-//   multiple of 4 bytes in BOTH operands while they are staged into shared
-//   memory: zero bytes XOR to zero, so the padding never counts, and
-//   D = 100 (Dp = 13) needs no host-side padding pass.
-// * A block owns BQ = 4 * QPT queries and walks ALL C columns in tiles of
-//   64; nothing carries between blocks, whose order is unknown. Each of
-//   the 256 threads owns one column of the tile and QPT queries, so one
-//   shared-memory AM word feeds QPT XOR+popc, and the query words are
-//   warp-wide broadcasts.
-// * Each thread visits its columns in increasing index and keeps its best
-//   with a strict '<' on the Hamming distance: first-wins, like the
-//   reference's strict '>' running compare. The fold across the 64
-//   column-threads of a query compares (hamming, idx) lexicographically,
-//   so an equal similarity goes to the lower index.
-// * Columns >= C are never visited, so padded columns can never win.
+// Popcount mode (popcount::search). What held the first version back
+// (0.0548 ms at the main shape): one block per block_b queries walked all
+// C columns alone (128 blocks at B = 1024, one wave of 8 warps an SM, 4
+// blocks at B = 32), each 64-column AM tile was staged byte by byte with
+// nothing in flight, and every thread did 1 + QPT shared loads per QPT
+// XOR + __popc. Now:
+// * Grid: (query tiles of block_b rows) x (column splits of 128 / ks
+//   columns). A warp owns 4 query rows of the tile (block_b / 4 warps a
+//   block) and all the split's columns; its lanes are laid out as
+//   (32 / ks column groups) x (ks lanes along K), ks = 1, 2, 4 or 8, the
+//   least that gives the launch a warp per SM sub-partition (4 x 132) where
+//   it can: ks = 1 at B = 1024 (128-column splits, 2,048 warps at every
+//   block_b), ks = 8 at B = 32 (16-column splits; 256 blocks at block_b 8).
+// * Register tile: each lane keeps 4 queries x 4 adjacent columns of
+//   Hamming sums in registers. Per 32-bit word of K it loads the 4 query
+//   words (warp-wide broadcasts) and one 32-bit word from each of the 4
+//   byte rows of the word (the 4 columns' bytes), turns those into the 4
+//   columns' words with 8 byte permutes (prmt), and does 16 XOR + __popc:
+//   8 shared loads feed 16 popcounts (the first version: 1 + QPT loads per
+//   QPT).
+// * Staging: both operands' packed bytes stream through a 4-stage
+//   cp.async ring of 32-byte k slabs (256 dims), three slabs ahead, one
+//   barrier a slab: 16-byte copies where Dp, C and the pointers allow,
+//   byte copies otherwise. Bytes past Dp are staged as 0 in BOTH operands
+//   (zero bytes XOR to zero), so Dp is zero-padded to whole 32-bit words
+//   and D = 100 (Dp = 13) needs no host-side padding pass. The AM slab's
+//   byte row 4w + k is stored at row k * 8 + w, so the ks lanes of a
+//   column group, which read different words w, hit distinct banks.
+// * Fold: the ks lanes of a tile add their partial sums with shuffles;
+//   each row's least key (hamming << 32) | idx over the lane's columns
+//   (columns >= C skipped), then over the warp's lanes, goes to the
+//   query's scratch key with a 64-bit atomicMin: the least key is the
+//   first-wins winner whatever the block order, ties across splits
+//   included. The query tile's last block to finish (a ticket word per
+//   tile) writes idx and sim = n_dims - 2 * hamming and restores the
+//   scratch to all ones (finish_tile), so no memset launch runs before
+//   the kernel.
 //
 // Unpack mode (am_search_packed_unpack_kernel). What held the SIMT version
 // back (0.31 ms at the main shape): one block per 8 queries walked all C
@@ -72,7 +95,7 @@
 //   a 64-bit atomicMin. The least key is the first-wins winner whatever
 //   the block order. The last block of a query tile to finish (a ticket
 //   word per tile) writes idx = key & 0xffffffff and
-//   sim = n_dims - 2 * hamming. (A fold over a thread block cluster
+//   sim = n_dims - 2 * hamming (finish_tile, shared with popcount mode). (A fold over a thread block cluster
 //   through distributed shared memory, with no scratch, ran slower on the
 //   H100: its barrier holds every split for the slowest.)
 #include <climits>
@@ -80,149 +103,12 @@
 #include <stdint.h>
 
 #include "mma_sync.cuh"
-#include "packed_topk.cuh"  // packed_word
 
 namespace {
 
-constexpr int TX = 64;  // AM columns per tile (threads across columns)
-constexpr int TY = 4;   // thread rows; a block has TX * TY = 256 threads
-
-// Fold each query's TX per-thread winners (hamming, idx)
-// lexicographically and write (idx, n_dims - 2 * hamming).
-template <int QPT>
-__device__ void emit_winners(const int (&best_ham)[QPT],
-                             const int (&best_idx)[QPT], int* red_ham,
-                             int* red_idx, int b0, int B, int n_dims,
-                             int32_t* __restrict__ out_idx,
-                             float* __restrict__ out_sim) {
-  constexpr int BQ = TY * QPT;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    red_ham[(ty + TY * j) * TX + tx] = best_ham[j];
-    red_idx[(ty + TY * j) * TX + tx] = best_idx[j];
-  }
-  __syncthreads();
-  if (tid < BQ) {
-    const int b = b0 + tid;
-    int bh = INT_MAX, bi = INT_MAX;
-    for (int t = 0; t < TX; ++t) {
-      const int h = red_ham[tid * TX + t], i = red_idx[tid * TX + t];
-      if (h < bh || (h == bh && i < bi)) {  // (sim, -idx) lexicographic
-        bh = h;
-        bi = i;
-      }
-    }
-    if (b < B) {
-      out_idx[b] = bi;
-      out_sim[b] = (float)(n_dims - 2 * bh);
-    }
-  }
-}
-
-template <int QPT>
-__global__ void __launch_bounds__(TX * TY)
-am_search_packed_kernel(const uint8_t* __restrict__ q,
-                        const uint8_t* __restrict__ am_t,
-                        int32_t* __restrict__ out_idx,
-                        float* __restrict__ out_sim, int B, int Dp, int C,
-                        int n_dims) {
-  constexpr int BQ = TY * QPT;
-  constexpr int NT = TX * TY;
-  extern __shared__ uint32_t smem[];
-  const int Dw = (Dp + 3) / 4;
-  uint32_t* qs = smem;                       // [BQ][Dw]
-  uint32_t* as = qs + BQ * Dw;               // [Dw][TX]
-  int* red_ham = (int*)(as + Dw * TX);       // [BQ][TX]
-  int* red_idx = red_ham + BQ * TX;          // [BQ][TX]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int b0 = blockIdx.x * BQ;
-
-  // Stage this block's queries as zero-padded little-endian words.
-  for (int e = tid; e < BQ * Dw; e += NT) {
-    const int r = e / Dw, w = e % Dw, b = b0 + r;
-    qs[e] = b < B ? packed_topk::packed_word(q + (size_t)b * Dp, 1, w, Dp)
-                  : 0u;
-  }
-
-  int best_ham[QPT], best_idx[QPT];
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    best_ham[j] = INT_MAX;
-    best_idx[j] = INT_MAX;
-  }
-
-  for (int c0 = 0; c0 < C; c0 += TX) {
-    __syncthreads();  // the previous tile is consumed; qs is visible
-    for (int e = tid; e < Dw * TX; e += NT) {
-      const int w = e / TX, cc = e % TX, c = c0 + cc;
-      as[e] = c < C ? packed_topk::packed_word(am_t + c, (size_t)C, w, Dp)
-                    : 0u;
-    }
-    __syncthreads();
-    const int c = c0 + tx;
-    if (c < C) {
-      int ham[QPT];
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) ham[j] = 0;
-      for (int w = 0; w < Dw; ++w) {
-        const uint32_t a = as[w * TX + tx];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j)
-          ham[j] += __popc(a ^ qs[(ty + TY * j) * Dw + w]);
-      }
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) {
-        if (ham[j] < best_ham[j]) {  // strict: the first column wins ties
-          best_ham[j] = ham[j];
-          best_idx[j] = c;
-        }
-      }
-    }
-  }
-
-  emit_winners<QPT>(best_ham, best_idx, red_ham, red_idx, b0, B, n_dims,
-                    out_idx, out_sim);
-}
-
-
-namespace unpack {
-
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BN = 128;           // columns per block: 4 n8 tiles a warp
-constexpr int NI = BN / WARPS / 8;
-constexpr int SLAB = 32;          // packed bytes (256 dims) per k slab
-constexpr int STAGES = 4;
-// Shared row strides, multiples of 16 bytes for cp.async; a warp's byte
-// reads then fall in distinct banks (query rows 12 words apart, AM rows
-// 36).
-constexpr int QSTR = 48;
-constexpr int ASTR = BN + 16;
+constexpr int SLAB = 32;    // packed bytes (256 dims) per k slab, both modes
+constexpr int STAGES = 4;   // ring stages, both modes
 constexpr unsigned FULL = 0xffffffffu;
-
-template <int MI>
-struct Smem {
-  uint8_t q[STAGES][16 * MI * QSTR];  // query rows x slab bytes
-  uint8_t a[STAGES][SLAB * ASTR];     // slab bytes x the block's columns
-  unsigned long long red[WARPS][16 * MI];
-  int pop[WARPS][16 * MI];            // the warps' shares of P a row
-  int last;
-};
-
-// Bits 0-3 of x (< 16) -> bytes 0-3, each 0 or 1.
-__device__ __forceinline__ uint32_t spread(uint32_t x) {
-  return (x * 0x00204081u) & 0x01010101u;
-}
-// ... -> bytes of -1 (bit 0) or +1 (bit 1).
-__device__ __forceinline__ uint32_t plus_minus(uint32_t x) {
-  return ~(spread(x) * 0xfeu);
-}
 
 // Copy 16 bytes to shared memory, zero where !ok: cp.async when the
 // source is 16-byte aligned (vec), else byte by byte. n limits the byte
@@ -235,6 +121,243 @@ __device__ __forceinline__ void stage16(uint8_t* dst, const uint8_t* src,
 #pragma unroll
     for (int i = 0; i < 16; ++i) dst[i] = ok && i < n ? src[i] : 0;
   }
+}
+
+// The end of both modes' fold, after the block's atomicMins: the query
+// tile's last block to finish (tickets start at ~0: the first block draws
+// 0) writes each of its rows' winner from the key (hamming << 32) | idx,
+// and puts the rows' keys and the tile's ticket back to ~0, so the
+// scratch is ready for the next launch on the stream with no memset.
+// last: a shared int of the block.
+__device__ __forceinline__ void finish_tile(
+    unsigned long long* __restrict__ keys, unsigned* __restrict__ tickets,
+    int b0, int rows, int B, int n_dims, int32_t* __restrict__ out_idx,
+    float* __restrict__ out_sim, int* last) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *last = atomicAdd(&tickets[blockIdx.x], 1u) + 1u == gridDim.y - 1u;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < rows && b0 + i < B; i += blockDim.x) {
+    const unsigned long long key =
+        *reinterpret_cast<volatile unsigned long long*>(&keys[b0 + i]);
+    out_idx[b0 + i] = (int32_t)(key & 0xffffffffu);
+    out_sim[b0 + i] = (float)(n_dims - 2 * (int)(key >> 32));
+    keys[b0 + i] = ~0ull;
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = ~0u;
+}
+
+// The fold's scratch is (B,) uint64 keys, then a ticket word per query
+// tile, scratch_bytes of it, all ones (a key of ~0 loses to any
+// column's).
+inline bool scratch_is(const void* scratch, long long scratch_bytes, int B,
+                       int tiles) {
+  return scratch != nullptr && scratch_bytes == 8LL * B + 4LL * tiles;
+}
+
+namespace popcount {
+
+constexpr int QT = 4, CT = 4;     // a lane's queries x columns
+constexpr int KW = SLAB / 4;      // 32-bit words of a slab
+constexpr int COLS = 128;         // columns of a split at ks = 1
+constexpr int MAX_KS = 8;         // lanes along K, at most
+constexpr long long FILL_WARPS = 4 * 132;  // a warp per H100 SM sub-partition
+
+// Lanes along K of the launch for block_b = rows: the least of 1, 2, 4, 8
+// that gives FILL_WARPS warps, else 8 (kernels/am_search_packed.py:
+// _k_split mirrors it).
+inline int k_split(int B, int C, int rows) {
+  const long long tiles = (B + rows - 1) / rows, warps = rows / QT;
+  int ks = 1;
+  while (ks < MAX_KS &&
+         tiles * ((C + COLS / ks - 1) / (COLS / ks)) * warps < FILL_WARPS)
+    ks *= 2;
+  return ks;
+}
+
+// Dynamic shared memory: the ring's query rows (rows x SLAB bytes a
+// stage), then its AM slabs (SLAB byte rows x the split's columns).
+inline int smem_bytes(int rows, int ks) {
+  return STAGES * (rows * SLAB + SLAB * (COLS / ks));
+}
+
+template <int KS>
+__global__ void __launch_bounds__(256)
+search(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
+       unsigned long long* __restrict__ keys, unsigned* __restrict__ tickets,
+       int32_t* __restrict__ out_idx, float* __restrict__ out_sim, int B,
+       int Dp, int C, int n_dims, bool q_vec, bool a_vec) {
+  constexpr int BN = COLS / KS;   // the split's columns
+  constexpr int CG = 32 / KS;     // column groups of CT: BN / 4 words a row
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, rows = nt / 32 * QT;
+  const int ks = lane % KS, cg = lane / KS;
+  const int b0 = blockIdx.x * rows, c0 = blockIdx.y * BN;
+  const int n_slabs = (Dp + SLAB - 1) / SLAB;
+  uint8_t* qring = smem;                          // [STAGES][rows][SLAB]
+  uint8_t* aring = smem + STAGES * rows * SLAB;   // [STAGES][SLAB][BN]
+
+  auto load = [&](int t, int st) {
+    const int kb = t * SLAB;
+    uint8_t* qd = qring + st * rows * SLAB;
+    for (int e = tid; e < rows * 2; e += nt) {
+      const int r = e >> 1, h = e & 1, byte = kb + 16 * h, b = b0 + r;
+      const bool ok = b < B && byte < Dp;
+      stage16(qd + r * SLAB + 16 * h, ok ? q + (size_t)b * Dp + byte : q,
+              ok, Dp - byte, q_vec);
+    }
+    uint8_t* ad = aring + st * SLAB * BN;
+    for (int e = tid; e < SLAB * (BN / 16); e += nt) {
+      const int r = e / (BN / 16), ch = e % (BN / 16);
+      const int byte = kb + r, c = c0 + 16 * ch;
+      const bool ok = byte < Dp && c < C;
+      // byte row 4w + k of the slab at row k * KW + w
+      stage16(ad + ((r & 3) * KW + (r >> 2)) * BN + 16 * ch,
+              ok ? am_t + (size_t)byte * C + c : am_t, ok, C - c, a_vec);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_slabs) load(t, t);
+    mma::cp_async_commit();
+  }
+
+  int ham[QT][CT];
+#pragma unroll
+  for (int i = 0; i < QT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) ham[i][j] = 0;
+  for (int t = 0; t < n_slabs; ++t) {
+    mma::cp_async_wait<STAGES - 2>();  // slab t landed (this thread's)
+    __syncthreads();  // ... everyone's copies; slab t-1's stage is free
+    if (t + STAGES - 1 < n_slabs)
+      load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    mma::cp_async_commit();
+    const uint32_t* qs =
+        reinterpret_cast<const uint32_t*>(qring + (t % STAGES) * rows * SLAB)
+        + warp * QT * KW;
+    const uint32_t* as =
+        reinterpret_cast<const uint32_t*>(aring + (t % STAGES) * SLAB * BN)
+        + cg;
+#pragma unroll
+    for (int j = 0; j < KW / KS; ++j) {
+      const int w = j * KS + ks;
+      uint32_t x[QT], r[4], a[CT];
+#pragma unroll
+      for (int i = 0; i < QT; ++i) x[i] = qs[i * KW + w];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) r[k] = as[(k * KW + w) * CG];
+      // r[k] holds byte k of the 4 columns' words: transpose the 4 x 4
+      // bytes, so a[c] is column c's word (byte k from r[k]).
+      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+      const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+      const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+      const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+      a[0] = __byte_perm(t0, t1, 0x5410);
+      a[1] = __byte_perm(t0, t1, 0x7632);
+      a[2] = __byte_perm(t2, t3, 0x5410);
+      a[3] = __byte_perm(t2, t3, 0x7632);
+#pragma unroll
+      for (int i = 0; i < QT; ++i)
+#pragma unroll
+        for (int c = 0; c < CT; ++c) ham[i][c] += __popc(x[i] ^ a[c]);
+    }
+  }
+  mma::cp_async_wait<0>();
+
+  // The ks lanes of a tile hold partial sums over their words.
+#pragma unroll
+  for (int o = 1; o < KS; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < QT; ++i)
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+        ham[i][c] += __shfl_xor_sync(FULL, ham[i][c], o);
+  // Each row's least key over the lane's columns, then the warp's.
+#pragma unroll
+  for (int i = 0; i < QT; ++i) {
+    unsigned long long best = ~0ull;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      const int col = c0 + CT * cg + c;
+      const unsigned long long key =
+          (unsigned long long)ham[i][c] << 32 | (unsigned)col;
+      if (col < C && key < best) best = key;
+    }
+#pragma unroll
+    for (int o = KS; o < 32; o <<= 1)
+      best = min(best, __shfl_xor_sync(FULL, best, o));
+    const int b = b0 + QT * warp + i;
+    if (lane == 0 && b < B) atomicMin(&keys[b], best);  // c0 < C: a column's
+  }
+  finish_tile(keys, tickets, b0, rows, B, n_dims, out_idx, out_sim, &s_last);
+}
+
+int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
+           void* sim, int B, int Dp, int C, int n_dims, int rows, int cols,
+           int grid_x, int grid_y, int smem, long long scratch_bytes,
+           cudaStream_t stream) {
+  const int ks = k_split(B, C, rows), bn = COLS / ks;
+  const int tiles = (B + rows - 1) / rows;
+  if (cols != bn || grid_x != tiles || grid_y != (C + bn - 1) / bn ||
+      smem != smem_bytes(rows, ks) ||
+      !scratch_is(scratch, scratch_bytes, B, tiles) || grid_y > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto* keys = static_cast<unsigned long long*>(scratch);
+  auto* tickets = reinterpret_cast<unsigned*>(keys + B);
+  const bool q_vec = Dp % 16 == 0 && (uintptr_t)q % 16 == 0;
+  const bool a_vec = C % 16 == 0 && (uintptr_t)am_t % 16 == 0;
+  const dim3 grid(grid_x, grid_y);
+  const int threads = 32 * (rows / QT);
+#define POPCOUNT(KS)                                                        \
+  search<KS><<<grid, threads, smem, stream>>>(                              \
+      q, am_t, keys, tickets, static_cast<int32_t*>(idx),                   \
+      static_cast<float*>(sim), B, Dp, C, n_dims, q_vec, a_vec)
+  switch (ks) {
+    case 1: POPCOUNT(1); break;
+    case 2: POPCOUNT(2); break;
+    case 4: POPCOUNT(4); break;
+    default: POPCOUNT(8); break;
+  }
+#undef POPCOUNT
+  return (int)cudaGetLastError();
+}
+
+}  // namespace popcount
+
+namespace unpack {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BN = 128;           // columns per block: 4 n8 tiles a warp
+constexpr int NI = BN / WARPS / 8;
+// Shared row strides, multiples of 16 bytes for cp.async; a warp's byte
+// reads then fall in distinct banks (query rows 12 words apart, AM rows
+// 36).
+constexpr int QSTR = 48;
+constexpr int ASTR = BN + 16;
+
+template <int MI>
+struct Smem {
+  uint8_t q[STAGES][16 * MI * QSTR];  // query rows x slab bytes
+  uint8_t a[STAGES][SLAB * ASTR];     // slab bytes x the block's columns
+  unsigned long long red[WARPS][16 * MI];
+  int pop[WARPS][16 * MI];            // the warps' shares of P a row
+  int last;                           // finish_tile's flag
+};
+
+// Bits 0-3 of x (< 16) -> bytes 0-3, each 0 or 1.
+__device__ __forceinline__ uint32_t spread(uint32_t x) {
+  return (x * 0x00204081u) & 0x01010101u;
+}
+// ... -> bytes of -1 (bit 0) or +1 (bit 1).
+__device__ __forceinline__ uint32_t plus_minus(uint32_t x) {
+  return ~(spread(x) * 0xfeu);
 }
 
 template <int MI>
@@ -384,19 +507,8 @@ am_search_packed_unpack_kernel(const uint8_t* __restrict__ q,
     atomicMin(&keys[b0 + tid],
               key - ((unsigned long long)(OFS - p) << 32));
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)  // tickets start at ~0: the first block draws 0
-    sm.last = atomicAdd(&tickets[blockIdx.x], 1u) + 1u == gridDim.y - 1u;
-  __syncthreads();
-  if (!sm.last) return;
-  __threadfence();
-  if (tid < BM && b0 + tid < B) {
-    const unsigned long long key =
-        *reinterpret_cast<volatile unsigned long long*>(&keys[b0 + tid]);
-    out_idx[b0 + tid] = (int32_t)(key & 0xffffffffu);
-    out_sim[b0 + tid] = (float)(n_dims - 2 * (int)(key >> 32));
-  }
+  finish_tile(keys, tickets, b0, BM, B, n_dims, out_idx, out_sim,
+              &sm.last);
 }
 
 template <int MI>
@@ -405,14 +517,10 @@ int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
            int grid_x, int grid_y, int smem, long long scratch_bytes,
            cudaStream_t stream) {
   const int tiles = (B + 16 * MI - 1) / (16 * MI);
-  const long long want_scratch = 8LL * B + 4LL * tiles;
   if (cols != BN || grid_x != tiles || grid_y != (C + BN - 1) / BN ||
-      smem != (int)sizeof(Smem<MI>) || scratch_bytes != want_scratch ||
-      scratch == nullptr || grid_y > 65535)
+      smem != (int)sizeof(Smem<MI>) ||
+      !scratch_is(scratch, scratch_bytes, B, tiles) || grid_y > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e =
-      cudaMemsetAsync(scratch, 0xff, (size_t)want_scratch, stream);
-  if (e != cudaSuccess) return (int)e;
   auto* keys = static_cast<unsigned long long*>(scratch);
   auto* tickets = reinterpret_cast<unsigned*>(keys + B);
   const bool q_vec = Dp % 16 == 0 && (uintptr_t)q % 16 == 0;
@@ -426,53 +534,31 @@ int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
 
 }  // namespace unpack
 
-template <int QPT>
-int launch_popcount(const void* q, const void* am_t, void* idx, void* sim,
-                    int B, int Dp, int C, int n_dims, int cols, int grid_x,
-                    int grid_y, int smem, long long scratch_bytes,
-                    cudaStream_t stream) {
-  constexpr int BQ = TY * QPT;
-  const long long dw = (Dp + 3) / 4;
-  const long long want = 4 * (BQ * dw + dw * TX + 2LL * BQ * TX);
-  if (cols != C || grid_x != (B + BQ - 1) / BQ || grid_y != 1 ||
-      smem != want || scratch_bytes != 0)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = am_search_packed_kernel<QPT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<grid_x, TX * TY, smem, stream>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(am_t),
-      static_cast<int32_t*>(idx), static_cast<float*>(sim), B, Dp, C,
-      n_dims);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace
 
-// block_b (queries per block: 4, 8, 16 or 32) selects the instantiation;
-// mode 0 is popcount, 1 unpack. rows, cols, grid_x, grid_y, smem and
-// scratch_bytes are the wrapper's launch plan (kernels/am_search_packed.py
-// launch_plan), refused (cudaErrorInvalidValue) unless it is this
-// launcher's own for (B, Dp, C, block_b, mode): popcount, block_b rows by
-// all C columns, ceil(B / block_b) blocks, no scratch; unpack, max(16,
-// block_b) rows by 128 columns, a (query tiles, column splits) grid, the
-// static Smem and 8 B + 4 per query tile of scratch. Returns the
-// cudaError_t of the launch (0 on success).
+// block_b (4, 8, 16 or 32) is the rows of a query tile; mode 0 is
+// popcount, 1 unpack. rows, cols, grid_x, grid_y, smem and scratch_bytes
+// are the wrapper's launch plan (kernels/am_search_packed.py launch_plan),
+// refused (cudaErrorInvalidValue) unless it is this launcher's own for
+// (B, Dp, C, block_b, mode): popcount, block_b rows by 128 / ks columns
+// (popcount::k_split), a (query tiles, column splits) grid and the ring's
+// dynamic shared memory; unpack, max(16, block_b) rows by 128 columns, a
+// (query tiles, column splits) grid and the static Smem; both, 8 B + 4 per
+// query tile of scratch. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int am_search_packed_launch(
     const void* q, const void* am_t, void* idx, void* sim, void* scratch,
     int B, int Dp, int C, int n_dims, int block_b, int mode, int rows,
     int cols, int grid_x, int grid_y, int smem, long long scratch_bytes,
     void* stream) {
   if (B <= 0) return 0;
+  if (block_b != 4 && block_b != 8 && block_b != 16 && block_b != 32)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* qb = static_cast<const uint8_t*>(q);
   const auto* ab = static_cast<const uint8_t*>(am_t);
   if (mode == 1) {
-    if (block_b != 4 && block_b != 8 && block_b != 16 && block_b != 32)
-      return (int)cudaErrorInvalidValue;
     if (block_b == 32)
       return rows == 32 ? unpack::launch<2>(qb, ab, scratch, idx, sim, B, Dp,
                                             C, n_dims, cols, grid_x, grid_y,
@@ -484,15 +570,6 @@ extern "C" int am_search_packed_launch(
                       : (int)cudaErrorInvalidValue;
   }
   if (mode != 0 || rows != block_b) return (int)cudaErrorInvalidValue;
-#define POPCOUNT(QPT)                                                       \
-  launch_popcount<QPT>(q, am_t, idx, sim, B, Dp, C, n_dims, cols, grid_x,  \
-                       grid_y, smem, scratch_bytes, s)
-  switch (block_b) {
-    case 4: return POPCOUNT(1);
-    case 8: return POPCOUNT(2);
-    case 16: return POPCOUNT(4);
-    case 32: return POPCOUNT(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef POPCOUNT
+  return popcount::launch(qb, ab, scratch, idx, sim, B, Dp, C, n_dims, rows,
+                          cols, grid_x, grid_y, smem, scratch_bytes, s);
 }

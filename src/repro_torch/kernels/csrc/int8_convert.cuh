@@ -1,6 +1,6 @@
 // int8_convert.cuh: the convert tile of the passes that pick an exact int8
 // tensor-core route on the device (qail_update.cu, am_search_imc.cu,
-// am_search_multibit.cu). A 64 x 64 tile of a float32 operand becomes int8
+// am_search_multibit.cu, am_search.cu). A 64 x 64 tile of a float32 operand becomes int8
 // rows, and one flag word says whether every value of the tile is an
 // integer in [-127, 127] and, if so, the largest |value|: the search pass
 // reads the flags of all tiles and takes the int8 route only when the

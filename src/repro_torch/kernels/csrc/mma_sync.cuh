@@ -1,6 +1,7 @@
 // mma_sync.cuh: the warp-level tensor-core and async-copy primitives that
 // qail_update.cu, ssd_chunk.cu, flash_decode.cu, am_search_packed.cu,
-// am_search_sparse.cu, am_search_imc.cu and am_search_multibit.cu share:
+// am_search_sparse.cu, am_search_imc.cu, am_search.cu and
+// am_search_multibit.cu share:
 // 16-byte cp.async copies into shared memory (with a zero-fill form for
 // rows past an operand's end), ldmatrix, and mma.sync in int8 (m16n8k32,
 // s8 x s8 or s8 x u8, s32 accumulate: exact), in

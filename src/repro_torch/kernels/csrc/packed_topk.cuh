@@ -1,5 +1,5 @@
-// packed_topk.cuh: the packed-word loader (shared with am_search_packed.cu)
-// and the exact top-k search of the hierarchical kernels: topk_kernel
+// packed_topk.cuh: the packed-word loader and the exact top-k search of
+// the hierarchical kernels: topk_kernel
 // (am_shortlist.cu), and its key layout and selection (select_topk), which
 // am_search_sparse.cu's tile kernel shares.
 //

@@ -1,12 +1,12 @@
 // sgemm_tile.cuh: the true-fp32 product mainloop shared by binary_mvm.cu,
-// encode_pack.cu and am_search_imc.cu.
+// encode_pack.cu, am_search_imc.cu and am_search.cu (search_pass.cuh).
 //
 // Computes one BM x BN tile of H = x @ w, x (B, K) and w (K, N) row major,
 // for the TPU kernels src/repro/kernels/binary_mvm.py: binary_mvm and
 // src/repro/kernels/encode_fused.py: encode_pack (128 x 128 MXU tiles
 // accumulating across K in VMEM); and, with w read k-major and the K walk
-// cut into ADC slabs (tile_k_slabs, at the end), am_search_imc's fp32
-// route.
+// cut into ADC slabs (tile_k_slabs, at the end), the fp32 route of
+// am_search_imc and (one slab of D) am_search.
 //
 // Bound on the H100: operations. 2*B*K*N fp32 FMA terms at 67 TFLOP/s
 // (1.64 GFLOP, 24.5 us at B = 1024, K = 784, N = 1024), against 10.4 MB of
@@ -241,7 +241,7 @@ inline bool vec_ok(const void* x, const void* w, int K, int N) {
          (((uintptr_t)x | (uintptr_t)w) & 15) == 0;
 }
 
-// -- k-major B with slab closes (am_search_imc.cu's fp32 route) -------------
+// -- k-major B with slab closes (search_pass.cuh's fp32 route) -------------
 //
 // Here w is read as N rows of K: element (k, n) at w[n * sn + k * sk],
 // the transposed view of a (C, D) AM (sk = 1, sn = D) with no copy. Both

@@ -1,6 +1,6 @@
-// sims_argmax.cuh: the fp32 similarity tile and the first-wins argmax
-// fold shared by am_search.cu, qail_update.cu and (through adc_tile.cuh)
-// am_search_imc.cu and am_search_multibit.cu.
+// sims_argmax.cuh: the SIMT fp32 similarity tile and the first-wins
+// comparison shared by qail_update.cu and (through adc_tile.cuh)
+// am_search_multibit.cu's fp32 route and the ADC searches' fold.
 //
 // A block of 256 threads (16 x 16) computes one (16*TM) x 64 tile of
 // sims = q @ am_t: thread (ty, tx) owns queries row0 + ty*TM + i (i < TM)
@@ -10,13 +10,10 @@
 // exact float32, so the tile equals torch's q @ am_t bit for bit. No TF32
 // and no tensor cores: queries may be float H.
 //
-// The fold writes, for every query row of the tile, the best (sim, idx)
-// among the tile's eligible columns to a (B, n_ct) partial buffer; a
-// second pass folds the partials across column tiles. Both folds compare
-// (sim, idx) lexicographically — a larger sim wins, an equal sim goes to
-// the lower index — so the winner is the first maximal column, as
-// torch.argmax and the TPU kernels' strict '>' running compare give.
-// Columns >= C are never eligible, so padding can never win.
+// better() compares (sim, idx) lexicographically — a larger sim wins, an
+// equal sim goes to the lower index — so a fold of it keeps the first
+// maximal column, as torch.argmax and the TPU kernels' strict '>' running
+// compare give.
 #pragma once
 
 #include <climits>
@@ -114,100 +111,5 @@ __device__ void tile(const float* __restrict__ q,
   accumulate<TM>(q, B, D, C, row0, col0, 0, D, StridedAm{am_t, sd, sc}, qs,
                  as, acc);
 }
-
-// Every column is eligible (am_search, Eq. 4).
-struct AnyColumn {
-  __device__ bool operator()(int, int) const { return true; }
-};
-
-// Columns owned by the row's label (Eq. 5): owners (C,), labels (B,).
-struct OwnedColumn {
-  const int32_t* owners;
-  const int32_t* labels;
-  __device__ bool operator()(int row, int col) const {
-    return owners[col] == labels[row];
-  }
-};
-
-// Fold the tile's eligible columns into part_s/part_i[row * n_ct + ct].
-// A row with no eligible column writes (-inf, INT_MAX). red_s/red_i hold
-// 16*TM*16 entries each; the trailing barrier lets a second fold reuse them.
-template <int TM, class Eligible>
-__device__ void fold_tile(const float (&acc)[TM][TN], int row0, int col0,
-                          int B, int C, Eligible ok, float* red_s,
-                          int* red_i, float* __restrict__ part_s,
-                          int* __restrict__ part_i, int n_ct, int ct) {
-  constexpr int BM = 16 * TM;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty * TM + i;
-    float bs = -INFINITY;
-    int bi = INT_MAX;
-    if (row0 + r < B) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {  // this thread's columns, ascending
-        const int c = col0 + tx + 16 * j;
-        if (c < C && ok(row0 + r, c) && better(acc[i][j], c, bs, bi)) {
-          bs = acc[i][j];
-          bi = c;
-        }
-      }
-    }
-    red_s[r * 16 + tx] = bs;
-    red_i[r * 16 + tx] = bi;
-  }
-  __syncthreads();
-  if (tid < BM && row0 + tid < B) {
-    float bs = -INFINITY;
-    int bi = INT_MAX;
-    for (int t = 0; t < 16; ++t) {
-      const float s = red_s[tid * 16 + t];
-      const int i = red_i[tid * 16 + t];
-      if (better(s, i, bs, bi)) {
-        bs = s;
-        bi = i;
-      }
-    }
-    part_s[(size_t)(row0 + tid) * n_ct + ct] = bs;
-    part_i[(size_t)(row0 + tid) * n_ct + ct] = bi;
-  }
-  __syncthreads();
-}
-
-// Fold one row's n_ct partials, in column-tile order.
-__device__ __forceinline__ void fold_partials(const float* __restrict__ ps,
-                                              const int* __restrict__ pi,
-                                              int n_ct, int row, float& bs,
-                                              int& bi) {
-  bs = -INFINITY;
-  bi = INT_MAX;
-  for (int ct = 0; ct < n_ct; ++ct) {
-    const float s = ps[(size_t)row * n_ct + ct];
-    const int i = pi[(size_t)row * n_ct + ct];
-    if (better(s, i, bs, bi)) {
-      bs = s;
-      bi = i;
-    }
-  }
-}
-
-// One thread per query: fold its n_ct partials into (idx, sim). Internal
-// linkage, so every source that includes this header has its own copy.
-namespace {
-__global__ void fold_rows(const float* __restrict__ part_s,
-                          const int* __restrict__ part_i, int n_ct, int B,
-                          int32_t* __restrict__ out_idx,
-                          float* __restrict__ out_sim) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float bs;
-  int bi;
-  fold_partials(part_s, part_i, n_ct, b, bs, bi);
-  out_idx[b] = bi;
-  out_sim[b] = bs;
-}
-}  // namespace
 
 }  // namespace sims

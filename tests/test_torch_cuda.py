@@ -145,19 +145,122 @@ def test_unpack_mode_ties_across_column_splits(dev, block_b):
     assert torch.equal(got[:40], want)
 
 
+def test_packed_fold_scratch_is_left_all_ones(dev):
+    """Both modes leave the stream's fold scratch (keys, tickets) all ones,
+    so launches of any B, block_b and mode in a row, with no memset
+    between them, each equal the plain version."""
+    rng = np.random.default_rng(19)
+    am_t = ref.pack_rows(bipolar(rng, (300, 200), dev)).T.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b, block_b, mode in ((70, 8, "popcount"), (1, 32, "unpack"),
+                             (300, 4, "popcount"), (33, 16, "unpack"),
+                             (1, 8, "popcount"), (300, 32, "popcount")):
+        q = ref.pack_rows(bipolar(rng, (b, 200), dev))
+        got = asp.am_search_packed(q, am_t, n_dims=200, block_b=block_b,
+                                   mode=mode)
+        want = ref.am_search_packed(q, am_t, 200)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        buf = asp.fold_scratch(dev, stream, 0)
+        assert bool((buf == 255).all())
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
+def test_popcount_ties_across_column_splits_at_a_served_batch(dev, b,
+                                                              block_b):
+    """B = 1 and B = 32 (a served request), where popcount mode splits C
+    into 16-column splits over 8 lanes along K: exact copies of a query in
+    several splits, the lowest index wins wherever it lies; both modes
+    equal the plain version."""
+    rng = np.random.default_rng([20, b, block_b])
+    d, c = 1024, 1024
+    assert asp.launch_plan(b, d // 8, c, block_b, "popcount")["cols"] == 16
+    am = bipolar(rng, (c, d), dev)
+    q = bipolar(rng, (b, d), dev)
+    i = torch.arange(b, device=dev)
+    win = 130 + 3 * i
+    for cols in (win, win + 470, win + 640):
+        am[cols] = q
+    early = i[i % 2 == 0]
+    am[1 + 3 * early] = q[early]  # rows with an even index: split 0 wins
+    got, _ = unpack_equal_three_ways(ref.pack_rows(q),
+                                     ref.pack_rows(am).T.contiguous(), d,
+                                     block_b)
+    want = torch.where(i % 2 == 0, 1 + 3 * i, win).to(torch.int32)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("b,f,d,c", GEOMS)
 def test_am_search_with_ties_and_views(dev, b, f, d, c):
+    """±1 queries take the int8 route and dyadic float queries the fp32
+    route (one count per call); both equal the plain version bit for bit,
+    ties (duplicated columns) included, through the transposed view of the
+    resident AM and through a contiguous (D, C) copy."""
     rng = np.random.default_rng([6, b, f, d, c])
     am = bipolar(rng, (c, d), dev)
     for a in (am, am[torch.arange(c, device=dev) % max(1, c // 3)]):
         # ±1 and dyadic float queries: exact sums, so bit-equal.
-        for q in (bipolar(rng, (b, d), dev),
-                  feats(rng, (b, d), dev, dyadic=True) - 0.5):
+        for q, route in ((bipolar(rng, (b, d), dev), "int8"),
+                         (feats(rng, (b, d), dev, dyadic=True) - 0.5,
+                          "fp32")):
             want = ref.am_search(q, a.T)
+            assert am_search.int8_route(q, a.T) == (route == "int8")
             for am_t in (a.T, a.T.contiguous()):  # a view and a copy
+                am_search.reset_routes()
                 got = am_search.am_search(q, am_t)
                 assert torch.equal(got[0], want[0])
                 assert torch.equal(got[1], want[1])
+                counts = {"int8": 0, "fp32": 0}
+                counts[route] = 1
+                assert am_search.route_counts() == counts
+
+
+def test_am_search_misaligned_queries_and_unsafe_sums(dev):
+    """A query view 4 bytes off a 16-byte boundary takes 4-byte copies on
+    the fp32 route and the int8 route's convert pass its transposing
+    path; integer operands whose dot could pass 2^24 (127 * 127 * 1100
+    dims) take the fp32 route; all equal the plain version."""
+    rng = np.random.default_rng(42)
+    b, d, c = 7, 1100, 90
+    base = torch.as_tensor(rng.choice([-1.0, 1.0], b * d + 1)
+                           .astype(np.float32), device=dev)
+    q = base[1:].view(b, d)
+    am = bipolar(rng, (c, d), dev)
+    half = 0.5 * q
+    for qq, a, route in ((q, am, "int8"), (half, am, "fp32"),
+                         (127 * q.contiguous(), 127 * am, "fp32")):
+        assert am_search.int8_route(qq, a.T) == (route == "int8")
+        am_search.reset_routes()
+        got = am_search.am_search(qq, a.T)
+        want = ref.am_search(qq, a.T)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        counts = {"int8": 0, "fp32": 0}
+        counts[route] = 1
+        assert am_search.route_counts() == counts
+
+
+@pytest.mark.parametrize("field,delta", [
+    ("grid", (1, 0)), ("grid", (0, 1)), ("threads", 32), ("smem", 16),
+    ("slabs", 1), ("k_stages", 1), ("k_steps", 1), ("conv_grid", 1),
+    ("scratch_bytes", 256)])
+def test_am_search_launcher_refuses_another_plan(dev, monkeypatch, field,
+                                                 delta):
+    """The launcher takes the wrapper's launch_plan and refuses one that is
+    not its own grid, threads, shared memory, slab walk (one slab of D),
+    convert grid or scratch."""
+    rng = np.random.default_rng(44)
+    q = bipolar(rng, (70, 200), dev)
+    am = bipolar(rng, (130, 200), dev)
+    am_search.am_search(q, am.T)  # the plan as computed
+    plan = am_search.launch_plan(70, 200, 130)
+    bad = dict(plan)
+    if field == "grid":
+        bad["grid"] = tuple(v + dv for v, dv in zip(plan["grid"], delta))
+    else:
+        bad[field] = plan[field] + delta
+    monkeypatch.setattr(am_search, "launch_plan", lambda *a: bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        am_search.am_search(q, am.T)
 
 
 QAIL_GEOMS = [(17, 13, 100), (64, 32, 128), (256, 130, 257), (5, 3, 8),
@@ -846,7 +949,8 @@ UNPACK_FIELDS = [("rows", 16), ("cols", 64), ("grid", (1, 0)),
 def test_am_search_packed_launcher_refuses_another_plan(dev, monkeypatch,
                                                         mode, field, delta):
     """The launcher takes the wrapper's launch_plan and refuses one that
-    is not its own grid, tiles, shared memory or scratch."""
+    is not its own grid, tiles, shared memory or scratch, in both modes
+    (popcount mode's columns and grid follow its k split)."""
     rng = np.random.default_rng(29)
     q = ref.pack_rows(bipolar(rng, (40, 200), dev))
     am_t = ref.pack_rows(bipolar(rng, (300, 200), dev)).T.contiguous()
@@ -855,8 +959,6 @@ def test_am_search_packed_launcher_refuses_another_plan(dev, monkeypatch,
     bad = dict(plan)
     if field == "grid":
         bad["grid"] = tuple(v + dv for v, dv in zip(plan["grid"], delta))
-    elif field == "scratch_bytes" and mode == "popcount":
-        bad["scratch_bytes"] = 8  # a scratch the popcount mode refuses
     else:
         bad[field] = plan[field] + delta
     monkeypatch.setattr(asp, "launch_plan", lambda *a: bad)

@@ -5,11 +5,13 @@ of the fp32 mainloop that ``binary_mvm`` and ``encode_pack`` share
 (``csrc/sgemm_tile.cuh``), ``ssd_chunk``'s grid and shared memory,
 ``qail_update``'s tiles and scratch, a rounding model of the split
 products ``ssd_chunk`` runs on the tensor cores, ``am_search_packed``'s
-launch plans and a model of its unpack-mode fragments,
+launch plans, a model of its unpack-mode fragments and of its popcount
+mode's register tile, shared reads and split key fold,
 ``am_search_sparse``'s tile ring, shared memory and scratch choice, and
 the launch plans, route tests and a model of the int8 routes'
-arithmetic of ``am_search_imc`` and ``am_search_multibit``. The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``).
+arithmetic of ``am_search_imc``, ``am_search_multibit`` and
+``am_search``. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 import importlib.util
 import itertools
@@ -20,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import am_search as ams  # noqa: E402
 from repro_torch.kernels import am_search_imc as asi  # noqa: E402
 from repro_torch.kernels import am_search_multibit as asm  # noqa: E402
 from repro_torch.kernels import am_search_packed as asp  # noqa: E402
@@ -344,19 +347,200 @@ def test_unpack_plan_fills_the_card_at_the_main_shape():
 
 
 @pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
-def test_popcount_plan_is_the_unchanged_kernels_launch(block_b):
-    """Popcount mode: one block per block_b queries walks all C columns;
-    its dynamic shared memory (query words, AM words of a 64-column tile,
-    the fold) fits a block at D = 1024, and no scratch."""
-    for b, dp, c in ((1, 13, 3), (1024, 128, 1024), (5, 1000, 100_000)):
+def test_popcount_plan_tiles_cover_b_and_c_with_its_ring_and_scratch(block_b):
+    """Popcount mode: blocks of block_b rows (a warp per 4) by 128 / ks
+    columns (ks lanes along K, 1 to 8) cover B and C with no empty block;
+    the dynamic shared memory is the 4-stage ring of 32-byte k slabs
+    (block_b query rows, then 32 AM byte rows of the split's columns) and
+    the scratch a uint64 key per query and a ticket word per query tile,
+    as csrc/am_search_packed.cu's launcher checks."""
+    for b, dp, c in ((1, 13, 3), (1024, 128, 1024), (5, 1000, 100_000),
+                     (32, 128, 1024), (1023, 125, 129)):
         pl = asp.launch_plan(b, dp, c, block_b, "popcount")
-        dw = -(-dp // 4)
-        assert pl["rows"] == block_b and pl["cols"] == c
-        assert pl["grid"] == (-(-b // block_b), 1)
-        assert pl["smem"] == 4 * (block_b * dw + dw * 64 + 2 * block_b * 64)
-        assert pl["scratch_bytes"] == 0
-    assert asp.launch_plan(1024, 128, 1024, block_b,
-                           "popcount")["smem"] <= SMEM_LIMIT
+        ks, cols = pl["k_split"], pl["cols"]
+        assert ks in (1, 2, 4, 8) and cols == 128 // ks
+        assert pl["rows"] == block_b and block_b % 4 == 0
+        gx, gy = pl["grid"]
+        assert gx * block_b >= b > (gx - 1) * block_b
+        assert gy * cols >= c > (gy - 1) * cols
+        assert pl["smem"] == 4 * (block_b * 32 + 32 * cols)
+        assert pl["scratch_bytes"] == 8 * b + 4 * gx
+
+
+@pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
+@pytest.mark.parametrize("d", [1024, 4096])
+def test_popcount_shared_memory_fits_a_block_at_any_d(block_b, d):
+    """The ring holds 32-byte slabs, so its shared memory does not grow
+    with D: under a block's limit at D = 1024 and 4096, and small enough
+    that the blocks of the main shape (B = C = 1024) fit on the SMs
+    together (about 8 a SM at the default block_b)."""
+    for b in (1, 32, 1024):
+        pl = asp.launch_plan(b, d // 8, 1024, block_b, "popcount")
+        assert pl["smem"] <= 4 * (32 * 32 + 32 * 128) <= SMEM_LIMIT // 10
+    pl = asp.launch_plan(1024, d // 8, 1024, block_b, "popcount")
+    assert pl == asp.launch_plan(1024, 128, 1024, block_b, "popcount")
+
+
+def test_popcount_plan_fills_the_card_at_b_1024_and_b_32():
+    """B = C = 1024: one lane along K, 128-column splits, 2,048 warps at
+    every block_b (a warp per SM sub-partition is 528). A served request,
+    B = 32: eight lanes along K, 16-column splits, 512 warps, and a block
+    or more on each of the 132 SMs at block_b <= 8 (the first version ran
+    1 to 8 blocks at B = 32 and 32 to 256 at B = 1024)."""
+    for block_b in asp.BLOCK_B_CHOICES:
+        pl = asp.launch_plan(1024, 128, 1024, block_b, "popcount")
+        gx, gy = pl["grid"]
+        assert pl["k_split"] == 1 and gx * gy * block_b // 4 == 2048
+        assert gx * gy * block_b // 4 >= asp.FILL_WARPS == 4 * 132
+        pl = asp.launch_plan(32, 128, 1024, block_b, "popcount")
+        gx, gy = pl["grid"]
+        assert pl["k_split"] == 8 and gx * gy * block_b // 4 == 512
+        if block_b <= 8:
+            assert gx * gy >= 132
+    gx, gy = asp.launch_plan(32, 128, 1024, asp.DEFAULT_BLOCK_B,
+                             "popcount")["grid"]
+    assert (gx, gy) == (4, 64)
+    # Where it can, the least k split that reaches a warp per sub-partition.
+    for b, c in ((256, 1024), (64, 300), (1, 100_000), (7, 9)):
+        for block_b in asp.BLOCK_B_CHOICES:
+            ks = asp.k_split(b, c, block_b)
+            warps = [-(-b // block_b) * -(-c // (128 // k)) * block_b // 4
+                     for k in (1, 2, 4, 8)]
+            i = (1, 2, 4, 8).index(ks)
+            assert ks == 8 or warps[i] >= asp.FILL_WARPS
+            assert i == 0 or warps[i - 1] < asp.FILL_WARPS
+
+
+def _byte_perm(x, y, sel):
+    """CUDA __byte_perm(x, y, sel) on uint32 arrays: result byte n is byte
+    (sel >> 4n) & 7 of the 8 bytes of x (0-3) and y (4-7)."""
+    both = np.stack([x, y], axis=-1).astype("<u4").view(np.uint8)
+    both = both.reshape(*x.shape, 8)
+    out = np.zeros(x.shape, dtype=np.uint32)
+    for n in range(4):
+        out |= both[..., (sel >> (4 * n)) & 7].astype(np.uint32) << (8 * n)
+    return out
+
+
+def _popc(x):
+    return np.unpackbits(x[..., None].view(np.uint8), axis=-1).sum(
+        axis=-1).astype(np.int64)
+
+
+@pytest.mark.parametrize("ks", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [8, 100, 257, 1024])
+def test_popcount_register_tile_model_gives_the_hamming_distance(ks, d):
+    """A model of popcount::search on one block: the ring stages 32-byte
+    slabs zero-padded past Dp (AM byte row 4w + k at stage row 8k + w);
+    lane (column group cg, k lane s) reads, for the words w = j ks + s of
+    a slab, its 4 query words and one word from each of the 4 byte rows
+    of w at its 4 columns, transposes those into the columns' words with
+    the kernel's byte permutes, and adds 16 XOR popcounts; the ks lanes'
+    partials summed are the Hamming distances of the plain version."""
+    rng = np.random.default_rng([20, ks, d])
+    dp, rows, cols = -(-d // 8), 8, 128 // ks
+    cg_n = 32 // ks
+    q = rng.integers(0, 256, (rows, dp), dtype=np.uint8)
+    am_t = rng.integers(0, 256, (dp, cols), dtype=np.uint8)
+    n_slabs = -(-dp // 32)
+    ham = np.zeros((ks, rows, cols), np.int64)
+    for t in range(n_slabs):
+        qs = np.zeros((rows, 32), np.uint8)
+        part = q[:, 32 * t:32 * t + 32]
+        qs[:, :part.shape[1]] = part
+        ast = np.zeros((32, cols), np.uint8)
+        for r in range(32):
+            if 32 * t + r < dp:
+                ast[(r & 3) * 8 + (r >> 2)] = am_t[32 * t + r]
+        qw = qs.view("<u4")                    # (rows, 8) words
+        aw = ast.view("<u4")                   # (32, cg_n) words
+        assert aw.shape == (32, cg_n)
+        for s in range(ks):
+            for j in range(8 // ks):
+                w = j * ks + s
+                r4 = [aw[k * 8 + w] for k in range(4)]   # (cg_n,) each
+                t0 = _byte_perm(r4[0], r4[1], 0x5140)
+                t1 = _byte_perm(r4[2], r4[3], 0x5140)
+                t2 = _byte_perm(r4[0], r4[1], 0x7362)
+                t3 = _byte_perm(r4[2], r4[3], 0x7362)
+                a = np.stack([_byte_perm(t0, t1, 0x5410),
+                              _byte_perm(t0, t1, 0x7632),
+                              _byte_perm(t2, t3, 0x5410),
+                              _byte_perm(t2, t3, 0x7632)], axis=1)
+                a = a.reshape(cols)            # column 4 cg + c
+                ham[s] += _popc(qw[:, w, None] ^ a[None, :])
+    bits_q = np.unpackbits(q, axis=1, bitorder="little")
+    bits_a = np.unpackbits(am_t.T, axis=1, bitorder="little")
+    want = (bits_q[:, None, :] != bits_a[None, :, :]).sum(-1)
+    assert np.array_equal(ham.sum(0), want)
+
+
+@pytest.mark.parametrize("ks", [1, 2, 4, 8])
+def test_popcount_shared_reads_are_conflict_free(ks):
+    """Each shared load of a warp touches 32 distinct banks or broadcasts:
+    the AM word of lane (cg, s) at stage row 8k + w, w = j ks + s, column
+    group cg (rows of 128 / ks bytes); the query word w of one of the
+    warp's rows (32-byte rows)."""
+    cg_n = 32 // ks
+    lanes = np.arange(32)
+    s, cg = lanes % ks, lanes // ks
+    for j in range(8 // ks):
+        w = j * ks + s
+        for k in range(4):
+            addr = (k * 8 + w) * cg_n + cg
+            assert len(set(addr % 32)) == 32
+        for i in range(4):
+            addr = i * 8 + w
+            banks = {}
+            for a in addr:
+                banks.setdefault(a % 32, set()).add(a)
+            assert all(len(v) == 1 for v in banks.values())
+
+
+def _split_fold(ham, cols):
+    """The popcount fold: each split's least key (hamming << 32) | idx per
+    row, then the least over splits in a shuffled block order (atomicMin
+    is order-free); idx = key & 0xffffffff."""
+    b, c = ham.shape
+    keys = (ham.astype(np.uint64) << np.uint64(32)) | np.arange(
+        c, dtype=np.uint64)
+    split_min = [keys[:, c0:c0 + cols].min(1) for c0 in range(0, c, cols)]
+    order = np.random.default_rng(c).permutation(len(split_min))
+    best = np.full(b, np.iinfo(np.uint64).max, dtype=np.uint64)
+    for i in order:
+        best = np.minimum(best, split_min[i])
+    return (best & np.uint64(0xffffffff)).astype(np.int32), (
+        best >> np.uint64(32)).astype(np.int64)
+
+
+@pytest.mark.parametrize("cols", [16, 32, 64, 128])
+def test_split_key_fold_is_first_wins_across_splits(cols):
+    """Exact copies of each query (the tied maximum, Hamming 0) planted in
+    two different column splits, the lower copy in the earlier split for
+    even rows and in the later one for odd rows: the 64-bit key fold gives
+    the first maximal column, as the plain version's argmax does, in any
+    block order."""
+    rng = np.random.default_rng([21, cols])
+    d, b = 200, 6
+    c = 8 * cols + 3
+    qb = rng.integers(0, 2, (b, d))
+    ab = rng.integers(0, 2, (c, d))
+    early, late = 2 * cols + 5, 5 * cols + 1   # splits 2 and 5
+    want = []
+    for r in range(b):
+        ab[early + r] = ab[late + r] = qb[r]
+        if r % 2:
+            ab[early - cols + r] = qb[r]       # also in split 1: it wins
+            want.append(early - cols + r)
+        else:
+            want.append(early + r)
+    ham = (qb[:, None, :] != ab[None, :, :]).sum(-1)
+    idx, hbest = _split_fold(ham, cols)
+    sims = torch.as_tensor(d - 2 * ham, dtype=torch.float32)
+    w_sim, w_idx = sims.max(dim=-1)
+    assert np.array_equal(idx, w_idx.numpy())
+    assert np.array_equal(d - 2 * hbest, w_sim.numpy())
+    assert np.array_equal(idx, want) and (hbest == 0).all()
 
 
 def _spread(x):
@@ -759,3 +943,63 @@ def test_adc_route_predicates():
         assert not asm.int8_route(big, cb, 128)
         assert not asm.int8_route(frac, cb, 128)
     assert asm.int8_route(full, 8, 1032) and not asm.int8_route(full, 8, 1033)
+
+
+# -- am_search ---------------------------------------------------------------
+
+@pytest.mark.parametrize("b,d,c", [(1, 9, 3), (3, 130, 257), (1024, 1024, 1024),
+                                   (65, 1000, 129), (7, 100_000, 3)])
+def test_am_search_plan_is_the_imc_search_with_one_slab_of_d(b, d, c):
+    """am_search launches search_pass.cuh as am_search_imc does, with one
+    slab of D: the same 128-query x 64-column grid, 256 threads and shared
+    memory (under a block's limit at any D), one slab, the int8 ring's and
+    the fp32 steps over D, and the same scratch (int8 copies of q and the
+    AM, a flag per convert tile, a key per query, a ticket per row tile)."""
+    p = ams.launch_plan(b, d, c)
+    assert p == asi.launch_plan(b, d, c, d)
+    gx, gy = p["grid"]
+    assert gx * 64 >= c > (gx - 1) * 64 and gy * 128 >= b > (gy - 1) * 128
+    assert p["slabs"] == 1 and p["threads"] == 256
+    assert p["k_stages"] * 128 >= d > (p["k_stages"] - 1) * 128
+    assert p["k_steps"] * 32 >= d > (p["k_steps"] - 1) * 32
+    assert p["smem"] == asi.SMEM and p["smem"] + 1024 <= SMEM_LIMIT
+    kp = p["kp"]
+    assert p["conv_grid"] == (kp // 64) * (gx + 2 * gy)
+    assert p["offsets"]["keys"] + 8 * b <= p["offsets"]["tickets"]
+    assert p["offsets"]["tickets"] + 4 * gy <= p["scratch_bytes"]
+
+
+def test_am_search_plan_fills_one_wave_at_the_main_shape():
+    """B = C = D = 1024: 128 blocks of 256 threads, one an SM (their
+    shared memory), on 128 of the 132 SMs."""
+    p = ams.launch_plan(1024, 1024, 1024)
+    gx, gy = p["grid"]
+    per_sm = min(SMEM_PER_SM // (p["smem"] + 1024), 2048 // p["threads"])
+    assert (gx * gy, per_sm) == (128, 1)
+
+
+def test_am_search_route_predicate():
+    """The search pass's route, mirrored on the CPU: int8 for ±1
+    operands and for small integers with max|q| * max|am| * D <= 2^24;
+    fp32 for dyadic non-integer queries or AM cells, for a query of 200
+    (> 127), and where the dot could pass 2^24 (127 * 127 * 1041 dims)."""
+    rng = np.random.default_rng(34)
+    q = torch.as_tensor(rng.choice([-1.0, 1.0], (8, 256)),
+                        dtype=torch.float32)
+    am_t = torch.as_tensor(rng.choice([-1.0, 1.0], (256, 40)),
+                           dtype=torch.float32)
+    assert ams.int8_route(q, am_t)
+    ints = torch.as_tensor(rng.integers(-127, 128, (8, 256)),
+                           dtype=torch.float32)
+    assert ams.int8_route(ints, am_t)
+    dyadic = torch.as_tensor(rng.integers(-128, 128, (8, 256)) / 256,
+                             dtype=torch.float32)
+    assert not ams.int8_route(dyadic, am_t)
+    assert not ams.int8_route(q, am_t * 0.5)
+    big = q.clone()
+    big[3, 7] = 200.0
+    assert not ams.int8_route(big, am_t)
+    full = torch.full((2, 1040), 127.0)
+    assert ams.int8_route(full, full.T)
+    full = torch.full((2, 1041), 127.0)
+    assert not ams.int8_route(full, full.T)
