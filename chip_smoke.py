@@ -464,10 +464,10 @@ class Smoke:
         self.check_hier_kernels()
 
     def check_split_ties(self) -> dict:
-        """Both packed modes, every block_b, at B = 300 and 32 (the
-        popcount grid's 128- and 16-column splits): exact copies of a query
-        planted in several column splits, the lowest index wins wherever
-        it lies."""
+        """Both packed modes, every block_b, at B = 300 and 32 (popcount
+        mode's 128- or 64-column splits and its 8-column ones): exact
+        copies of a query planted in several column splits, the lowest
+        index wins wherever it lies."""
         np, torch = self.np, self.torch
         from repro_torch.kernels import am_search_packed as asp
         from repro_torch.kernels import ref

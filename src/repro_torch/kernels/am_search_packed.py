@@ -1,4 +1,4 @@
-"""Associative search over the packed 1-bit AM: XOR + popcount.
+"""Associative search over the packed 1-bit AM: Hamming distance + argmax.
 
 Port of ``repro.kernels.am_search_packed`` (``csrc/am_search_packed.cu``).
 The resident AM is the uint8-packed ``pack_rows`` layout (8 cells/byte,
@@ -7,9 +7,11 @@ uses the bipolar Hamming identity
 
     dot(q, a) = D_valid - 2 * popcount(bits(q) XOR bits(a)),
 
-with a first-wins argmax. ``mode="unpack"`` instead takes the exact
-integer dot of both operands unpacked to ±1 (0 past D) on the int8
-tensor cores; the two modes return the same (idx, sim) bit for bit.
+with a first-wins argmax. Popcount mode counts it on the 1-bit tensor
+cores as popcount(q) + popcount(a) - 2 * popcount(q AND a);
+``mode="unpack"`` instead takes the exact integer dot of both operands
+unpacked to ±1 (0 past D) on the int8 tensor cores; the two modes return
+the same (idx, sim) bit for bit.
 
 ``launch_plan`` is the kernel's grid, tiles, shared memory and scratch,
 computed here so that the CPU tests can check it and handed to the
@@ -28,25 +30,21 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.pack_bits import pack_bits
 
-# Queries per block (rows of a query tile): in popcount mode a warp per 4
-# rows; in unpack mode the rows of an mma tile, max(16, block_b).
+# Queries per block: the rows of a query tile, rounded up to whole m16
+# tiles of mma.sync, max(16, block_b), in both modes.
 BLOCK_B_CHOICES = (4, 8, 16, 32)
 DEFAULT_BLOCK_B = 8
 MODES = ("popcount", "unpack")
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
-# csrc/am_search_packed.cu, both modes: bytes per k slab and ring stages;
-# unpack mode: columns per block, warps, shared row strides of the query
-# and AM slabs.
-_SLAB, _STAGES = 32, 4
+# csrc/am_search_packed.cu, both modes: bytes per k slab, ring stages,
+# the ring's row stride of a query; unpack mode: columns per block, warps,
+# the ring's row stride of an AM byte row.
+_SLAB, _STAGES, _QSTR = 32, 4, 48
 UNPACK_COLS = 128
-_WARPS, _QSTR, _ASTR = 4, 48, UNPACK_COLS + 16
-# popcount mode: a lane's (and a warp's) query rows, the columns of a
-# split at one lane along K, the most lanes along K, and the warps that
-# fill an H100 (a warp for each of its 132 x 4 SM sub-partitions).
-_QT = 4
-POPCOUNT_COLS = 128
-_MAX_KS = 8
-FILL_WARPS = 4 * 132
+_WARPS, _ASTR = 4, UNPACK_COLS + 16
+# popcount mode: the widest and narrowest column split, and the blocks
+# that fill an H100 (one per SM).
+POPCOUNT_COLS, _MIN_COLS = 128, 8
+FILL_BLOCKS = 132
 _MAX_GRID_Y = 65535
 
 
@@ -86,15 +84,14 @@ def fold_scratch(device: torch.device, stream: int,
     return buf
 
 
-def k_split(b: int, c: int, block_b: int) -> int:
-    """Popcount mode's lanes along K (``popcount::k_split``): the least of
-    1, 2, 4, 8 that gives the launch ``FILL_WARPS`` warps, else 8."""
-    tiles, warps = -(-b // block_b), block_b // _QT
-    ks = 1
-    while (ks < _MAX_KS
-           and tiles * -(-c // (POPCOUNT_COLS // ks)) * warps < FILL_WARPS):
-        ks *= 2
-    return ks
+def popcount_cols(b: int, c: int, rows: int) -> int:
+    """Popcount mode's columns per block (``popcount::block_cols``): the
+    widest of 128, 64, ..., 8 whose grid has ``FILL_BLOCKS`` blocks, else
+    8."""
+    tiles, cols = -(-b // rows), POPCOUNT_COLS
+    while cols > _MIN_COLS and tiles * -(-c // cols) < FILL_BLOCKS:
+        cols //= 2
+    return cols
 
 
 def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
@@ -104,12 +101,12 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
     uint64 key per query and a ticket word per query tile, all ones before
     and after a launch (``fold_scratch``).
 
-    popcount: ``rows`` = block_b queries (a warp per 4) by ``cols`` =
-    128 / ``k_split`` columns: a lane keeps 4 x 4 Hamming sums over the
-    words of K that fall to it (one in ``k_split``). The dynamic shared
-    memory is the 4-stage ring of 32-byte k slabs of both operands (rows x
-    32 query bytes, then 32 AM byte rows of the split's columns), the same
-    at any D.
+    popcount: ``rows`` = max(16, block_b) queries (one or two m16 tiles
+    of ``mma.sync`` b1) by ``cols`` = ``popcount_cols`` columns, a block of
+    ``warps`` = min(4, cols / 8) warps. The dynamic shared memory is the
+    4-stage ring of 32-byte k slabs of both operands (rows of 48 query
+    bytes, then 32 AM byte rows of max(cols + 16, 32) bytes), the same at
+    any D, then the warps' uint64 keys of each row.
 
     unpack: a block of 4 warps per ``rows`` = max(16, block_b) queries
     (one or two m16 tiles of ``mma.sync``) and ``cols`` = 128 columns. The
@@ -125,12 +122,14 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
         return {"rows": rows, "cols": UNPACK_COLS,
                 "grid": (tiles, -(-c // UNPACK_COLS)), "smem": smem,
                 "scratch_bytes": 8 * b + 4 * tiles}
-    ks = k_split(b, c, block_b)
-    cols = POPCOUNT_COLS // ks
-    tiles = -(-b // block_b)
-    return {"rows": block_b, "cols": cols, "k_split": ks,
+    rows = max(16, block_b)
+    cols = popcount_cols(b, c, rows)
+    warps = min(4, cols // 8)
+    tiles = -(-b // rows)
+    return {"rows": rows, "cols": cols, "warps": warps,
             "grid": (tiles, -(-c // cols)),
-            "smem": _STAGES * (block_b * _SLAB + _SLAB * cols),
+            "smem": (_STAGES * (rows * _QSTR + _SLAB * max(cols + 16, 32))
+                     + 8 * warps * rows),
             "scratch_bytes": 8 * b + 4 * tiles}
 
 
@@ -144,10 +143,9 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
       q_packed: (B, Dp) uint8 queries, Dp = ceil(D/8), tail bits 0.
       am_packed_t: (Dp, C) uint8 transposed packed AM (``pack_am``).
       n_dims: true (unpacked) hypervector dimension D.
-      block_b: rows of a query tile (one of ``BLOCK_B_CHOICES``): in
-        popcount mode a block of block_b / 4 warps; in unpack mode rounded
-        up to the 16 rows of an ``mma.sync`` tile (4, 8 and 16 give 16-row
-        blocks, 32 two m16 tiles).
+      block_b: rows of a query tile (one of ``BLOCK_B_CHOICES``), rounded
+        up to the 16 rows of an ``mma.sync`` tile in both modes (4, 8 and
+        16 give 16-row blocks, 32 two m16 tiles).
       mode: "popcount" (XOR + popcount) or "unpack" (the ±1 dot, exact,
         on the int8 tensor cores).
 
@@ -180,9 +178,6 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     if block_b not in BLOCK_B_CHOICES:
         raise ValueError(f"block_b={block_b} not in {BLOCK_B_CHOICES}")
     plan = launch_plan(b, dp, c, block_b, mode)
-    if plan["smem"] > _SMEM_LIMIT:
-        raise ValueError(f"D={n_dims} needs more shared memory than a "
-                         f"block has at block_b={block_b}")
     if plan["grid"][1] > _MAX_GRID_Y:
         raise ValueError(f"C={c} needs more column splits than a grid has")
     idx = torch.empty((b,), dtype=torch.int32, device=q_packed.device)

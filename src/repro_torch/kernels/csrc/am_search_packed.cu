@@ -22,44 +22,42 @@
 // Bound on the H100: operations. At the main path's B = C = D = 1024 the
 // operands are 128 KB + 128 KB, and the search is, on ±1/0 operands exact
 // in int8, a 2*B*C*D = 2.1 G-op int8 product: 1.1 us at 1,979 TOP/s.
-// Counted as 32-bit popcounts instead (B*C*D/32 = 33.6 M __popc at 16 per
-// clock per SM) it is about 8 us: popcount mode's floor.
+// Counted as 32-bit popcounts on the SMs' popc units instead (B*C*D/32 =
+// 33.6 M __popc at 16 per clock per SM) it is about 8 us: the floor of
+// the first version's arithmetic, which the 1-bit tensor cores pass.
 //
-// Popcount mode (popcount::search). What held the first version back
-// (0.0548 ms at the main shape): one block per block_b queries walked all
-// C columns alone (128 blocks at B = 1024, one wave of 8 warps an SM, 4
-// blocks at B = 32), each 64-column AM tile was staged byte by byte with
-// nothing in flight, and every thread did 1 + QPT shared loads per QPT
-// XOR + __popc. Now:
-// * Grid: (query tiles of block_b rows) x (column splits of 128 / ks
-//   columns). A warp owns 4 query rows of the tile (block_b / 4 warps a
-//   block) and all the split's columns; its lanes are laid out as
-//   (32 / ks column groups) x (ks lanes along K), ks = 1, 2, 4 or 8, the
-//   least that gives the launch a warp per SM sub-partition (4 x 132) where
-//   it can: ks = 1 at B = 1024 (128-column splits, 2,048 warps at every
-//   block_b), ks = 8 at B = 32 (16-column splits; 256 blocks at block_b 8).
-// * Register tile: each lane keeps 4 queries x 4 adjacent columns of
-//   Hamming sums in registers. Per 32-bit word of K it loads the 4 query
-//   words (warp-wide broadcasts) and one 32-bit word from each of the 4
-//   byte rows of the word (the 4 columns' bytes), turns those into the 4
-//   columns' words with 8 byte permutes (prmt), and does 16 XOR + __popc:
-//   8 shared loads feed 16 popcounts (the first version: 1 + QPT loads per
-//   QPT).
+// Popcount mode (popcount::search): AND + popcount on the 1-bit tensor
+// cores. What held the first version back (0.0548 ms at the main shape):
+// one block per block_b queries walked all C columns alone (128 blocks at
+// B = 1024, 4 at B = 32), each 64-column AM tile was staged byte by byte
+// with nothing in flight, and every thread did 1 + QPT shared loads per
+// QPT XOR + __popc. Now:
+// * Arithmetic: mma.sync.m16n8k256 .b1 .and.popc counts popc(q AND a)
+//   over 256 dims a step (the packed bytes are its operands as they are);
+//   with P_q and P_a the popcounts of the query's and the column's bits,
+//   hamming = P_q + P_a - 2 popc(q AND a), exact (bits past n_dims are 0
+//   in both operands). One instruction covers 16 x 8 x 256 bits, eight
+//   times the elements of an int8 m16n8k32 step.
+// * Grid: (query tiles of max(16, block_b) rows: one or two m16 tiles) x
+//   (column splits of 128 columns, halved down to 8 while the grid has
+//   fewer than 132 blocks): 512 blocks at B = 1024, 256 blocks of 8
+//   columns at B = 32. A block has up to 4 warps, each owning 1, 2 or 4 n8
+//   tiles of the split and every row of the tile.
 // * Staging: both operands' packed bytes stream through a 4-stage
-//   cp.async ring of 32-byte k slabs (256 dims), three slabs ahead, one
-//   barrier a slab: 16-byte copies where Dp, C and the pointers allow,
-//   byte copies otherwise. Bytes past Dp are staged as 0 in BOTH operands
-//   (zero bytes XOR to zero), so Dp is zero-padded to whole 32-bit words
-//   and D = 100 (Dp = 13) needs no host-side padding pass. The AM slab's
-//   byte row 4w + k is stored at row k * 8 + w, so the ks lanes of a
-//   column group, which read different words w, hit distinct banks.
-// * Fold: the ks lanes of a tile add their partial sums with shuffles;
-//   each row's least key (hamming << 32) | idx over the lane's columns
-//   (columns >= C skipped), then over the warp's lanes, goes to the
-//   query's scratch key with a 64-bit atomicMin: the least key is the
-//   first-wins winner whatever the block order, ties across splits
-//   included. The query tile's last block to finish (a ticket word per
-//   tile) writes idx and sim = n_dims - 2 * hamming and restores the
+//   cp.async ring of 32-byte k slabs (one m16n8k256 step), three slabs
+//   ahead, one barrier a slab: 16-byte copies where Dp, C and the pointers
+//   allow (8-byte ones for an 8-column split), byte copies otherwise.
+//   Bytes past Dp are staged as 0 in BOTH operands, so D = 100 (Dp = 13)
+//   needs no host-side padding pass. A
+//   fragments come from the query rows by ldmatrix; a column's B words
+//   are gathered byte by byte from the AM slab, whose byte row 4w + k is
+//   stored at row 8k + w, so a warp's four k-lanes read distinct banks.
+// * Fold: each row's least key (hamming << 32) | idx over the lane's
+//   columns (columns >= C skipped), its four lanes and the block's warps
+//   goes to the query's scratch key with a 64-bit atomicMin: the least
+//   key is the first-wins winner whatever the block order, ties across
+//   splits included. The query tile's last block to finish (a ticket word
+//   per tile) writes idx and sim = n_dims - 2 * hamming and restores the
 //   scratch to all ones (finish_tile), so no memset launch runs before
 //   the kernel.
 //
@@ -122,6 +120,18 @@ __device__ __forceinline__ void stage16(uint8_t* dst, const uint8_t* src,
     for (int i = 0; i < 16; ++i) dst[i] = ok && i < n ? src[i] : 0;
   }
 }
+// ... 8 bytes, cp.async when the source is 8-byte aligned.
+__device__ __forceinline__ void stage8(uint8_t* dst, const uint8_t* src,
+                                       bool ok, int n, bool vec) {
+  if (vec) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     mma::smem_u32(dst)),
+                 "l"(src), "r"(ok ? 8 : 0));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = ok && i < n ? src[i] : 0;
+  }
+}
 
 // The end of both modes' fold, after the block's atomicMins: the query
 // tile's last block to finish (tickets start at ~0: the first block draws
@@ -160,65 +170,85 @@ inline bool scratch_is(const void* scratch, long long scratch_bytes, int B,
 
 namespace popcount {
 
-constexpr int QT = 4, CT = 4;     // a lane's queries x columns
-constexpr int KW = SLAB / 4;      // 32-bit words of a slab
-constexpr int COLS = 128;         // columns of a split at ks = 1
-constexpr int MAX_KS = 8;         // lanes along K, at most
-constexpr long long FILL_WARPS = 4 * 132;  // a warp per H100 SM sub-partition
+constexpr int KW = SLAB / 4;       // 32-bit words of a slab
+constexpr int QSTR = 48;           // ring row stride of a query (32 bytes used)
+constexpr int MAX_COLS = 128;      // columns of a block: 128, 64, ..., 8
+constexpr int MIN_COLS = 8;
+constexpr long long FILL_BLOCKS = 132;  // a block per H100 SM
 
-// Lanes along K of the launch for block_b = rows: the least of 1, 2, 4, 8
-// that gives FILL_WARPS warps, else 8 (kernels/am_search_packed.py:
-// _k_split mirrors it).
-inline int k_split(int B, int C, int rows) {
-  const long long tiles = (B + rows - 1) / rows, warps = rows / QT;
-  int ks = 1;
-  while (ks < MAX_KS &&
-         tiles * ((C + COLS / ks - 1) / (COLS / ks)) * warps < FILL_WARPS)
-    ks *= 2;
-  return ks;
+// Columns of a block for query tiles of `rows`: the widest whose grid has
+// FILL_BLOCKS blocks, else MIN_COLS (kernels/am_search_packed.py:
+// popcount_cols mirrors it).
+inline int block_cols(int B, int C, int rows) {
+  const long long tiles = (B + rows - 1) / rows;
+  int cols = MAX_COLS;
+  while (cols > MIN_COLS && tiles * ((C + cols - 1) / cols) < FILL_BLOCKS)
+    cols /= 2;
+  return cols;
+}
+// Warps of a block: one per 8 n8 columns up to 4, each owning NI =
+// cols / 8 / warps n8 tiles.
+inline int block_warps(int cols) { return cols >= 32 ? 4 : cols / 8; }
+// Ring row stride of the AM slab: a multiple of 16 bytes that puts the
+// 4 k-lanes' rows in distinct banks.
+__host__ __device__ inline int am_stride(int cols) {
+  return cols + 16 > 32 ? cols + 16 : 32;
+}
+// Dynamic shared memory: the ring (query rows, then AM byte rows), then
+// the warps' keys of each row.
+inline int smem_bytes(int rows, int cols) {
+  return STAGES * (rows * QSTR + SLAB * am_stride(cols)) +
+         8 * block_warps(cols) * rows;
 }
 
-// Dynamic shared memory: the ring's query rows (rows x SLAB bytes a
-// stage), then its AM slabs (SLAB byte rows x the split's columns).
-inline int smem_bytes(int rows, int ks) {
-  return STAGES * (rows * SLAB + SLAB * (COLS / ks));
-}
-
-template <int KS>
-__global__ void __launch_bounds__(256)
+template <int MI, int NI>
+__global__ void __launch_bounds__(128)
 search(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
        unsigned long long* __restrict__ keys, unsigned* __restrict__ tickets,
        int32_t* __restrict__ out_idx, float* __restrict__ out_sim, int B,
-       int Dp, int C, int n_dims, bool q_vec, bool a_vec) {
-  constexpr int BN = COLS / KS;   // the split's columns
-  constexpr int CG = 32 / KS;     // column groups of CT: BN / 4 words a row
+       int Dp, int C, int n_dims, bool q_vec, bool a_vec, bool a_vec8) {
+  constexpr int R = 16 * MI;       // query rows of the block
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int s_last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nt = blockDim.x, rows = nt / 32 * QT;
-  const int ks = lane % KS, cg = lane / KS;
-  const int b0 = blockIdx.x * rows, c0 = blockIdx.y * BN;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nw = blockDim.x >> 5, cols = 8 * NI * nw;
+  const int as_ld = am_stride(cols);
+  const int b0 = blockIdx.x * R, c0 = blockIdx.y * cols;
   const int n_slabs = (Dp + SLAB - 1) / SLAB;
-  uint8_t* qring = smem;                          // [STAGES][rows][SLAB]
-  uint8_t* aring = smem + STAGES * rows * SLAB;   // [STAGES][SLAB][BN]
+  uint8_t* qring = smem;                          // [STAGES][R][QSTR]
+  uint8_t* aring = smem + STAGES * R * QSTR;      // [STAGES][SLAB][as_ld]
+  auto* red = reinterpret_cast<unsigned long long*>(
+      aring + STAGES * SLAB * as_ld);             // [nw][R]
 
+  // Slab t into ring stage st; the AM's byte row 4w + k of the slab goes
+  // to row k * KW + w.
   auto load = [&](int t, int st) {
     const int kb = t * SLAB;
-    uint8_t* qd = qring + st * rows * SLAB;
-    for (int e = tid; e < rows * 2; e += nt) {
+    uint8_t* qd = qring + st * R * QSTR;
+    for (int e = tid; e < R * 2; e += blockDim.x) {
       const int r = e >> 1, h = e & 1, byte = kb + 16 * h, b = b0 + r;
       const bool ok = b < B && byte < Dp;
-      stage16(qd + r * SLAB + 16 * h, ok ? q + (size_t)b * Dp + byte : q,
+      stage16(qd + r * QSTR + 16 * h, ok ? q + (size_t)b * Dp + byte : q,
               ok, Dp - byte, q_vec);
     }
-    uint8_t* ad = aring + st * SLAB * BN;
-    for (int e = tid; e < SLAB * (BN / 16); e += nt) {
-      const int r = e / (BN / 16), ch = e % (BN / 16);
-      const int byte = kb + r, c = c0 + 16 * ch;
-      const bool ok = byte < Dp && c < C;
-      // byte row 4w + k of the slab at row k * KW + w
-      stage16(ad + ((r & 3) * KW + (r >> 2)) * BN + 16 * ch,
-              ok ? am_t + (size_t)byte * C + c : am_t, ok, C - c, a_vec);
+    uint8_t* ad = aring + st * SLAB * as_ld;
+    if (cols >= 16) {
+      for (int e = tid; e < SLAB * (cols / 16); e += blockDim.x) {
+        const int r = e / (cols / 16), ch = e % (cols / 16);
+        const int byte = kb + r, c = c0 + 16 * ch;
+        const bool ok = byte < Dp && c < C;
+        stage16(ad + ((r & 3) * KW + (r >> 2)) * as_ld + 16 * ch,
+                ok ? am_t + (size_t)byte * C + c : am_t, ok, C - c, a_vec);
+      }
+    } else {  // 8 columns: one 8-byte copy a byte row
+      for (int r = tid; r < SLAB; r += blockDim.x) {
+        const int byte = kb + r;
+        const bool ok = byte < Dp && c0 < C;
+        stage8(ad + ((r & 3) * KW + (r >> 2)) * as_ld,
+               ok ? am_t + (size_t)byte * C + c0 : am_t, ok, C - c0,
+               a_vec8);
+      }
     }
   };
 #pragma unroll
@@ -227,102 +257,133 @@ search(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
     mma::cp_async_commit();
   }
 
-  int ham[QT][CT];
+  int acc[MI][NI][4];  // popc(q AND a) of the lane's accumulator entries
+  int pq[MI][2];       // the lane's share of rows gid, gid + 8's popcounts
+  int pa[NI];          // ... of column gid's, in each n8 tile
 #pragma unroll
-  for (int i = 0; i < QT; ++i)
+  for (int mi = 0; mi < MI; ++mi) {
+    pq[mi][0] = pq[mi][1] = 0;
 #pragma unroll
-    for (int j = 0; j < CT; ++j) ham[i][j] = 0;
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  }
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) pa[ni] = 0;
   for (int t = 0; t < n_slabs; ++t) {
     mma::cp_async_wait<STAGES - 2>();  // slab t landed (this thread's)
     __syncthreads();  // ... everyone's copies; slab t-1's stage is free
     if (t + STAGES - 1 < n_slabs)
       load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
     mma::cp_async_commit();
-    const uint32_t* qs =
-        reinterpret_cast<const uint32_t*>(qring + (t % STAGES) * rows * SLAB)
-        + warp * QT * KW;
-    const uint32_t* as =
-        reinterpret_cast<const uint32_t*>(aring + (t % STAGES) * SLAB * BN)
-        + cg;
+    const uint8_t* qs = qring + (t % STAGES) * R * QSTR;
+    const uint8_t* as =
+        aring + (t % STAGES) * SLAB * as_ld + 8 * NI * warp + gid;
+    // A: rows gid / gid + 8, words tig and 4 + tig of the slab.
+    uint32_t a[MI][4];
 #pragma unroll
-    for (int j = 0; j < KW / KS; ++j) {
-      const int w = j * KS + ks;
-      uint32_t x[QT], r[4], a[CT];
+    for (int mi = 0; mi < MI; ++mi) {
+      mma::ldmatrix_x4(a[mi], qs + (16 * mi + ((lane >> 3) & 1) * 8 +
+                                    (lane & 7)) * QSTR + 16 * (lane >> 4));
+      pq[mi][0] += __popc(a[mi][0]) + __popc(a[mi][2]);
+      pq[mi][1] += __popc(a[mi][1]) + __popc(a[mi][3]);
+    }
 #pragma unroll
-      for (int i = 0; i < QT; ++i) x[i] = qs[i * KW + w];
+    for (int ni = 0; ni < NI; ++ni) {
+      // B: column gid's words tig and 4 + tig, byte k from row k KW + w.
+      uint32_t b[2];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) r[k] = as[(k * KW + w) * CG];
-      // r[k] holds byte k of the 4 columns' words: transpose the 4 x 4
-      // bytes, so a[c] is column c's word (byte k from r[k]).
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-      const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-      const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-      a[0] = __byte_perm(t0, t1, 0x5410);
-      a[1] = __byte_perm(t0, t1, 0x7632);
-      a[2] = __byte_perm(t2, t3, 0x5410);
-      a[3] = __byte_perm(t2, t3, 0x7632);
+      for (int h = 0; h < 2; ++h) {
+        const uint8_t* pb = as + 8 * ni + (4 * h + tig) * as_ld;
+        b[h] = (uint32_t)pb[0] | (uint32_t)pb[KW * as_ld] << 8 |
+               (uint32_t)pb[2 * KW * as_ld] << 16 |
+               (uint32_t)pb[3 * KW * as_ld] << 24;
+      }
+      pa[ni] += __popc(b[0]) + __popc(b[1]);
 #pragma unroll
-      for (int i = 0; i < QT; ++i)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) ham[i][c] += __popc(x[i] ^ a[c]);
+      for (int mi = 0; mi < MI; ++mi) mma::mma_b1_and(acc[mi][ni], a[mi], b[0], b[1]);
     }
   }
   mma::cp_async_wait<0>();
 
-  // The ks lanes of a tile hold partial sums over their words.
+  // hamming = P_q + P_a - 2 popc(q AND a): the bits past n_dims are 0 in
+  // both operands. The four lanes of a row (column) hold a quarter of its
+  // popcount each; column 2 tig + j's total sits in lanes 4 (2 tig + j).
 #pragma unroll
-  for (int o = 1; o < KS; o <<= 1)
+  for (int o = 1; o < 4; o <<= 1) {
 #pragma unroll
-    for (int i = 0; i < QT; ++i)
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-        ham[i][c] += __shfl_xor_sync(FULL, ham[i][c], o);
-  // Each row's least key over the lane's columns, then the warp's.
-#pragma unroll
-  for (int i = 0; i < QT; ++i) {
-    unsigned long long best = ~0ull;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int col = c0 + CT * cg + c;
-      const unsigned long long key =
-          (unsigned long long)ham[i][c] << 32 | (unsigned)col;
-      if (col < C && key < best) best = key;
+    for (int mi = 0; mi < MI; ++mi) {
+      pq[mi][0] += __shfl_xor_sync(FULL, pq[mi][0], o);
+      pq[mi][1] += __shfl_xor_sync(FULL, pq[mi][1], o);
     }
 #pragma unroll
-    for (int o = KS; o < 32; o <<= 1)
-      best = min(best, __shfl_xor_sync(FULL, best, o));
-    const int b = b0 + QT * warp + i;
-    if (lane == 0 && b < B) atomicMin(&keys[b], best);  // c0 < C: a column's
+    for (int ni = 0; ni < NI; ++ni) pa[ni] += __shfl_xor_sync(FULL, pa[ni], o);
   }
-  finish_tile(keys, tickets, b0, rows, B, n_dims, out_idx, out_sim, &s_last);
+  int pc[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      pc[ni][j] = __shfl_sync(FULL, pa[ni], 4 * (2 * tig + j));
+  // Each row's least key (hamming << 32) | idx: over the lane's columns,
+  // its row's four lanes, then the block's warps.
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      unsigned long long best = ~0ull;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = c0 + 8 * (NI * warp + ni) + 2 * tig + j;
+          const int ham =
+              pq[mi][half] + pc[ni][j] - 2 * acc[mi][ni][2 * half + j];
+          const unsigned long long key =
+              (unsigned long long)ham << 32 | (unsigned)c;
+          if (c < C && key < best) best = key;
+        }
+      }
+      best = min(best, __shfl_xor_sync(FULL, best, 1));
+      best = min(best, __shfl_xor_sync(FULL, best, 2));
+      if (tig == 0) red[warp * R + 16 * mi + 8 * half + gid] = best;
+    }
+  }
+  __syncthreads();
+  if (tid < R && b0 + tid < B) {
+    unsigned long long key = red[tid];
+    for (int w = 1; w < nw; ++w) key = min(key, red[w * R + tid]);
+    atomicMin(&keys[b0 + tid], key);  // warp 0 holds a column < C
+  }
+  finish_tile(keys, tickets, b0, R, B, n_dims, out_idx, out_sim, &s_last);
 }
 
+template <int MI>
 int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
-           void* sim, int B, int Dp, int C, int n_dims, int rows, int cols,
+           void* sim, int B, int Dp, int C, int n_dims, int cols,
            int grid_x, int grid_y, int smem, long long scratch_bytes,
            cudaStream_t stream) {
-  const int ks = k_split(B, C, rows), bn = COLS / ks;
-  const int tiles = (B + rows - 1) / rows;
-  if (cols != bn || grid_x != tiles || grid_y != (C + bn - 1) / bn ||
-      smem != smem_bytes(rows, ks) ||
+  constexpr int R = 16 * MI;
+  const int tiles = (B + R - 1) / R;
+  if (cols != block_cols(B, C, R) || grid_x != tiles ||
+      grid_y != (C + cols - 1) / cols || smem != smem_bytes(R, cols) ||
       !scratch_is(scratch, scratch_bytes, B, tiles) || grid_y > 65535)
     return (int)cudaErrorInvalidValue;
   auto* keys = static_cast<unsigned long long*>(scratch);
   auto* tickets = reinterpret_cast<unsigned*>(keys + B);
   const bool q_vec = Dp % 16 == 0 && (uintptr_t)q % 16 == 0;
   const bool a_vec = C % 16 == 0 && (uintptr_t)am_t % 16 == 0;
+  const bool a_vec8 = C % 8 == 0 && (uintptr_t)am_t % 8 == 0;
+  const int nw = block_warps(cols), ni = cols / 8 / nw;
   const dim3 grid(grid_x, grid_y);
-  const int threads = 32 * (rows / QT);
-#define POPCOUNT(KS)                                                        \
-  search<KS><<<grid, threads, smem, stream>>>(                              \
+#define POPCOUNT(NI)                                                        \
+  search<MI, NI><<<grid, 32 * nw, smem, stream>>>(                          \
       q, am_t, keys, tickets, static_cast<int32_t*>(idx),                   \
-      static_cast<float*>(sim), B, Dp, C, n_dims, q_vec, a_vec)
-  switch (ks) {
-    case 1: POPCOUNT(1); break;
-    case 2: POPCOUNT(2); break;
+      static_cast<float*>(sim), B, Dp, C, n_dims, q_vec, a_vec, a_vec8)
+  switch (ni) {
     case 4: POPCOUNT(4); break;
-    default: POPCOUNT(8); break;
+    case 2: POPCOUNT(2); break;
+    default: POPCOUNT(1); break;
   }
 #undef POPCOUNT
   return (int)cudaGetLastError();
@@ -537,15 +598,15 @@ int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
 
 }  // namespace
 
-// block_b (4, 8, 16 or 32) is the rows of a query tile; mode 0 is
-// popcount, 1 unpack. rows, cols, grid_x, grid_y, smem and scratch_bytes
-// are the wrapper's launch plan (kernels/am_search_packed.py launch_plan),
-// refused (cudaErrorInvalidValue) unless it is this launcher's own for
-// (B, Dp, C, block_b, mode): popcount, block_b rows by 128 / ks columns
-// (popcount::k_split), a (query tiles, column splits) grid and the ring's
-// dynamic shared memory; unpack, max(16, block_b) rows by 128 columns, a
-// (query tiles, column splits) grid and the static Smem; both, 8 B + 4 per
-// query tile of scratch. Returns the cudaError_t of the launch (0 on
+// block_b (4, 8, 16 or 32) is the rows of a query tile, rounded up to
+// whole m16 tiles; mode 0 is popcount, 1 unpack. rows, cols, grid_x,
+// grid_y, smem and scratch_bytes are the wrapper's launch plan
+// (kernels/am_search_packed.py launch_plan), refused
+// (cudaErrorInvalidValue) unless it is this launcher's own for (B, Dp, C,
+// block_b, mode): max(16, block_b) rows; popcount, popcount::block_cols
+// columns and the ring's dynamic shared memory; unpack, 128 columns and
+// the static Smem; both, a (query tiles, column splits) grid and 8 B + 4
+// per query tile of scratch. Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int am_search_packed_launch(
     const void* q, const void* am_t, void* idx, void* sim, void* scratch,
@@ -569,7 +630,14 @@ extern "C" int am_search_packed_launch(
                                           scratch_bytes, s)
                       : (int)cudaErrorInvalidValue;
   }
-  if (mode != 0 || rows != block_b) return (int)cudaErrorInvalidValue;
-  return popcount::launch(qb, ab, scratch, idx, sim, B, Dp, C, n_dims, rows,
-                          cols, grid_x, grid_y, smem, scratch_bytes, s);
+  if (mode != 0) return (int)cudaErrorInvalidValue;
+  if (block_b == 32)
+    return rows == 32 ? popcount::launch<2>(qb, ab, scratch, idx, sim, B, Dp,
+                                            C, n_dims, cols, grid_x, grid_y,
+                                            smem, scratch_bytes, s)
+                      : (int)cudaErrorInvalidValue;
+  return rows == 16 ? popcount::launch<1>(qb, ab, scratch, idx, sim, B, Dp,
+                                          C, n_dims, cols, grid_x, grid_y,
+                                          smem, scratch_bytes, s)
+                    : (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@
 // am_search_multibit.cu share:
 // 16-byte cp.async copies into shared memory (with a zero-fill form for
 // rows past an operand's end), ldmatrix, and mma.sync in int8 (m16n8k32,
-// s8 x s8 or s8 x u8, s32 accumulate: exact), in
+// s8 x s8 or s8 x u8, s32 accumulate: exact), in 1 bit (m16n8k256, AND +
+// popcount, s32: exact), in
 // bf16 (m16n8k16, f32 accumulate) and in TF32 (m16n8k8, f32 accumulate),
 // with the splits that carry a float32 operand through them: TF32 hi/lo
 // (~2^-21 relative) and three bf16 terms against an exact bf16 operand.
@@ -90,6 +91,21 @@ __device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += popc(a AND b) over k: a 16x256 and b 256x8 1-bit matrices, s32
+// accumulate: exact. Fragments as for mma_s8 with each byte 8 bits along
+// k: a[0] / a[2] row gid, k words tig / 4 + tig (a[1] / a[3] row gid + 8),
+// b0 / b1 column gid, k words tig / 4 + tig. The sum is symmetric in k,
+// so A and B need only the same assignment of bits to k.
+__device__ __forceinline__ void mma_b1_and(int (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

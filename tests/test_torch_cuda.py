@@ -169,12 +169,12 @@ def test_packed_fold_scratch_is_left_all_ones(dev):
 def test_popcount_ties_across_column_splits_at_a_served_batch(dev, b,
                                                               block_b):
     """B = 1 and B = 32 (a served request), where popcount mode splits C
-    into 16-column splits over 8 lanes along K: exact copies of a query in
+    into 8-column splits (one warp a block): exact copies of a query in
     several splits, the lowest index wins wherever it lies; both modes
     equal the plain version."""
     rng = np.random.default_rng([20, b, block_b])
     d, c = 1024, 1024
-    assert asp.launch_plan(b, d // 8, c, block_b, "popcount")["cols"] == 16
+    assert asp.launch_plan(b, d // 8, c, block_b, "popcount")["cols"] == 8
     am = bipolar(rng, (c, d), dev)
     q = bipolar(rng, (b, d), dev)
     i = torch.arange(b, device=dev)

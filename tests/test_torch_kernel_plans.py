@@ -5,8 +5,8 @@ of the fp32 mainloop that ``binary_mvm`` and ``encode_pack`` share
 (``csrc/sgemm_tile.cuh``), ``ssd_chunk``'s grid and shared memory,
 ``qail_update``'s tiles and scratch, a rounding model of the split
 products ``ssd_chunk`` runs on the tensor cores, ``am_search_packed``'s
-launch plans, a model of its unpack-mode fragments and of its popcount
-mode's register tile, shared reads and split key fold,
+launch plans, models of its unpack-mode and popcount-mode (1-bit)
+fragments, popcount mode's shared reads and split key fold,
 ``am_search_sparse``'s tile ring, shared memory and scratch choice, and
 the launch plans, route tests and a model of the int8 routes'
 arithmetic of ``am_search_imc``, ``am_search_multibit`` and
@@ -348,22 +348,25 @@ def test_unpack_plan_fills_the_card_at_the_main_shape():
 
 @pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
 def test_popcount_plan_tiles_cover_b_and_c_with_its_ring_and_scratch(block_b):
-    """Popcount mode: blocks of block_b rows (a warp per 4) by 128 / ks
-    columns (ks lanes along K, 1 to 8) cover B and C with no empty block;
-    the dynamic shared memory is the 4-stage ring of 32-byte k slabs
-    (block_b query rows, then 32 AM byte rows of the split's columns) and
-    the scratch a uint64 key per query and a ticket word per query tile,
-    as csrc/am_search_packed.cu's launcher checks."""
+    """Popcount mode: blocks of max(16, block_b) rows (whole m16 tiles of
+    the 1-bit mma) by 8 to 128 columns (min(4, cols / 8) warps) cover B
+    and C with no empty block; the dynamic shared memory is the 4-stage
+    ring of 32-byte k slabs (query rows 48 bytes apart, then 32 AM byte
+    rows of max(cols + 16, 32) bytes) and the warps' uint64 keys of each
+    row; the scratch a uint64 key per query and a ticket word per query
+    tile, as csrc/am_search_packed.cu's launcher checks."""
     for b, dp, c in ((1, 13, 3), (1024, 128, 1024), (5, 1000, 100_000),
                      (32, 128, 1024), (1023, 125, 129)):
         pl = asp.launch_plan(b, dp, c, block_b, "popcount")
-        ks, cols = pl["k_split"], pl["cols"]
-        assert ks in (1, 2, 4, 8) and cols == 128 // ks
-        assert pl["rows"] == block_b and block_b % 4 == 0
+        rows, cols, warps = pl["rows"], pl["cols"], pl["warps"]
+        assert rows == max(16, block_b) and rows % 16 == 0
+        assert cols in (8, 16, 32, 64, 128) and warps == min(4, cols // 8)
+        assert (cols // 8) % warps == 0 and cols // 8 // warps in (1, 2, 4)
         gx, gy = pl["grid"]
-        assert gx * block_b >= b > (gx - 1) * block_b
+        assert gx * rows >= b > (gx - 1) * rows
         assert gy * cols >= c > (gy - 1) * cols
-        assert pl["smem"] == 4 * (block_b * 32 + 32 * cols)
+        assert pl["smem"] == (4 * (rows * 48 + 32 * max(cols + 16, 32))
+                              + 8 * warps * rows)
         assert pl["scratch_bytes"] == 8 * b + 4 * gx
 
 
@@ -371,55 +374,40 @@ def test_popcount_plan_tiles_cover_b_and_c_with_its_ring_and_scratch(block_b):
 @pytest.mark.parametrize("d", [1024, 4096])
 def test_popcount_shared_memory_fits_a_block_at_any_d(block_b, d):
     """The ring holds 32-byte slabs, so its shared memory does not grow
-    with D: under a block's limit at D = 1024 and 4096, and small enough
-    that the blocks of the main shape (B = C = 1024) fit on the SMs
-    together (about 8 a SM at the default block_b)."""
+    with D: at most 25,600 bytes (two m16 tiles, 128 columns), under a
+    block's default 48 KB at D = 1024 and 4096 alike."""
     for b in (1, 32, 1024):
         pl = asp.launch_plan(b, d // 8, 1024, block_b, "popcount")
-        assert pl["smem"] <= 4 * (32 * 32 + 32 * 128) <= SMEM_LIMIT // 10
+        assert pl["smem"] <= 4 * (32 * 48 + 32 * 144) + 8 * 4 * 32 == 25600
+        assert pl["smem"] <= 48 * 1024 <= SMEM_LIMIT
     pl = asp.launch_plan(1024, d // 8, 1024, block_b, "popcount")
     assert pl == asp.launch_plan(1024, 128, 1024, block_b, "popcount")
 
 
 def test_popcount_plan_fills_the_card_at_b_1024_and_b_32():
-    """B = C = 1024: one lane along K, 128-column splits, 2,048 warps at
-    every block_b (a warp per SM sub-partition is 528). A served request,
-    B = 32: eight lanes along K, 16-column splits, 512 warps, and a block
-    or more on each of the 132 SMs at block_b <= 8 (the first version ran
-    1 to 8 blocks at B = 32 and 32 to 256 at B = 1024)."""
+    """B = C = 1024: 128-column splits, 512 blocks of 4 warps (256 at
+    block_b 32). A served request, B = 32: 8-column splits, 256 blocks
+    of one warp (128 at block_b 32, whose one query tile leaves 8 columns
+    the narrowest split). The first version ran 1 to 8 blocks at B = 32
+    and 32 to 256 at B = 1024. Elsewhere the widest split that gives a
+    block per SM is taken."""
     for block_b in asp.BLOCK_B_CHOICES:
         pl = asp.launch_plan(1024, 128, 1024, block_b, "popcount")
         gx, gy = pl["grid"]
-        assert pl["k_split"] == 1 and gx * gy * block_b // 4 == 2048
-        assert gx * gy * block_b // 4 >= asp.FILL_WARPS == 4 * 132
+        assert pl["cols"] == 128 and pl["warps"] == 4
+        assert gx * gy == (256 if block_b == 32 else 512)
         pl = asp.launch_plan(32, 128, 1024, block_b, "popcount")
         gx, gy = pl["grid"]
-        assert pl["k_split"] == 8 and gx * gy * block_b // 4 == 512
-        if block_b <= 8:
-            assert gx * gy >= 132
-    gx, gy = asp.launch_plan(32, 128, 1024, asp.DEFAULT_BLOCK_B,
-                             "popcount")["grid"]
-    assert (gx, gy) == (4, 64)
-    # Where it can, the least k split that reaches a warp per sub-partition.
+        assert pl["cols"] == 8 and pl["warps"] == 1
+        assert gx * gy == (128 if block_b == 32 else 256)
+        assert gx * gy >= asp.FILL_BLOCKS or block_b == 32
     for b, c in ((256, 1024), (64, 300), (1, 100_000), (7, 9)):
-        for block_b in asp.BLOCK_B_CHOICES:
-            ks = asp.k_split(b, c, block_b)
-            warps = [-(-b // block_b) * -(-c // (128 // k)) * block_b // 4
-                     for k in (1, 2, 4, 8)]
-            i = (1, 2, 4, 8).index(ks)
-            assert ks == 8 or warps[i] >= asp.FILL_WARPS
-            assert i == 0 or warps[i - 1] < asp.FILL_WARPS
-
-
-def _byte_perm(x, y, sel):
-    """CUDA __byte_perm(x, y, sel) on uint32 arrays: result byte n is byte
-    (sel >> 4n) & 7 of the 8 bytes of x (0-3) and y (4-7)."""
-    both = np.stack([x, y], axis=-1).astype("<u4").view(np.uint8)
-    both = both.reshape(*x.shape, 8)
-    out = np.zeros(x.shape, dtype=np.uint32)
-    for n in range(4):
-        out |= both[..., (sel >> (4 * n)) & 7].astype(np.uint32) << (8 * n)
-    return out
+        for rows in (16, 32):
+            cols = asp.popcount_cols(b, c, rows)
+            blocks = {k: -(-b // rows) * -(-c // k)
+                      for k in (128, 64, 32, 16, 8)}
+            assert cols == 8 or blocks[cols] >= asp.FILL_BLOCKS
+            assert cols == 128 or blocks[2 * cols] < asp.FILL_BLOCKS
 
 
 def _popc(x):
@@ -427,74 +415,75 @@ def _popc(x):
         axis=-1).astype(np.int64)
 
 
-@pytest.mark.parametrize("ks", [1, 2, 4, 8])
+@pytest.mark.parametrize("cols", [8, 16, 64, 128])
 @pytest.mark.parametrize("d", [8, 100, 257, 1024])
-def test_popcount_register_tile_model_gives_the_hamming_distance(ks, d):
+def test_popcount_b1_fragments_give_the_hamming_distance(cols, d):
     """A model of popcount::search on one block: the ring stages 32-byte
     slabs zero-padded past Dp (AM byte row 4w + k at stage row 8k + w);
-    lane (column group cg, k lane s) reads, for the words w = j ks + s of
-    a slab, its 4 query words and one word from each of the 4 byte rows
-    of w at its 4 columns, transposes those into the columns' words with
-    the kernel's byte permutes, and adds 16 XOR popcounts; the ks lanes'
-    partials summed are the Hamming distances of the plain version."""
-    rng = np.random.default_rng([20, ks, d])
-    dp, rows, cols = -(-d // 8), 8, 128 // ks
-    cg_n = 32 // ks
+    lane (gid, tig) takes A words tig and 4 + tig of rows gid and gid + 8
+    (ldmatrix of the query rows) and gathers B words tig and 4 + tig of
+    column gid, byte k from row 8k + w; the m16n8k256 AND-popcount sums
+    over (lane, word) pairs, and P_q + P_a - 2 * that sum, with the
+    popcounts summed over the four lanes, is the plain Hamming distance."""
+    rng = np.random.default_rng([20, cols, d])
+    dp, rows = -(-d // 8), 16
     q = rng.integers(0, 256, (rows, dp), dtype=np.uint8)
     am_t = rng.integers(0, 256, (dp, cols), dtype=np.uint8)
-    n_slabs = -(-dp // 32)
-    ham = np.zeros((ks, rows, cols), np.int64)
-    for t in range(n_slabs):
-        qs = np.zeros((rows, 32), np.uint8)
+    # pack_rows leaves the bits past d at 0 in both operands
+    tail = np.uint8((1 << (d % 8)) - 1) if d % 8 else np.uint8(255)
+    q[:, -1] &= tail
+    am_t[-1] &= tail
+    acc = np.zeros((rows, cols), np.int64)
+    pq = np.zeros(rows, np.int64)
+    pa = np.zeros(cols, np.int64)
+    for t in range(-(-dp // 32)):
+        qs = np.zeros((rows, 48), np.uint8)
         part = q[:, 32 * t:32 * t + 32]
         qs[:, :part.shape[1]] = part
-        ast = np.zeros((32, cols), np.uint8)
+        ast = np.zeros((32, max(cols + 16, 32)), np.uint8)
         for r in range(32):
             if 32 * t + r < dp:
-                ast[(r & 3) * 8 + (r >> 2)] = am_t[32 * t + r]
-        qw = qs.view("<u4")                    # (rows, 8) words
-        aw = ast.view("<u4")                   # (32, cg_n) words
-        assert aw.shape == (32, cg_n)
-        for s in range(ks):
-            for j in range(8 // ks):
-                w = j * ks + s
-                r4 = [aw[k * 8 + w] for k in range(4)]   # (cg_n,) each
-                t0 = _byte_perm(r4[0], r4[1], 0x5140)
-                t1 = _byte_perm(r4[2], r4[3], 0x5140)
-                t2 = _byte_perm(r4[0], r4[1], 0x7362)
-                t3 = _byte_perm(r4[2], r4[3], 0x7362)
-                a = np.stack([_byte_perm(t0, t1, 0x5410),
-                              _byte_perm(t0, t1, 0x7632),
-                              _byte_perm(t2, t3, 0x5410),
-                              _byte_perm(t2, t3, 0x7632)], axis=1)
-                a = a.reshape(cols)            # column 4 cg + c
-                ham[s] += _popc(qw[:, w, None] ^ a[None, :])
+                ast[(r & 3) * 8 + (r >> 2), :cols] = am_t[32 * t + r]
+        qw = qs[:, :32].copy().view("<u4")   # (rows, 8): words of a row
+        for tig in range(4):
+            a = qw[:, [tig, 4 + tig]]            # a0/a2 (rows gid), a1/a3
+            pq += _popc(a).sum(1)
+            for n0 in range(0, cols, 8):
+                for gid in range(8):
+                    c = n0 + gid
+                    b = np.array([sum(int(ast[k * 8 + w, c]) << (8 * k)
+                                      for k in range(4))
+                                  for w in (tig, 4 + tig)], dtype=np.uint32)
+                    pa[c] += _popc(b).sum()
+                    acc[:, c] += _popc(a & b[None, :]).sum(1)
+    ham = pq[:, None] + pa[None, :] - 2 * acc
     bits_q = np.unpackbits(q, axis=1, bitorder="little")
     bits_a = np.unpackbits(am_t.T, axis=1, bitorder="little")
     want = (bits_q[:, None, :] != bits_a[None, :, :]).sum(-1)
-    assert np.array_equal(ham.sum(0), want)
+    assert np.array_equal(ham, want)
 
 
-@pytest.mark.parametrize("ks", [1, 2, 4, 8])
-def test_popcount_shared_reads_are_conflict_free(ks):
-    """Each shared load of a warp touches 32 distinct banks or broadcasts:
-    the AM word of lane (cg, s) at stage row 8k + w, w = j ks + s, column
-    group cg (rows of 128 / ks bytes); the query word w of one of the
-    warp's rows (32-byte rows)."""
-    cg_n = 32 // ks
+@pytest.mark.parametrize("cols", [8, 16, 32, 64, 128])
+def test_popcount_shared_reads_are_conflict_free(cols):
+    """Each shared load of a warp touches each bank at one address: the B
+    gather of lane (gid, tig), byte k of word 4h + tig of its n8 tile's
+    column gid, at stage row 8k + 4h + tig of max(cols + 16, 32) bytes
+    (a multiple of 16, for cp.async); and the ldmatrix rows of the query
+    ring, 48 bytes apart, in 8 distinct 16-byte bank groups."""
+    ld = max(cols + 16, 32)
+    assert ld % 16 == 0
     lanes = np.arange(32)
-    s, cg = lanes % ks, lanes // ks
-    for j in range(8 // ks):
-        w = j * ks + s
+    gid, tig = lanes >> 2, lanes & 3
+    for n0 in range(0, cols, 8):
         for k in range(4):
-            addr = (k * 8 + w) * cg_n + cg
-            assert len(set(addr % 32)) == 32
-        for i in range(4):
-            addr = i * 8 + w
-            banks = {}
-            for a in addr:
-                banks.setdefault(a % 32, set()).add(a)
-            assert all(len(v) == 1 for v in banks.values())
+            for h in range(2):
+                byte = (k * 8 + 4 * h + tig) * ld + n0 + gid
+                banks = {}
+                for a in byte // 4:
+                    banks.setdefault(a % 32, set()).add(a)
+                assert all(len(v) == 1 for v in banks.values())
+    groups = {(r * 48 // 16) % 8 for r in range(8)}
+    assert len(groups) == 8
 
 
 def _split_fold(ham, cols):
@@ -513,7 +502,7 @@ def _split_fold(ham, cols):
         best >> np.uint64(32)).astype(np.int64)
 
 
-@pytest.mark.parametrize("cols", [16, 32, 64, 128])
+@pytest.mark.parametrize("cols", [8, 16, 32, 64, 128])
 def test_split_key_fold_is_first_wins_across_splits(cols):
     """Exact copies of each query (the tied maximum, Hamming 0) planted in
     two different column splits, the lower copy in the earlier split for
