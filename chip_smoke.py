@@ -11,7 +11,8 @@ script exits non-zero without the final result line:
    kernels/csrc`` for sm_90a, one process each, all at once (timed, with
    ptxas' register, stack and spill report; the instances of the ADC
    searches and of the search pass ``am_search`` shares with
-   ``am_search_imc`` again on a line of their own, ``ptxas_adc``);
+   ``am_search_imc`` again on a line of their own, ``ptxas_adc``), and
+   beside them the tensor-core rate probe ``tools/mma_rate.cu``;
 2. each kernel against its plain PyTorch version on the card, over the
    differential geometry grid, tie and padding cases and the full-width
    shapes: ``pack_bits``, ``am_search_packed`` (both modes, every block
@@ -139,7 +140,11 @@ script exits non-zero without the final result line:
    the kernel's clock64() stamps). Before it, on a
    line of its own, the tile
    sweep of the fp32 mainloop that ``binary_mvm`` and ``encode_pack``
-   share (``sgemm_tile_sweep``: every tile bit-exact, then timed).
+   share (``sgemm_tile_sweep``: every tile bit-exact, then timed), and
+   the ``rates`` line: the peaks the bounds use, the SM count and clock,
+   and ``mma_rate``, the measured issue rates of the int8 and the 1-bit
+   ``mma.sync`` (whose ratio sets the 1-bit peak that bounds popcount
+   mode).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -164,9 +169,16 @@ FP32_FLOP_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
+# The 1-bit tensor-core peak (mma.sync.m16n8k256 .b1 .and.popc), which
+# the data sheet does not give: tools/mma_rate.cu measures one b1 mma
+# issuing at the rate of one m16n8k32 .s8 mma while covering 8x its
+# elements (the ratio this run measures is logged in "rates"), so the
+# peak is 8x the int8 one.
+B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 # Hopper issues __popc at 16 results per clock per SM (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute 9.0).
 POPC_PER_CLK_PER_SM = 16
+MMA_RATE_SRC = os.path.join(HERE, "tools", "mma_rate.cu")
 
 # Differential grid (batch, features, dim, columns): the reference's
 # tests/test_kernel_parity.py GEOMS, plus Dp = 13 (D = 100, not a
@@ -386,8 +398,21 @@ class Smoke:
     def build(self):
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
-        path = _build.build()
-        _build.lib()
+        # tools/mma_rate.cu, compiled beside the kernels and run in the
+        # kernels line's "rates" phase.
+        out_dir = os.path.join(HERE, "build", "mma_rate")
+        os.makedirs(out_dir, exist_ok=True)
+        self.mma_rate_bin = os.path.join(out_dir, "mma_rate")
+        nvcc = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-o",
+             self.mma_rate_bin, MMA_RATE_SRC],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            path = _build.build()
+            _build.lib()
+        finally:
+            nvcc_out = nvcc.communicate(timeout=600)[0]
+        check(nvcc.returncode == 0, ("nvcc tools/mma_rate.cu", nvcc_out))
         regs = [ln.strip() for ln in _build.build_log.splitlines()
                 if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
         log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -482,6 +507,7 @@ class Smoke:
         am[1 + 3 * i[:20]] = q[:20]
         want_idx = torch.where(i < 20, 1 + 3 * i, win).to(torch.int32)
         am_t = ref.pack_rows(am).T.contiguous()
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         splits = {}
         for b in (300, 32):
             qp = ref.pack_rows(q[:b]).contiguous()
@@ -497,7 +523,7 @@ class Smoke:
                           ("split ties", mode, b, bb))
                     if mode == "popcount":
                         splits[f"B{b}_block_b{bb}"] = asp.launch_plan(
-                            b, d // 8, c, bb, mode)["cols"]
+                            b, d // 8, c, bb, mode, sms)["cols"]
         return {"columns_per_split": splits}
 
     def check_hier_kernels(self):
@@ -2179,7 +2205,7 @@ class Smoke:
                     lambda: ams.am_search(dy, am_binary.T)),
                 "bound_ms_fp32_route": ms, "bound_by_fp32_route": by}
 
-    def popcount_extra(self, qp, am_t) -> dict:
+    def popcount_extra(self, qp, am_t, sms) -> dict:
         """Popcount mode at every block_b (B = 1024) and at a served
         request's B = 32 (default block_b), with the launch plans."""
         from repro_torch.kernels import am_search_packed as asp
@@ -2188,19 +2214,19 @@ class Smoke:
         d = FULL[2]
         q32 = qp[:32].contiguous()
         ms32, by32 = bound(q32.numel() + am_t.numel() + 8 * 32,
-                           2 * 32 * c * d, INT8_OPS_PER_S)
+                           2 * 32 * c * d, B1_OPS_PER_S)
         return {
             "ms_by_block_b": {bb: time_device_ms(
                 lambda: asp.am_search_packed(qp, am_t, n_dims=d, block_b=bb))
                 for bb in asp.BLOCK_B_CHOICES},
             "grid_by_block_b": {bb: asp.launch_plan(
-                b, dp, c, bb, "popcount")["grid"]
+                b, dp, c, bb, "popcount", sms)["grid"]
                 for bb in asp.BLOCK_B_CHOICES},
             "ms_b32": time_device_ms(
                 lambda: asp.am_search_packed(q32, am_t, n_dims=d)),
             "bound_ms_b32": ms32, "bound_by_b32": by32,
             "plan_b32": asp.launch_plan(32, dp, c, asp.DEFAULT_BLOCK_B,
-                                        "popcount")}
+                                        "popcount", sms)}
 
     def kernel_line(self):
         np, torch = self.np, self.torch
@@ -2212,6 +2238,9 @@ class Smoke:
         from repro_torch.kernels import ref
 
         sms = torch.cuda.get_device_properties(0).multi_processor_count
+        mma_rates = json.loads(subprocess.run(
+            [self.mma_rate_bin], capture_output=True, text=True, check=True,
+            timeout=120).stdout)
         clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
         popc_rate = sms * POPC_PER_CLK_PER_SM * clk_mhz * 1e6
         b, f, d, c = FULL
@@ -2247,17 +2276,17 @@ class Smoke:
              lambda: pack_bits.pack_bits(q), lambda: ref.pack_bits(q),
              bound(q.numel() * 4 + q.numel() // 8, q.numel(),
                    FP32_FLOP_PER_S)),
-            # Both packed modes: the Hamming search of packed bits is, on
-            # ±1/0 operands that are exact in int8, a 2*B*C*D-op int8
-            # product at the tensor-core rate: a lower bound than the
-            # 32-bit popcount count at the popc rate (logged in "rates").
+            # Popcount mode: 2*B*C*D AND + popcount ops on the 1-bit
+            # tensor cores, at their rate. (The first version's 32-bit
+            # popcounts at the SMs' popc rate had a higher floor, logged
+            # in "rates".)
             ("am_search_packed",
              "src/repro_torch/kernels/csrc/am_search_packed.cu",
              "src/repro/kernels/am_search_packed.py:167",
              lambda: asp.am_search_packed(qp, am_t, n_dims=d),
              lambda: ref.am_search_packed(qp, am_t, d),
              bound(qp.numel() + am_t.numel() + 8 * b, 2 * b * c * d,
-                   INT8_OPS_PER_S)),
+                   B1_OPS_PER_S)),
             ("encode_pack", "src/repro_torch/kernels/csrc/encode_pack.cu",
              "src/repro/kernels/encode_fused.py:97",
              lambda: encode_fused.encode_pack(feats, proj),
@@ -2403,7 +2432,7 @@ class Smoke:
         row["shape_serve"] = FD_SERVE
         rows = {r["name"]: r for r in out}
         rows["am_search"].update(self.am_search_extra(q, am_binary))
-        rows["am_search_packed"].update(self.popcount_extra(qp, am_t))
+        rows["am_search_packed"].update(self.popcount_extra(qp, am_t, sms))
         row = out[[r["name"] for r in out].index("am_search_packed_unpack")]
         row["ms_by_block_b"] = {
             bb: time_device_ms(lambda: asp.am_search_packed(
@@ -2462,9 +2491,11 @@ class Smoke:
                 for bb in qail_update.BLOCK_B_CHOICES}})
         log({"phase": "rates", "sms": sms, "max_sm_clock_mhz": clk_mhz,
              "popc_per_s": popc_rate,
-             "packed_search_popc_bound_ms": b * c * -(-dp // 4)
-                                            / popc_rate * 1e3,
+             "packed_search_simt_popc_floor_ms": b * c * -(-dp // 4)
+                                                 / popc_rate * 1e3,
+             "mma_rate": mma_rates,
              "int8_ops_per_s": INT8_OPS_PER_S,
+             "b1_ops_per_s": B1_OPS_PER_S,
              "bf16_flop_per_s": BF16_FLOP_PER_S,
              "tf32_flop_per_s": TF32_FLOP_PER_S,
              "fp32_flop_per_s": FP32_FLOP_PER_S,

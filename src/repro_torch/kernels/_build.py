@@ -47,7 +47,7 @@ SIGNATURES = {
     "pack_bits_launch": (_P, _P, _I64, _P),
     "unpack_bits_launch": (_P, _P, _I64, _P),
     "am_search_packed_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I64, _P),
+                                _I, _I, _I, _I, _I, _I64, _I, _P),
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "am_search_launch": (_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -25,24 +25,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels import am_search_imc as asi
+from repro_torch.kernels import _search_pass as sp
 
 ROUTES = _build.RouteCounts.NAMES
 _ROUTES = _build.RouteCounts()
 
 
 def launch_plan(b: int, d: int, c: int) -> dict:
-    """The launch for B queries against a (D, C) AM: ``am_search_imc``'s
-    (``csrc/search_pass.cuh``) with one slab of D."""
-    return asi.plan(b, d, c, d, rows=asi.BLOCK_ROWS, am_copy=True,
-                    threads=asi.THREADS, smem=asi.SMEM,
-                    fp32_step=asi.FP32_STEP)
+    """The launch for B queries against a (D, C) AM: the search pass of
+    ``csrc/search_pass.cuh`` with one slab of D."""
+    return sp.search_plan(b, d, c, d)
 
 
 def int8_route(q: torch.Tensor, am_t: torch.Tensor) -> bool:
     """Whether the kernel takes its int8 route for these operands: the
     search pass's test of the convert pass's flags, mirrored."""
-    return asi.int8_route(q, am_t, q.shape[1])
+    return sp.int8_route(q, am_t, q.shape[1])
 
 
 def routes(device: torch.device) -> torch.Tensor:
@@ -102,7 +100,7 @@ def am_search(q: torch.Tensor, am_t: torch.Tensor,
             q.data_ptr(), am_t.data_ptr(), am_t.stride(0), am_t.stride(1),
             scratch.data_ptr(), p["scratch_bytes"],
             routes(q.device).data_ptr(), idx.data_ptr(), sim.data_ptr(), b,
-            d, c, *asi.launch_args(p), _build.stream_of(q))
+            d, c, *sp.launch_args(p), _build.stream_of(q))
     _build.check(err, "am_search")
     am_search.launches += 1
     return idx, sim

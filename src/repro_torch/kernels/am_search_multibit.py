@@ -25,10 +25,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.am_search_imc import (
-    BLOCK_COLS, EXACT, INT8_STAGES, K_STAGE, SUM_LD, THREADS, check_readout,
-    launch_args, plan, small_integers,
+from repro_torch.kernels._search_pass import (
+    BLOCK_COLS, EXACT, INT8_STAGES, K_STAGE, SUM_LD, THREADS, launch_args,
+    plan, small_integers,
 )
+from repro_torch.kernels.am_search_imc import check_readout
 
 # csrc/am_search_multibit.cu: queries of a search block (the reference's
 # autotuned batch tile has no counterpart, ROADMAP queue 1 item 15), dims
@@ -48,7 +49,7 @@ _ROUTES = _build.RouteCounts()
 
 def launch_plan(b: int, d: int, c: int, tile_rows: int) -> dict:
     """``am_search_multibit``'s launch for B queries against C columns of
-    D dims (``am_search_imc.plan`` without the AM copy)."""
+    D dims (``_search_pass.plan`` without the AM copy)."""
     return plan(b, d, c, tile_rows, rows=BLOCK_ROWS, am_copy=False,
                 threads=THREADS, smem=SMEM, fp32_step=FP32_STEP)
 

@@ -41,10 +41,9 @@ MODES = ("popcount", "unpack")
 _SLAB, _STAGES, _QSTR = 32, 4, 48
 UNPACK_COLS = 128
 _WARPS, _ASTR = 4, UNPACK_COLS + 16
-# popcount mode: the widest and narrowest column split, and the blocks
-# that fill an H100 (one per SM).
+# popcount mode: the widest and narrowest column split (the grid is to
+# have a block per SM of the device, ``popcount_cols``).
 POPCOUNT_COLS, _MIN_COLS = 128, 8
-FILL_BLOCKS = 132
 _MAX_GRID_Y = 65535
 
 
@@ -71,10 +70,19 @@ _SCRATCH: dict[tuple, torch.Tensor] = {}
 
 def fold_scratch(device: torch.device, stream: int,
                  nbytes: int) -> torch.Tensor:
-    """The fold's scratch (keys and tickets) for launches on ``stream``:
-    both modes start from all ones and leave it all ones, so a buffer is
+    """The fold's scratch (keys and tickets) for launches on ``stream``.
+
+    Both modes start from all ones and leave it all ones, so a buffer is
     filled once, when it is made or grown, and then reused by the
-    stream's launches, which run in order."""
+    stream's launches, which run in order. That holds only while every
+    launch on it runs to its end: ``am_search_packed`` drops the buffer
+    when a launch reports an error (a kernel that faults leaves the
+    context unusable, so no later launch reads it), and a launch captured
+    into a CUDA graph gets a buffer of its own, filled in the graph, that
+    is not kept."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.full((max(nbytes, 4096),), 255, dtype=torch.uint8,
+                          device=device)
     key = (device, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < nbytes:
@@ -84,22 +92,25 @@ def fold_scratch(device: torch.device, stream: int,
     return buf
 
 
-def popcount_cols(b: int, c: int, rows: int) -> int:
+def popcount_cols(b: int, c: int, rows: int, sms: int) -> int:
     """Popcount mode's columns per block (``popcount::block_cols``): the
-    widest of 128, 64, ..., 8 whose grid has ``FILL_BLOCKS`` blocks, else
-    8."""
+    widest of 128, 64, ..., 8 whose grid has a block per SM (``sms``
+    blocks), else 8."""
     tiles, cols = -(-b // rows), POPCOUNT_COLS
-    while cols > _MIN_COLS and tiles * -(-c // cols) < FILL_BLOCKS:
+    while cols > _MIN_COLS and tiles * -(-c // cols) < sms:
         cols //= 2
     return cols
 
 
-def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
-    """The kernel's launch for B queries, Dp packed bytes and C columns.
+def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str,
+                sms: int) -> dict:
+    """The kernel's launch for B queries, Dp packed bytes and C columns on
+    a device of ``sms`` SMs (``multi_processor_count``; 132 on an H100).
 
     Both modes: a grid of (query tiles, column splits), and a scratch of a
     uint64 key per query and a ticket word per query tile, all ones before
-    and after a launch (``fold_scratch``).
+    and after a launch (``fold_scratch``). ``sms`` is part of the plan,
+    and the launcher refuses a plan made for another device.
 
     popcount: ``rows`` = max(16, block_b) queries (one or two m16 tiles
     of ``mma.sync`` b1) by ``cols`` = ``popcount_cols`` columns, a block of
@@ -121,16 +132,16 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str) -> dict:
         smem = _up(_up(ring, 8) + 12 * _WARPS * rows + 4, 8)
         return {"rows": rows, "cols": UNPACK_COLS,
                 "grid": (tiles, -(-c // UNPACK_COLS)), "smem": smem,
-                "scratch_bytes": 8 * b + 4 * tiles}
+                "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
     rows = max(16, block_b)
-    cols = popcount_cols(b, c, rows)
+    cols = popcount_cols(b, c, rows, sms)
     warps = min(4, cols // 8)
     tiles = -(-b // rows)
     return {"rows": rows, "cols": cols, "warps": warps,
             "grid": (tiles, -(-c // cols)),
             "smem": (_STAGES * (rows * _QSTR + _SLAB * max(cols + 16, 32))
                      + 8 * warps * rows),
-            "scratch_bytes": 8 * b + 4 * tiles}
+            "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
 
 
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
@@ -177,7 +188,9 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     _build.check_operand(am_packed_t, "am_packed_t", torch.uint8, 2)
     if block_b not in BLOCK_B_CHOICES:
         raise ValueError(f"block_b={block_b} not in {BLOCK_B_CHOICES}")
-    plan = launch_plan(b, dp, c, block_b, mode)
+    sms = torch.cuda.get_device_properties(
+        q_packed.device).multi_processor_count
+    plan = launch_plan(b, dp, c, block_b, mode, sms)
     if plan["grid"][1] > _MAX_GRID_Y:
         raise ValueError(f"C={c} needs more column splits than a grid has")
     idx = torch.empty((b,), dtype=torch.int32, device=q_packed.device)
@@ -193,7 +206,9 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
             sim.data_ptr(), buf.data_ptr(), b, dp,
             c, n_dims, block_b, MODES.index(mode), plan["rows"],
             plan["cols"], *plan["grid"], plan["smem"], plan["scratch_bytes"],
-            stream)
+            plan["sms"], stream)
+    if err:
+        _SCRATCH.pop((q_packed.device, stream), None)
     _build.check(err, "am_search_packed")
     if mode == "unpack":
         am_search_packed.unpack_launches += 1

@@ -20,11 +20,14 @@
 // C steps in VMEM scratch).
 //
 // Bound on the H100: operations. At the main path's B = C = D = 1024 the
-// operands are 128 KB + 128 KB, and the search is, on ±1/0 operands exact
-// in int8, a 2*B*C*D = 2.1 G-op int8 product: 1.1 us at 1,979 TOP/s.
-// Counted as 32-bit popcounts on the SMs' popc units instead (B*C*D/32 =
-// 33.6 M __popc at 16 per clock per SM) it is about 8 us: the floor of
-// the first version's arithmetic, which the 1-bit tensor cores pass.
+// operands are 128 KB + 128 KB (0.08 us at 3.35 TB/s), and popcount mode
+// is 2*B*C*D = 2.1 G AND + popcount ops on the 1-bit tensor cores. An
+// m16n8k256 .b1 mma issues at the rate of an m16n8k32 .s8 one and covers
+// 8x its elements (tools/mma_rate.cu), so the 1-bit peak is 8 x 1,979 =
+// 15,832 TOP/s: 0.136 us. Unpack mode is the same 2.1 G ops on the int8
+// tensor cores: 1.1 us at 1,979 TOP/s. (Counted as 32-bit popcounts on
+// the SMs' popc units, B*C*D/32 = 33.6 M __popc at 16 per clock per SM,
+// the first version's arithmetic had a floor of about 8 us.)
 //
 // Popcount mode (popcount::search): AND + popcount on the 1-bit tensor
 // cores. What held the first version back (0.0548 ms at the main shape):
@@ -40,7 +43,8 @@
 //   times the elements of an int8 m16n8k32 step.
 // * Grid: (query tiles of max(16, block_b) rows: one or two m16 tiles) x
 //   (column splits of 128 columns, halved down to 8 while the grid has
-//   fewer than 132 blocks): 512 blocks at B = 1024, 256 blocks of 8
+//   fewer blocks than the device has SMs, 132 on an H100): 512 blocks at
+//   B = 1024, 256 blocks of 8
 //   columns at B = 32. A block has up to 4 warps, each owning 1, 2 or 4 n8
 //   tiles of the split and every row of the tile.
 // * Staging: both operands' packed bytes stream through a 4-stage
@@ -174,15 +178,14 @@ constexpr int KW = SLAB / 4;       // 32-bit words of a slab
 constexpr int QSTR = 48;           // ring row stride of a query (32 bytes used)
 constexpr int MAX_COLS = 128;      // columns of a block: 128, 64, ..., 8
 constexpr int MIN_COLS = 8;
-constexpr long long FILL_BLOCKS = 132;  // a block per H100 SM
 
-// Columns of a block for query tiles of `rows`: the widest whose grid has
-// FILL_BLOCKS blocks, else MIN_COLS (kernels/am_search_packed.py:
-// popcount_cols mirrors it).
-inline int block_cols(int B, int C, int rows) {
+// Columns of a block for query tiles of `rows` on a device of `sms` SMs:
+// the widest whose grid has a block per SM, else MIN_COLS
+// (kernels/am_search_packed.py: popcount_cols mirrors it).
+inline int block_cols(int B, int C, int rows, int sms) {
   const long long tiles = (B + rows - 1) / rows;
   int cols = MAX_COLS;
-  while (cols > MIN_COLS && tiles * ((C + cols - 1) / cols) < FILL_BLOCKS)
+  while (cols > MIN_COLS && tiles * ((C + cols - 1) / cols) < sms)
     cols /= 2;
   return cols;
 }
@@ -362,10 +365,10 @@ template <int MI>
 int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
            void* sim, int B, int Dp, int C, int n_dims, int cols,
            int grid_x, int grid_y, int smem, long long scratch_bytes,
-           cudaStream_t stream) {
+           int sms, cudaStream_t stream) {
   constexpr int R = 16 * MI;
   const int tiles = (B + R - 1) / R;
-  if (cols != block_cols(B, C, R) || grid_x != tiles ||
+  if (cols != block_cols(B, C, R, sms) || grid_x != tiles ||
       grid_y != (C + cols - 1) / cols || smem != smem_bytes(R, cols) ||
       !scratch_is(scratch, scratch_bytes, B, tiles) || grid_y > 65535)
     return (int)cudaErrorInvalidValue;
@@ -603,19 +606,25 @@ int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
 // grid_y, smem and scratch_bytes are the wrapper's launch plan
 // (kernels/am_search_packed.py launch_plan), refused
 // (cudaErrorInvalidValue) unless it is this launcher's own for (B, Dp, C,
-// block_b, mode): max(16, block_b) rows; popcount, popcount::block_cols
-// columns and the ring's dynamic shared memory; unpack, 128 columns and
-// the static Smem; both, a (query tiles, column splits) grid and 8 B + 4
-// per query tile of scratch. Returns the cudaError_t of the launch (0 on
-// success).
+// block_b, mode) on the current device: max(16, block_b) rows; popcount,
+// popcount::block_cols columns and the ring's dynamic shared memory;
+// unpack, 128 columns and the static Smem; both, a (query tiles, column
+// splits) grid, 8 B + 4 per query tile of scratch and sms the device's SM
+// count. Returns the cudaError_t of the launch (0 on success).
 extern "C" int am_search_packed_launch(
     const void* q, const void* am_t, void* idx, void* sim, void* scratch,
     int B, int Dp, int C, int n_dims, int block_b, int mode, int rows,
     int cols, int grid_x, int grid_y, int smem, long long scratch_bytes,
-    void* stream) {
+    int sms, void* stream) {
   if (B <= 0) return 0;
   if (block_b != 4 && block_b != 8 && block_b != 16 && block_b != 32)
     return (int)cudaErrorInvalidValue;
+  int dev = 0, dev_sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&dev_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (sms != dev_sms) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* qb = static_cast<const uint8_t*>(q);
   const auto* ab = static_cast<const uint8_t*>(am_t);
@@ -634,10 +643,10 @@ extern "C" int am_search_packed_launch(
   if (block_b == 32)
     return rows == 32 ? popcount::launch<2>(qb, ab, scratch, idx, sim, B, Dp,
                                             C, n_dims, cols, grid_x, grid_y,
-                                            smem, scratch_bytes, s)
+                                            smem, scratch_bytes, sms, s)
                       : (int)cudaErrorInvalidValue;
   return rows == 16 ? popcount::launch<1>(qb, ab, scratch, idx, sim, B, Dp,
                                           C, n_dims, cols, grid_x, grid_y,
-                                          smem, scratch_bytes, s)
+                                          smem, scratch_bytes, sms, s)
                     : (int)cudaErrorInvalidValue;
 }

@@ -174,7 +174,9 @@ def test_popcount_ties_across_column_splits_at_a_served_batch(dev, b,
     equal the plain version."""
     rng = np.random.default_rng([20, b, block_b])
     d, c = 1024, 1024
-    assert asp.launch_plan(b, d // 8, c, block_b, "popcount")["cols"] == 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert asp.launch_plan(b, d // 8, c, block_b, "popcount",
+                           sms)["cols"] == 8
     am = bipolar(rng, (c, d), dev)
     q = bipolar(rng, (b, d), dev)
     i = torch.arange(b, device=dev)
@@ -941,7 +943,8 @@ def test_am_search_sparse_phase_clocks(dev):
 
 
 UNPACK_FIELDS = [("rows", 16), ("cols", 64), ("grid", (1, 0)),
-                 ("grid", (0, 1)), ("smem", 8), ("scratch_bytes", 8)]
+                 ("grid", (0, 1)), ("smem", 8), ("scratch_bytes", 8),
+                 ("sms", 1)]
 
 
 @pytest.mark.parametrize("mode", asp.MODES)
@@ -949,12 +952,15 @@ UNPACK_FIELDS = [("rows", 16), ("cols", 64), ("grid", (1, 0)),
 def test_am_search_packed_launcher_refuses_another_plan(dev, monkeypatch,
                                                         mode, field, delta):
     """The launcher takes the wrapper's launch_plan and refuses one that
-    is not its own grid, tiles, shared memory or scratch, in both modes
-    (popcount mode's columns and grid follow its k split)."""
+    is not its own grid, tiles, shared memory, scratch or SM count, in
+    both modes (popcount mode's columns and grid follow its k split and
+    the SM count); the refused launch drops the stream's fold scratch, and
+    the next launch equals the plain version."""
     rng = np.random.default_rng(29)
     q = ref.pack_rows(bipolar(rng, (40, 200), dev))
     am_t = ref.pack_rows(bipolar(rng, (300, 200), dev)).T.contiguous()
-    plan = asp.launch_plan(40, 25, 300, 8, mode)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = asp.launch_plan(40, 25, 300, 8, mode, sms)
     asp.am_search_packed(q, am_t, n_dims=200, mode=mode)  # as computed
     bad = dict(plan)
     if field == "grid":
@@ -964,6 +970,12 @@ def test_am_search_packed_launcher_refuses_another_plan(dev, monkeypatch,
     monkeypatch.setattr(asp, "launch_plan", lambda *a: bad)
     with pytest.raises(RuntimeError, match="cudaError_t"):
         asp.am_search_packed(q, am_t, n_dims=200, mode=mode)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    assert (q.device, stream) not in asp._SCRATCH
+    monkeypatch.undo()
+    got = asp.am_search_packed(q, am_t, n_dims=200, mode=mode)
+    want = ref.am_search_packed(q, am_t, 200)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("gathered", [False, True])

@@ -303,6 +303,7 @@ def test_ssd_split_products_stay_inside_the_tolerance(geom, q, route):
 # -- am_search_packed ------------------------------------------------------
 
 SMEM_LIMIT = 232448  # shared memory one block may opt into (H100)
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("b,c", [(1, 1), (1, 127), (16, 128), (17, 129),
@@ -313,7 +314,7 @@ def test_unpack_plan_tiles_cover_b_and_c(b, c, block_b):
     """Unpack mode: blocks of max(16, block_b) rows (whole m16 tiles) by
     128 columns cover B and C with no empty block; the scratch holds a
     uint64 key per query and a ticket word per query tile."""
-    pl = asp.launch_plan(b, 128, c, block_b, "unpack")
+    pl = asp.launch_plan(b, 128, c, block_b, "unpack", H100_SMS)
     rows, cols = pl["rows"], pl["cols"]
     assert rows == max(16, block_b) and rows % 16 == 0 and cols == 128
     gx, gy = pl["grid"]
@@ -331,7 +332,8 @@ def test_unpack_plan_shared_memory_is_the_kernels_static_smem(block_b, smem):
     and the last-block flag, rounded to 8; any D, well under a block's
     limit."""
     for dp in (1, 13, 128, 1000):
-        assert asp.launch_plan(64, dp, 300, block_b, "unpack")["smem"] == smem
+        pl = asp.launch_plan(64, dp, 300, block_b, "unpack", H100_SMS)
+        assert pl["smem"] == smem
     assert smem <= SMEM_LIMIT // 8
 
 
@@ -339,10 +341,11 @@ def test_unpack_plan_fills_the_card_at_the_main_shape():
     """B = C = 1024: at least a block per SM of the 132 at every block_b,
     and at the default (16-row blocks) about four (512 blocks)."""
     for block_b in asp.BLOCK_B_CHOICES:
-        gx, gy = asp.launch_plan(1024, 128, 1024, block_b, "unpack")["grid"]
+        gx, gy = asp.launch_plan(1024, 128, 1024, block_b, "unpack",
+                                 H100_SMS)["grid"]
         assert gx * gy >= 132
     gx, gy = asp.launch_plan(1024, 128, 1024, asp.DEFAULT_BLOCK_B,
-                             "unpack")["grid"]
+                             "unpack", H100_SMS)["grid"]
     assert (gx, gy) == (64, 8)
 
 
@@ -357,7 +360,7 @@ def test_popcount_plan_tiles_cover_b_and_c_with_its_ring_and_scratch(block_b):
     tile, as csrc/am_search_packed.cu's launcher checks."""
     for b, dp, c in ((1, 13, 3), (1024, 128, 1024), (5, 1000, 100_000),
                      (32, 128, 1024), (1023, 125, 129)):
-        pl = asp.launch_plan(b, dp, c, block_b, "popcount")
+        pl = asp.launch_plan(b, dp, c, block_b, "popcount", H100_SMS)
         rows, cols, warps = pl["rows"], pl["cols"], pl["warps"]
         assert rows == max(16, block_b) and rows % 16 == 0
         assert cols in (8, 16, 32, 64, 128) and warps == min(4, cols // 8)
@@ -377,11 +380,13 @@ def test_popcount_shared_memory_fits_a_block_at_any_d(block_b, d):
     with D: at most 25,600 bytes (two m16 tiles, 128 columns), under a
     block's default 48 KB at D = 1024 and 4096 alike."""
     for b in (1, 32, 1024):
-        pl = asp.launch_plan(b, d // 8, 1024, block_b, "popcount")
+        pl = asp.launch_plan(b, d // 8, 1024, block_b, "popcount",
+                             H100_SMS)
         assert pl["smem"] <= 4 * (32 * 48 + 32 * 144) + 8 * 4 * 32 == 25600
         assert pl["smem"] <= 48 * 1024 <= SMEM_LIMIT
-    pl = asp.launch_plan(1024, d // 8, 1024, block_b, "popcount")
-    assert pl == asp.launch_plan(1024, 128, 1024, block_b, "popcount")
+    pl = asp.launch_plan(1024, d // 8, 1024, block_b, "popcount", H100_SMS)
+    assert pl == asp.launch_plan(1024, 128, 1024, block_b, "popcount",
+                                 H100_SMS)
 
 
 def test_popcount_plan_fills_the_card_at_b_1024_and_b_32():
@@ -392,22 +397,45 @@ def test_popcount_plan_fills_the_card_at_b_1024_and_b_32():
     and 32 to 256 at B = 1024. Elsewhere the widest split that gives a
     block per SM is taken."""
     for block_b in asp.BLOCK_B_CHOICES:
-        pl = asp.launch_plan(1024, 128, 1024, block_b, "popcount")
+        pl = asp.launch_plan(1024, 128, 1024, block_b, "popcount", H100_SMS)
         gx, gy = pl["grid"]
         assert pl["cols"] == 128 and pl["warps"] == 4
         assert gx * gy == (256 if block_b == 32 else 512)
-        pl = asp.launch_plan(32, 128, 1024, block_b, "popcount")
+        pl = asp.launch_plan(32, 128, 1024, block_b, "popcount", H100_SMS)
         gx, gy = pl["grid"]
         assert pl["cols"] == 8 and pl["warps"] == 1
         assert gx * gy == (128 if block_b == 32 else 256)
-        assert gx * gy >= asp.FILL_BLOCKS or block_b == 32
+        assert gx * gy >= H100_SMS or block_b == 32
     for b, c in ((256, 1024), (64, 300), (1, 100_000), (7, 9)):
         for rows in (16, 32):
-            cols = asp.popcount_cols(b, c, rows)
+            cols = asp.popcount_cols(b, c, rows, H100_SMS)
             blocks = {k: -(-b // rows) * -(-c // k)
                       for k in (128, 64, 32, 16, 8)}
-            assert cols == 8 or blocks[cols] >= asp.FILL_BLOCKS
-            assert cols == 128 or blocks[2 * cols] < asp.FILL_BLOCKS
+            assert cols == 8 or blocks[cols] >= H100_SMS
+            assert cols == 128 or blocks[2 * cols] < H100_SMS
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132, 144, 10_000])
+def test_popcount_plan_follows_the_devices_sm_count(sms):
+    """The column split is picked for the SM count the plan is made for
+    (the launcher refuses a plan made for another device): the widest
+    split whose grid has a block per SM, 128 columns on a one-SM device,
+    8 where no split fills the device; unpack mode's grid does not depend
+    on it."""
+    for b, c in ((32, 1024), (1024, 1024), (1, 100_000), (300, 129)):
+        for block_b in asp.BLOCK_B_CHOICES:
+            pl = asp.launch_plan(b, 128, c, block_b, "popcount", sms)
+            rows, cols = pl["rows"], pl["cols"]
+            assert pl["sms"] == sms
+            tiles = -(-b // rows)
+            assert cols == 8 or tiles * -(-c // cols) >= sms
+            assert cols == 128 or tiles * -(-c // (2 * cols)) < sms
+            assert pl["grid"] == (tiles, -(-c // cols))
+            un = asp.launch_plan(b, 128, c, block_b, "unpack", sms)
+            assert un == {**asp.launch_plan(b, 128, c, block_b, "unpack",
+                                            H100_SMS), "sms": sms}
+    assert asp.launch_plan(32, 128, 1024, 8, "popcount", 1)["cols"] == 128
+    assert asp.launch_plan(32, 128, 1024, 8, "popcount", 10_000)["cols"] == 8
 
 
 def _popc(x):
@@ -654,7 +682,6 @@ def test_sparse_plain_reads_out_of_range_entries_as_the_null_tile():
 
 # -- am_search_imc and am_search_multibit -------------------------------------
 
-H100_SMS = 132
 SMEM_PER_SM = 233472  # shared memory of an H100 SM; 1 KB of it per block
 ADC_PLANS = {"imc": asi.launch_plan, "multibit": asm.launch_plan}
 
