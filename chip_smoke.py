@@ -12,7 +12,8 @@ script exits non-zero without the final result line:
    ptxas' register, stack and spill report; the instances of the ADC
    searches and of the search pass ``am_search`` shares with
    ``am_search_imc`` again on a line of their own, ``ptxas_adc``), and
-   beside them the tensor-core rate probe ``tools/mma_rate.cu``;
+   beside them the tensor-core rate probe ``tools/mma_rate.cu`` and the
+   empty kernel of ``tools/launch_floor.cu``;
 2. each kernel against its plain PyTorch version on the card, over the
    differential geometry grid, tie and padding cases and the full-width
    shapes: ``pack_bits``, ``am_search_packed`` (both modes, every block
@@ -37,7 +38,8 @@ script exits non-zero without the final result line:
    ``am_search_sparse`` (fused and ``am_search_sparse_gathered``) bit-exact
    over D in {8, 100, 1000, 1024}, G and C in {1, 2, 45, 448} and ragged
    counts, S in {1, 3, G}, k in {1, 5, candidates + 2}, forced ties and
-   the global-scratch path;
+   the global-scratch path; ``am_shortlist`` at its plan's G split, each
+   launch's route (tile or stream) counted;
 3. the main path at the paper's widest MNIST point (f = 784, D = C =
    1024, R = 0.8, lr = 0.02, batch 256, 25 k-means iterations) on the
    full synthetic MNIST: ``MemhdModel.create`` -> ``fit`` ->
@@ -133,7 +135,15 @@ script exits non-zero without the final result line:
    (B = 2: ``ms_serve_shape``, its bound) and the bound at the fp32 FMA rate
    (``bound_ms_fp32_fma``) beside the tensor-core one; the
    ``am_search_packed_unpack`` row the time at each ``block_b``
-   (``ms_by_block_b``); the ``am_search_sparse`` row the gathered entry on
+   (``ms_by_block_b``); the ``am_shortlist`` row (S = 8, on its tile route,
+   bound at the 1-bit rate) its plan, S = 16 (``ms_s16``), its plan's G
+   split timed against one split and against the narrowest at B = 256,
+   512, 1024 and 2048 (``ms_by_batch``) and ``routes``; a row of its own,
+   ``am_shortlist_served``, at the served hierarchical shape (B = 32, the
+   main model's G = 45, S = G); ``pack_bits`` and ``unpack_bits`` their
+   plans' grids; every row ``launch_floor_ms``, the empty kernel's time
+   (``tools/launch_floor.cu``, timed as the kernels are); the
+   ``am_search_sparse`` row the gathered entry on
    this run's gather (``ms_gathered``, checked equal to the fused one), k
    = 5 (``ms_k5``) and a block's SM cycles split between scoring and
    selection (``block_cycles_scoring``, ``block_cycles_selection``, from
@@ -151,6 +161,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import itertools
 import json
 import os
@@ -179,6 +190,7 @@ B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 # Programming Guide, arithmetic instruction throughput, compute 9.0).
 POPC_PER_CLK_PER_SM = 16
 MMA_RATE_SRC = os.path.join(HERE, "tools", "mma_rate.cu")
+LAUNCH_FLOOR_SRC = os.path.join(HERE, "tools", "launch_floor.cu")
 
 # Differential grid (batch, features, dim, columns): the reference's
 # tests/test_kernel_parity.py GEOMS, plus Dp = 13 (D = 100, not a
@@ -211,6 +223,12 @@ HIER_GC = ((1, 1), (2, 2), (45, 300), (448, 1000), (2, 257), (3, 9))
 HUGE = dict(c=100_000, d=1024, g_plant=316, g=448, batch=256,
             proto_flip=0.08, query_flip=0.10, shortlists=(8, 16))
 EXACT = dict(c=512, g_plant=23, g=23)  # S = G anchor of the sweep
+# The batches at which am_shortlist's plan is timed against one G split
+# and the narrowest (the huge-label shape's queries repeated), and the
+# served hierarchical request: B = 32 against the main model's G = 45
+# super-centroids at S = G.
+SHORTLIST_BATCHES = (256, 512, 1024, 2048)
+HIER_SERVE_B = 32
 RECALL_FLOOR = 0.99
 # The LM inference path: hymba-1.5b at full width (random weights from a
 # seed), the one supported model whose path runs both LM kernels.
@@ -378,6 +396,7 @@ class Smoke:
                         "binary_mvm": 0.0, "unpack_bits": 0.0,
                         "am_search_imc": 0.0, "am_search_multibit": 0.0,
                         "am_shortlist": 0.0, "am_search_sparse": 0.0,
+                        "am_shortlist_served": 0.0,
                         "flash_decode": 0.0, "ssd_chunk": 0.0}
         self.path_launches = {}  # kernel -> launches on its own path
 
@@ -403,16 +422,22 @@ class Smoke:
         out_dir = os.path.join(HERE, "build", "mma_rate")
         os.makedirs(out_dir, exist_ok=True)
         self.mma_rate_bin = os.path.join(out_dir, "mma_rate")
-        nvcc = subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-o",
-             self.mma_rate_bin, MMA_RATE_SRC],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.floor_so = os.path.join(out_dir, "liblaunch_floor.so")
+        tools = [(src, subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, "-O3", *extra, "-o", dst,
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)) for src, dst, extra in (
+                (MMA_RATE_SRC, self.mma_rate_bin, ()),
+                (LAUNCH_FLOOR_SRC, self.floor_so,
+                 ("-shared", "-Xcompiler", "-fPIC")))]
         try:
             path = _build.build()
             _build.lib()
         finally:
-            nvcc_out = nvcc.communicate(timeout=600)[0]
-        check(nvcc.returncode == 0, ("nvcc tools/mma_rate.cu", nvcc_out))
+            outs = [(src, p.communicate(timeout=600)[0], p.returncode)
+                    for src, p in tools]
+        for src, out, rc in outs:
+            check(rc == 0, ("nvcc", os.path.relpath(src, HERE), out))
         regs = [ln.strip() for ln in _build.build_log.splitlines()
                 if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
         log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -548,6 +573,8 @@ class Smoke:
                   and torch.equal(got[1], want[1]), what)
 
         cases = 0
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        asl.reset_routes()
         for d in HIER_D:
             for g, c in HIER_GC:
                 rng = np.random.default_rng([77, d, g, c])
@@ -555,8 +582,8 @@ class Smoke:
                 for dup in (False, True):
                     spt = packed(rng, g, d, dup).T.contiguous()
                     for s_ in sorted({1, min(3, g), g}):
-                        equal(asl.am_shortlist(q, spt, n_dims=d, s=s_),
-                              ref.am_shortlist(q, spt, d, s_),
+                        want = ref.am_shortlist(q, spt, d, s_)
+                        equal(asl.am_shortlist(q, spt, n_dims=d, s=s_), want,
                               ("am_shortlist", d, g, s_, dup))
                         cases += 1
                     am_t = packed(rng, c, d, dup).T.contiguous()
@@ -598,15 +625,24 @@ class Smoke:
                             ass.am_search_sparse_plain(
                                 q, slab, ids, wide, ts, tc, n_dims=d, k=5,
                                 max_tiles=lay.max_tiles), "sparse scratch")
+                        # Past SMEM_SLOTS: S = 600 on the stream route
+                        # (keys in global scratch), S = 5 split over the
+                        # tile route.
                         big = packed(rng, asl.SMEM_SLOTS + 77, d, True)
                         bt = big.T.contiguous()
-                        equal(asl.am_shortlist(q, bt, n_dims=d, s=600),
-                              ref.am_shortlist(q, bt, d, 600),
-                              "shortlist scratch")
-                        cases += 2
+                        for s_, route in ((600, "stream"), (5, "tile")):
+                            before = asl.route_counts()[route]
+                            equal(asl.am_shortlist(q, bt, n_dims=d, s=s_),
+                                  ref.am_shortlist(q, bt, d, s_),
+                                  ("shortlist past SMEM_SLOTS", s_))
+                            check(asl.route_counts()[route] == before + 1,
+                                  ("shortlist route", s_, route))
+                        cases += 3
+        routes = asl.route_counts()
+        check(routes["stream"] == 1 and routes["tile"] > 0, routes)
         log({"phase": "hier_kernels_vs_plain", "ok": True,
              "cases_bit_exact": cases, "dims": HIER_D,
-             "groups_columns": HIER_GC})
+             "groups_columns": HIER_GC, "shortlist_routes": routes})
 
     def check_new_kernels(self, rng, geom):
         """am_search, the unpack mode and qail_update at one geometry
@@ -1301,6 +1337,7 @@ class Smoke:
         top-1 and top-5 at S = G and top-1 at S = 8."""
         np, torch = self.np, self.torch
         from repro_torch.core import am as am_lib
+        from repro_torch.kernels import am_shortlist as asl_mod
         from repro_torch.kernels import ref
         model = self.model
 
@@ -1319,11 +1356,28 @@ class Smoke:
 
         (exact, short, t_deploy, out), launches, tiers = self.path_counts(
             run)
+        # Every served shortlist (B <= 32 against G = 45) takes the tile
+        # route.
+        shortlist_routes = check_routes(
+            asl_mod, {"tile": launches["am_shortlist"], "stream": 0},
+            "hierarchical path")
         for name in ("am_shortlist", "am_search_sparse"):
             check(launches[name] > 0, f"{name} was not launched on the "
                                       "hierarchical path")
             self.path_launches[name] = launches[name]
         q, ofs = self.request_queries(model)
+        # The served shape of am_shortlist: a request's worth of queries
+        # against the deployment's super-centroids, S = G.
+        sq = ref.pack_rows(q[:HIER_SERVE_B])
+        sspt = exact.super_packed_t
+        served = asl_mod.am_shortlist(sq, sspt, n_dims=self.amc.dim,
+                                      s=exact.groups)
+        w_served = ref.am_shortlist(sq, sspt, self.amc.dim, exact.groups)
+        check(all(torch.equal(a, b) for a, b in zip(served, w_served)),
+              "am_shortlist at the served shape != plain")
+        self.max_err["am_shortlist_served"] = (
+            served[1] - w_served[1]).abs().max().item()
+        self.hier_served = (sq, sspt, exact.groups)
         owners = model.am_state["centroid_class"]
         flat = am_lib.packed_predict(self.deployed.am_packed_t, owners, q,
                                      self.amc.dim)
@@ -1350,7 +1404,8 @@ class Smoke:
              "serving_mode": [exact.serving_mode, short.serving_mode],
              "s_eq_g_top1_eq_flat": True, "s_eq_g_top5_eq_topk": True,
              "s8_class_agreement_with_flat": recall,
-             "launches": launches, "dispatch_tiers": tiers})
+             "launches": launches, "shortlist_routes": shortlist_routes,
+             "dispatch_tiers": tiers})
         for name, (_, rep) in out.items():
             log({"phase": f"serve_report_hier_{name}", **rep})
         self.profile_serving(short, self.reqs, False, pipeline="hier_s8_top5",
@@ -2097,6 +2152,42 @@ class Smoke:
         del gat, gid
         return out
 
+    def shortlist_extra(self, sms) -> dict:
+        """The am_shortlist row's other fields at the huge-label shape:
+        its plan at S = 8 and 16, S = 16's time, one call's route, and at
+        each of ``SHORTLIST_BATCHES`` the plan's grid timed against the
+        grids the plan makes for a 1-SM device (the fewest G splits: one
+        block of all 448 columns per 16-row tile, no merge) and for an
+        unbounded one (the narrowest, MIN_SPLIT_COLS columns a split),
+        each result checked equal to the plan's."""
+        from repro_torch.kernels import am_shortlist as asl
+        hq, hspt = self.huge["qp"], self.huge["spt"]
+        (hb, hdp), hg, hd = hq.shape, hspt.shape[1], HUGE["d"]
+        asl.reset_routes()
+        asl.am_shortlist(hq, hspt, n_dims=hd, s=8)
+        routes = check_routes(asl, one_route(asl, "tile"), "huge shortlist")
+        by_batch = {}
+        for b in SHORTLIST_BATCHES:
+            q = hq.repeat(-(-b // hb), 1)[:b].contiguous()
+            want = asl.am_shortlist(q, hspt, n_dims=hd, s=8)
+            row = {}
+            for name, n in (("plan", sms), ("one_split", 1),
+                            ("narrowest", 1 << 30)):
+                got = asl._launch(q, hspt, hd, 8, n)
+                check(all(self.torch.equal(a, c)
+                          for a, c in zip(got[:2], want)),
+                      ("shortlist grid", b, name))
+                row[f"splits_{name}"] = asl.launch_plan(
+                    b, hdp, hg, 8, n)["splits"]
+                row[f"ms_{name}"] = time_device_ms(
+                    lambda: asl._launch(q, hspt, hd, 8, n))
+            by_batch[b] = row
+        return {"plan": asl.launch_plan(hb, hdp, hg, 8, sms),
+                "plan_s16": asl.launch_plan(hb, hdp, hg, 16, sms),
+                "ms_s16": time_device_ms(lambda: asl.am_shortlist(
+                    hq, hspt, n_dims=hd, s=16)),
+                "ms_by_batch": by_batch, "routes": routes}
+
     def imc_extra(self, iq, idep, ideal, ikw) -> dict:
         """am_search_imc on both routes at the row's shape: the noisy
         instance (the row's ``ms``) on the fp32 route, the ideal one (±1
@@ -2387,13 +2478,24 @@ class Smoke:
         self.hier_work = {"valid_columns_searched": valid,
                           "slab_tiles_touched": touched,
                           "slots_per_query": hs * mt * 128}
+        sq, sspt, sg = self.hier_served
         cases += [
+            # The tile route scores on the 1-bit tensor cores: operations
+            # at their rate, against the bytes of the operands and the
+            # (B, S) int32 ids and float32 sims.
             ("am_shortlist", "src/repro_torch/kernels/csrc/am_shortlist.cu",
              "src/repro/kernels/am_shortlist.py:127",
              lambda: asl.am_shortlist(hq, hspt, n_dims=hd, s=hs),
              lambda: ref.am_shortlist(hq, hspt, hd, hs),
              bound(hb * hdp + hdp * hg + hb * hs * 8, 2 * hb * hg * hd,
-                   INT8_OPS_PER_S)),
+                   B1_OPS_PER_S)),
+            ("am_shortlist_served",
+             "src/repro_torch/kernels/csrc/am_shortlist.cu",
+             "src/repro/kernels/am_shortlist.py:127",
+             lambda: asl.am_shortlist(sq, sspt, n_dims=d, s=sg),
+             lambda: ref.am_shortlist(sq, sspt, d, sg),
+             bound(sq.numel() + sspt.numel() + sq.shape[0] * sg * 8,
+                   2 * sq.shape[0] * sg * d, B1_OPS_PER_S)),
             ("am_search_sparse",
              "src/repro_torch/kernels/csrc/am_search_sparse.cu",
              "src/repro/kernels/am_search_sparse.py:140",
@@ -2410,6 +2512,13 @@ class Smoke:
         lm_cases, lm_library = self.lm_kernel_cases()
         cases += lm_cases
         library.update(lm_library)
+        floor_lib = ctypes.CDLL(self.floor_so)
+        floor_lib.empty_launch.argtypes = [ctypes.c_void_p]
+        floor_lib.empty_launch.restype = ctypes.c_int
+        floor_ms = time_device_ms(lambda: floor_lib.empty_launch(
+            torch.cuda.current_stream().cuda_stream))
+        self.path_launches["am_shortlist_served"] = self.path_launches[
+            "am_shortlist"]
         out = []
         for name, src, replaces, kern, plain, (bound_ms, bound_by) in cases:
             ms = time_device_ms(kern)
@@ -2426,7 +2535,8 @@ class Smoke:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": self.max_err[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms})
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "launch_floor_ms": floor_ms})
         row = out[[r["name"] for r in out].index("flash_decode")]
         row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
         row["shape_serve"] = FD_SERVE
@@ -2440,6 +2550,12 @@ class Smoke:
             for bb in asp.BLOCK_B_CHOICES}
         row = out[[r["name"] for r in out].index("am_search_sparse")]
         row.update(self.sparse_extra(tiles, clk_mhz))
+        rows["am_shortlist"].update(self.shortlist_extra(sms))
+        rows["am_shortlist_served"]["plan"] = asl.launch_plan(
+            sq.shape[0], sq.shape[1], sg, sg, sms)
+        for name, n in (("pack_bits", q.numel() // 8),
+                        ("unpack_bits", rows_t.numel())):
+            rows[name]["plan"] = pack_bits.launch_plan(n, sms)
         rows["am_search_imc"].update(self.imc_extra(iq, idep, ideal, ikw))
         rows["am_search_multibit"].update(self.multibit_extra(mq, mdep, mkw))
         row = out[[r["name"] for r in out].index("ssd_chunk")]

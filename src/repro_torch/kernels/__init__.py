@@ -36,10 +36,11 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
 
 def reset_launches() -> None:
     """Zero every launch counter and the route counts of ``qail_update``,
-    ``am_search``, ``am_search_imc`` and ``am_search_multibit``."""
+    ``am_search``, ``am_search_imc``, ``am_search_multibit`` and
+    ``am_shortlist``."""
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
-    for mod in (_qu, _as, _asi, _asm):
+    for mod in (_qu, _as, _asi, _asm, _asl):
         mod.reset_routes()
 
 

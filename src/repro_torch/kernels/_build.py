@@ -32,7 +32,7 @@ SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
 # Included by sources; part of the hash.
 HEADERS = ("sims_argmax.cuh", "adc_tile.cuh", "sgemm_tile.cuh",
            "packed_topk.cuh", "mma_sync.cuh", "int8_convert.cuh",
-           "search_pass.cuh")
+           "search_pass.cuh", "b1_slab.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -44,8 +44,8 @@ _F = ctypes.c_float
 # argtypes of every exported launcher: pointers and the stream as void*,
 # so ctypes never narrows a 64-bit address to a 32-bit int.
 SIGNATURES = {
-    "pack_bits_launch": (_P, _P, _I64, _P),
-    "unpack_bits_launch": (_P, _P, _I64, _P),
+    "pack_bits_launch": (_P, _P, _I64, _I, _I, _I, _P),
+    "unpack_bits_launch": (_P, _P, _I64, _I, _I, _I, _P),
     "am_search_packed_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I64, _I, _P),
     "encode_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -61,7 +61,8 @@ SIGNATURES = {
     "am_search_multibit_launch": (_P, _P, _P, _P, _I64, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _P),
-    "am_shortlist_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "am_shortlist_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _I64, _I, _P),
     "am_search_sparse_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _P),
@@ -184,6 +185,32 @@ def check_operand(t, name: str, dtype, ndim: int, *,
     if any(s >= 2 ** 31 for s in t.shape):
         raise ValueError(f"{name}: dimension too large for the kernel: "
                          f"{tuple(t.shape)}")
+
+
+def ones_buffer(pool: dict, device: torch.device, stream: int,
+                nbytes: int) -> torch.Tensor:
+    """A uint8 buffer of at least ``nbytes`` all-ones bytes for launches
+    on ``stream``, kept in ``pool`` by (device, stream).
+
+    For a scratch that a kernel finds all ones and leaves all ones (the
+    fold keys and tickets of ``am_search_packed``, the tickets of
+    ``am_shortlist``): it is filled once, when it is made or grown, and
+    then reused by the stream's launches, which run in order. That holds
+    only while every launch on it runs to its end: the wrapper drops it
+    from ``pool`` when a launch reports an error (a kernel that faults
+    leaves the context unusable, so no later launch reads it), and a
+    launch captured into a CUDA graph gets a buffer of its own, filled in
+    the graph, that is not kept."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.full((max(nbytes, 4096),), 255, dtype=torch.uint8,
+                          device=device)
+    key = (device, stream)
+    buf = pool.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.full((max(nbytes, 4096),), 255, dtype=torch.uint8,
+                         device=device)
+        pool[key] = buf
+    return buf
 
 
 class RouteCounts:

@@ -29,6 +29,15 @@ from repro_torch.kernels import _search_pass as sp
 
 ROUTES = _build.RouteCounts.NAMES
 _ROUTES = _build.RouteCounts()
+TILE = 128  # IMC array dim: one (128, 128) tile of the AM is one cycle
+
+
+def imc_cycles_for(am_t_shape: tuple) -> int:
+    """ceil(D/128) * ceil(C/128) array passes per query for a (D, C) AM:
+    the reference's ``am_search.imc_cycles_for``, equal to
+    ``core.imc.map_memhd(D, C).cycles``."""
+    d, c = am_t_shape
+    return (-(-d // TILE)) * (-(-c // TILE))
 
 
 def launch_plan(b: int, d: int, c: int) -> dict:

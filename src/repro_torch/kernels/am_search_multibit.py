@@ -38,6 +38,7 @@ from repro_torch.kernels.am_search_imc import check_readout
 # up to 8 planes' 16 bytes of k for each column), the decoded u8 code
 # rows, the sum tile.
 BLOCK_ROWS = 64
+BLOCK_B_CHOICES = (BLOCK_ROWS,)
 FP32_STEP = 16
 MAX_PLANES = 8
 SMEM = (INT8_STAGES * (BLOCK_ROWS * K_STAGE

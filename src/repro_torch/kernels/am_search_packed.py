@@ -45,6 +45,18 @@ _WARPS, _ASTR = 4, UNPACK_COLS + 16
 # have a block per SM of the device, ``popcount_cols``).
 POPCOUNT_COLS, _MIN_COLS = 128, 8
 _MAX_GRID_Y = 65535
+# The reference's IMC tiling: 128 centroid columns by 16 packed bytes
+# (128 dims) a cycle.
+_CYCLE_COLS, _CYCLE_BYTES = 128, 16
+
+
+def imc_cycles_for(am_packed_t_shape: tuple) -> int:
+    """ceil(Dp/16) * ceil(C/128) array passes per query for a (Dp, C)
+    packed AM: the reference's ``am_search_packed.imc_cycles_for``. A
+    16-byte slab holds 128 dims, so this equals the unpacked AM's count
+    and ``core.imc.map_memhd(D, C).cycles``."""
+    dp, c = am_packed_t_shape
+    return (-(-dp // _CYCLE_BYTES)) * (-(-c // _CYCLE_COLS))
 
 
 def pack_rows(x: torch.Tensor) -> torch.Tensor:
@@ -70,26 +82,10 @@ _SCRATCH: dict[tuple, torch.Tensor] = {}
 
 def fold_scratch(device: torch.device, stream: int,
                  nbytes: int) -> torch.Tensor:
-    """The fold's scratch (keys and tickets) for launches on ``stream``.
-
-    Both modes start from all ones and leave it all ones, so a buffer is
-    filled once, when it is made or grown, and then reused by the
-    stream's launches, which run in order. That holds only while every
-    launch on it runs to its end: ``am_search_packed`` drops the buffer
-    when a launch reports an error (a kernel that faults leaves the
-    context unusable, so no later launch reads it), and a launch captured
-    into a CUDA graph gets a buffer of its own, filled in the graph, that
-    is not kept."""
-    if torch.cuda.is_current_stream_capturing():
-        return torch.full((max(nbytes, 4096),), 255, dtype=torch.uint8,
-                          device=device)
-    key = (device, stream)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < nbytes:
-        buf = torch.full((max(nbytes, 4096),), 255, dtype=torch.uint8,
-                         device=device)
-        _SCRATCH[key] = buf
-    return buf
+    """The fold's scratch (keys and tickets) for launches on ``stream``:
+    both modes start from all ones and leave it all ones
+    (``_build.ones_buffer``)."""
+    return _build.ones_buffer(_SCRATCH, device, stream, nbytes)
 
 
 def popcount_cols(b: int, c: int, rows: int, sms: int) -> int:
@@ -145,7 +141,7 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str,
 
 
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
-                     n_dims: int, block_b: int = DEFAULT_BLOCK_B,
+                     n_dims: int, block_b: int | None = DEFAULT_BLOCK_B,
                      mode: str = "popcount",
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused associative search over the packed 1-bit AM.
@@ -154,9 +150,10 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
       q_packed: (B, Dp) uint8 queries, Dp = ceil(D/8), tail bits 0.
       am_packed_t: (Dp, C) uint8 transposed packed AM (``pack_am``).
       n_dims: true (unpacked) hypervector dimension D.
-      block_b: rows of a query tile (one of ``BLOCK_B_CHOICES``), rounded
-        up to the 16 rows of an ``mma.sync`` tile in both modes (4, 8 and
-        16 give 16-row blocks, 32 two m16 tiles).
+      block_b: rows of a query tile (one of ``BLOCK_B_CHOICES``; None:
+        ``DEFAULT_BLOCK_B``), rounded up to the 16 rows of an ``mma.sync``
+        tile in both modes (4, 8 and 16 give 16-row blocks, 32 two m16
+        tiles).
       mode: "popcount" (XOR + popcount) or "unpack" (the ±1 dot, exact,
         on the int8 tensor cores).
 
@@ -166,6 +163,7 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     """
     if mode not in MODES:
         raise ValueError(f"bad mode: {mode!r}")
+    block_b = DEFAULT_BLOCK_B if block_b is None else block_b
     b, dp = q_packed.shape
     dp2, c = am_packed_t.shape
     if dp != dp2:

@@ -40,6 +40,7 @@ TILE = 128  # slab columns per tile (the am_search_packed contract)
 # csrc/am_search_sparse.cu: threads per block (one block per query), ring
 # stages, most tile rows (packed bytes of D) a ring stage holds.
 THREADS, STAGES, MAX_CHUNK_ROWS = 256, 3, 128
+BLOCK_B_CHOICES = (1,)  # queries per block: the kernel's only tile
 BLOCK_SMEM = 232448  # shared memory one block may opt into (H100)
 
 

@@ -47,15 +47,16 @@
 //   B = 1024, 256 blocks of 8
 //   columns at B = 32. A block has up to 4 warps, each owning 1, 2 or 4 n8
 //   tiles of the split and every row of the tile.
-// * Staging: both operands' packed bytes stream through a 4-stage
-//   cp.async ring of 32-byte k slabs (one m16n8k256 step), three slabs
-//   ahead, one barrier a slab: 16-byte copies where Dp, C and the pointers
-//   allow (8-byte ones for an 8-column split), byte copies otherwise.
-//   Bytes past Dp are staged as 0 in BOTH operands, so D = 100 (Dp = 13)
-//   needs no host-side padding pass. A
-//   fragments come from the query rows by ldmatrix; a column's B words
-//   are gathered byte by byte from the AM slab, whose byte row 4w + k is
-//   stored at row 8k + w, so a warp's four k-lanes read distinct banks.
+// * Staging (b1_slab.cuh, shared with am_shortlist.cu): both operands'
+//   packed bytes stream through a 4-stage cp.async ring of 32-byte k slabs
+//   (one m16n8k256 step), three slabs ahead, one barrier a slab: 16-byte
+//   copies where Dp, C and the pointers allow (8-byte ones for an
+//   8-column split), byte copies otherwise. Bytes past Dp are staged as 0
+//   in BOTH operands, so D = 100 (Dp = 13) needs no host-side padding
+//   pass. A fragments come from the query rows by ldmatrix; a column's B
+//   words are gathered byte by byte from the AM slab, whose byte row
+//   4w + k is stored at row 8k + w, so a warp's four k-lanes read
+//   distinct banks.
 // * Fold: each row's least key (hamming << 32) | idx over the lane's
 //   columns (columns >= C skipped), its four lanes and the block's warps
 //   goes to the query's scratch key with a 64-bit atomicMin: the least
@@ -104,38 +105,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "b1_slab.cuh"
 #include "mma_sync.cuh"
 
 namespace {
 
-constexpr int SLAB = 32;    // packed bytes (256 dims) per k slab, both modes
-constexpr int STAGES = 4;   // ring stages, both modes
+using b1::SLAB;    // packed bytes (256 dims) per k slab, both modes
+using b1::STAGES;  // ring stages, both modes
+using b1::stage16;
 constexpr unsigned FULL = 0xffffffffu;
-
-// Copy 16 bytes to shared memory, zero where !ok: cp.async when the
-// source is 16-byte aligned (vec), else byte by byte. n limits the byte
-// copy to the bytes in range.
-__device__ __forceinline__ void stage16(uint8_t* dst, const uint8_t* src,
-                                        bool ok, int n, bool vec) {
-  if (vec) {
-    mma::cp_async16_zfill(dst, src, ok);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dst[i] = ok && i < n ? src[i] : 0;
-  }
-}
-// ... 8 bytes, cp.async when the source is 8-byte aligned.
-__device__ __forceinline__ void stage8(uint8_t* dst, const uint8_t* src,
-                                       bool ok, int n, bool vec) {
-  if (vec) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                     mma::smem_u32(dst)),
-                 "l"(src), "r"(ok ? 8 : 0));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = ok && i < n ? src[i] : 0;
-  }
-}
 
 // The end of both modes' fold, after the block's atomicMins: the query
 // tile's last block to finish (tickets start at ~0: the first block draws
@@ -174,8 +152,8 @@ inline bool scratch_is(const void* scratch, long long scratch_bytes, int B,
 
 namespace popcount {
 
-constexpr int KW = SLAB / 4;       // 32-bit words of a slab
-constexpr int QSTR = 48;           // ring row stride of a query (32 bytes used)
+using b1::am_stride;
+using b1::QSTR;
 constexpr int MAX_COLS = 128;      // columns of a block: 128, 64, ..., 8
 constexpr int MIN_COLS = 8;
 
@@ -192,16 +170,10 @@ inline int block_cols(int B, int C, int rows, int sms) {
 // Warps of a block: one per 8 n8 columns up to 4, each owning NI =
 // cols / 8 / warps n8 tiles.
 inline int block_warps(int cols) { return cols >= 32 ? 4 : cols / 8; }
-// Ring row stride of the AM slab: a multiple of 16 bytes that puts the
-// 4 k-lanes' rows in distinct banks.
-__host__ __device__ inline int am_stride(int cols) {
-  return cols + 16 > 32 ? cols + 16 : 32;
-}
 // Dynamic shared memory: the ring (query rows, then AM byte rows), then
 // the warps' keys of each row.
 inline int smem_bytes(int rows, int cols) {
-  return STAGES * (rows * QSTR + SLAB * am_stride(cols)) +
-         8 * block_warps(cols) * rows;
+  return STAGES * b1::stage_bytes(rows, cols) + 8 * block_warps(cols) * rows;
 }
 
 template <int MI, int NI>
@@ -224,35 +196,10 @@ search(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
   auto* red = reinterpret_cast<unsigned long long*>(
       aring + STAGES * SLAB * as_ld);             // [nw][R]
 
-  // Slab t into ring stage st; the AM's byte row 4w + k of the slab goes
-  // to row k * KW + w.
+  // Slab t into ring stage st (b1_slab.cuh).
   auto load = [&](int t, int st) {
-    const int kb = t * SLAB;
-    uint8_t* qd = qring + st * R * QSTR;
-    for (int e = tid; e < R * 2; e += blockDim.x) {
-      const int r = e >> 1, h = e & 1, byte = kb + 16 * h, b = b0 + r;
-      const bool ok = b < B && byte < Dp;
-      stage16(qd + r * QSTR + 16 * h, ok ? q + (size_t)b * Dp + byte : q,
-              ok, Dp - byte, q_vec);
-    }
-    uint8_t* ad = aring + st * SLAB * as_ld;
-    if (cols >= 16) {
-      for (int e = tid; e < SLAB * (cols / 16); e += blockDim.x) {
-        const int r = e / (cols / 16), ch = e % (cols / 16);
-        const int byte = kb + r, c = c0 + 16 * ch;
-        const bool ok = byte < Dp && c < C;
-        stage16(ad + ((r & 3) * KW + (r >> 2)) * as_ld + 16 * ch,
-                ok ? am_t + (size_t)byte * C + c : am_t, ok, C - c, a_vec);
-      }
-    } else {  // 8 columns: one 8-byte copy a byte row
-      for (int r = tid; r < SLAB; r += blockDim.x) {
-        const int byte = kb + r;
-        const bool ok = byte < Dp && c0 < C;
-        stage8(ad + ((r & 3) * KW + (r >> 2)) * as_ld,
-               ok ? am_t + (size_t)byte * C + c0 : am_t, ok, C - c0,
-               a_vec8);
-      }
-    }
+    b1::load_slab<R>(qring + st * R * QSTR, aring + st * SLAB * as_ld, q,
+                     am_t, t, b0, B, Dp, c0, cols, C, q_vec, a_vec, a_vec8);
   };
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
@@ -286,8 +233,7 @@ search(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
     uint32_t a[MI][4];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
-      mma::ldmatrix_x4(a[mi], qs + (16 * mi + ((lane >> 3) & 1) * 8 +
-                                    (lane & 7)) * QSTR + 16 * (lane >> 4));
+      b1::a_frag(a[mi], qs + 16 * mi * QSTR, lane);
       pq[mi][0] += __popc(a[mi][0]) + __popc(a[mi][2]);
       pq[mi][1] += __popc(a[mi][1]) + __popc(a[mi][3]);
     }
@@ -295,13 +241,7 @@ search(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
     for (int ni = 0; ni < NI; ++ni) {
       // B: column gid's words tig and 4 + tig, byte k from row k KW + w.
       uint32_t b[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint8_t* pb = as + 8 * ni + (4 * h + tig) * as_ld;
-        b[h] = (uint32_t)pb[0] | (uint32_t)pb[KW * as_ld] << 8 |
-               (uint32_t)pb[2 * KW * as_ld] << 16 |
-               (uint32_t)pb[3 * KW * as_ld] << 24;
-      }
+      b1::b_frag(b, as + 8 * ni, tig, as_ld);
       pa[ni] += __popc(b[0]) + __popc(b[1]);
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) mma::mma_b1_and(acc[mi][ni], a[mi], b[0], b[1]);

@@ -19,7 +19,20 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.am_search_packed import (
     DEFAULT_BLOCK_B, am_search_packed,
 )
-from repro_torch.kernels.binary_mvm import SGEMM_TILE
+from repro_torch.kernels.binary_mvm import SGEMM_TILE, SGEMM_TILES
+from repro_torch.kernels.binary_mvm import imc_cycles_for as _mvm_cycles
+
+# The rows of the kernel's block tile: its only query tile (the
+# reference's autotuned batch tile has no other counterpart here).
+BLOCK_B_CHOICES = (SGEMM_TILES[SGEMM_TILE][0],)
+
+
+def imc_cycles_for(feats_shape: tuple, projection_shape: tuple) -> int:
+    """ceil(f/128) * ceil(D/128): the reference's
+    ``encode_fused.imc_cycles_for``, ``binary_mvm``'s count (the pack
+    epilogue adds no cycle), equal to ``core.imc.map_basic(f, D).cycles``.
+    """
+    return _mvm_cycles(feats_shape, projection_shape)
 
 
 def encode_pack(feats: torch.Tensor, projection: torch.Tensor,
@@ -68,7 +81,7 @@ encode_pack.launches = 0
 def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
                          am_packed_t: torch.Tensor, *,
                          mode: str = "popcount",
-                         block_b: int = DEFAULT_BLOCK_B,
+                         block_b: int | None = DEFAULT_BLOCK_B,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """encode_pack |> am_search_packed: (best_idx, best_sim) bit-exact
     with the staged encode_query -> pack_rows -> am_search_packed chain."""
@@ -81,7 +94,8 @@ def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
                           am_packed_t: torch.Tensor,
                           centroid_class: torch.Tensor, *,
                           mode: str = "popcount",
-                          block_b: int = DEFAULT_BLOCK_B) -> torch.Tensor:
+                          block_b: int | None = DEFAULT_BLOCK_B,
+                          ) -> torch.Tensor:
     """encode_pack |> am_search_packed |> ownership gather: (B,) classes."""
     idx, _ = search_from_features(feats, projection, am_packed_t,
                                   mode=mode, block_b=block_b)

@@ -2,11 +2,21 @@
 
 Port of the serving dispatches of ``repro.kernels.ops``. Each keeps the
 reference's ``use_kernel`` switch: a CUDA tensor with ``use_kernel=True``
-is served by the hand-written CUDA kernel (tier ``cuda``); a CPU tensor,
-or ``use_kernel=False``, by the plain PyTorch version (tier
-``torch-ref``). Every call adds one to the ``(kernel, tier, geometry)``
-dispatch counter, the port's ``kernel_dispatch_total``;
-``dispatch_breakdown()`` sums it over geometries for the serving report.
+or ``None`` (the reference's "the kernel on the accelerator") is served
+by the hand-written CUDA kernel (tier ``cuda``); a CPU tensor, or
+``use_kernel=False``, by the plain PyTorch version (tier ``torch-ref``).
+Every call adds one to the ``(kernel, tier, geometry)`` dispatch
+counter, the port's ``kernel_dispatch_total``; ``dispatch_breakdown()``
+sums it over geometries for the serving report.
+
+Every op with a query tile takes the reference's ``block_b: int | None
+= None``. ``None`` is the port's launch plan; an explicit tile must be
+one the kernel runs (the module's ``BLOCK_B_CHOICES``), else a
+``ValueError`` names those values: the reference's autotuned tiles
+(64-1024) are not mapped onto the port's. The IMC cycle counts
+(``search_cycles``, ``packed_search_cycles``, ``encode_pack_cycles``,
+``mvm_cycles``, ``imc_search_cycles``, ``multibit_search_cycles``) are
+the reference's, as pure integer functions of the shapes.
 """
 from __future__ import annotations
 
@@ -14,8 +24,16 @@ import collections
 
 import torch
 
+from repro_torch.kernels import am_search_multibit as _asm_mod
+from repro_torch.kernels import am_search_packed as _asp_mod
+from repro_torch.kernels import am_search_sparse as _ass_mod
+from repro_torch.kernels import am_shortlist as _asl_mod
+from repro_torch.kernels import encode_fused as _ef_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.am_search import am_search as _am_search
+from repro_torch.kernels.am_search import (  # noqa: F401
+    imc_cycles_for as search_cycles,
+)
 from repro_torch.kernels.am_search_imc import am_search_imc as _am_search_imc
 from repro_torch.kernels.am_search_imc import (  # noqa: F401
     imc_cycles_for as imc_search_cycles,
@@ -26,9 +44,11 @@ from repro_torch.kernels.am_search_multibit import (
 from repro_torch.kernels.am_search_multibit import (  # noqa: F401
     imc_cycles_for as multibit_search_cycles,
 )
-from repro_torch.kernels.am_search_packed import DEFAULT_BLOCK_B
 from repro_torch.kernels.am_search_packed import (
     am_search_packed as _am_search_packed,
+)
+from repro_torch.kernels.am_search_packed import (  # noqa: F401
+    imc_cycles_for as packed_search_cycles,
 )
 from repro_torch.kernels.am_search_packed import pack_rows as _pack_rows
 from repro_torch.kernels.am_search_sparse import (
@@ -37,6 +57,9 @@ from repro_torch.kernels.am_search_sparse import (
 from repro_torch.kernels.am_search_sparse import am_search_sparse_plain
 from repro_torch.kernels.am_shortlist import am_shortlist as _am_shortlist
 from repro_torch.kernels.encode_fused import encode_pack as _encode_pack
+from repro_torch.kernels.encode_fused import (  # noqa: F401
+    imc_cycles_for as encode_pack_cycles,
+)
 from repro_torch.kernels.encode_fused import (
     predict_from_features as _predict_from_features,
 )
@@ -67,8 +90,24 @@ def _count(kernel: str, tier: str, **dims) -> None:
     _DISPATCH[(kernel, tier, geometry)] += 1
 
 
-def _tier(x: torch.Tensor, use_kernel: bool) -> str:
-    return "cuda" if use_kernel and x.device.type == "cuda" else "torch-ref"
+def _tier(x: torch.Tensor, use_kernel: bool | None) -> str:
+    """``cuda`` for a CUDA tensor unless ``use_kernel`` is False (None, the
+    reference's auto-dispatch, means the kernel on the accelerator)."""
+    if use_kernel is not False and x.device.type == "cuda":
+        return "cuda"
+    return "torch-ref"
+
+
+def _block_b(kernel: str, block_b: int | None, choices: tuple,
+             default: int | None = None) -> int | None:
+    """The query tile of a launch: ``default`` for None, else an explicit
+    tile the kernel runs (one of ``choices``)."""
+    if block_b is None:
+        return default
+    if block_b not in choices:
+        raise ValueError(f"{kernel}: block_b={block_b} not in {choices} "
+                         f"(None: the port's launch plan)")
+    return block_b
 
 
 def dispatch_breakdown() -> dict[str, dict[str, int]]:
@@ -84,8 +123,13 @@ def reset_dispatch() -> None:
     _DISPATCH.clear()
 
 
+def _packed_block_b(block_b: int | None) -> int:
+    return _block_b("am_search_packed", block_b,
+                    _asp_mod.BLOCK_B_CHOICES, _asp_mod.DEFAULT_BLOCK_B)
+
+
 def encode_mvm(feats: torch.Tensor, projection: torch.Tensor, *,
-               use_kernel: bool = True) -> torch.Tensor:
+               use_kernel: bool | None = True) -> torch.Tensor:
     """Projection encoding H = F @ M through the IMC-geometry kernel.
     feats: (B, f); projection: (f, D) bipolar. Returns (B, D) float32."""
     tier = _tier(feats, use_kernel)
@@ -97,8 +141,12 @@ def encode_mvm(feats: torch.Tensor, projection: torch.Tensor, *,
 
 
 def encode_pack(feats: torch.Tensor, projection: torch.Tensor, *,
-                use_kernel: bool = True) -> torch.Tensor:
-    """Fused encode + sign + bitpack: (B, f) -> (B, ceil(D/8)) uint8."""
+                use_kernel: bool | None = True,
+                block_b: int | None = None) -> torch.Tensor:
+    """Fused encode + sign + bitpack: (B, f) -> (B, ceil(D/8)) uint8.
+    ``block_b``: the kernel's fixed row tile (``encode_fused.
+    BLOCK_B_CHOICES``) or None."""
+    _block_b("encode_pack", block_b, _ef_mod.BLOCK_B_CHOICES)
     tier = _tier(feats, use_kernel)
     _count("encode_pack", tier, B=feats.shape[0], f=projection.shape[0],
            D=projection.shape[1])
@@ -109,10 +157,13 @@ def encode_pack(feats: torch.Tensor, projection: torch.Tensor, *,
 
 def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
                          am_packed_t: torch.Tensor, *,
-                         mode: str = "popcount", use_kernel: bool = True,
-                         block_b: int = DEFAULT_BLOCK_B,
+                         mode: str = "popcount",
+                         use_kernel: bool | None = True,
+                         block_b: int | None = None,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Feature -> search chain over the packed AM: (best_idx, best_sim)."""
+    """Feature -> search chain over the packed AM: (best_idx, best_sim).
+    ``block_b``: the packed search's query tile (None: its default)."""
+    block_b = _packed_block_b(block_b)
     tier = _tier(feats, use_kernel)
     _count("search_from_features", tier, B=feats.shape[0],
            D=projection.shape[1], C=am_packed_t.shape[1])
@@ -126,10 +177,12 @@ def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
 def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
                           am_packed_t: torch.Tensor,
                           centroid_class: torch.Tensor, *,
-                          mode: str = "popcount", use_kernel: bool = True,
-                          block_b: int = DEFAULT_BLOCK_B) -> torch.Tensor:
+                          mode: str = "popcount",
+                          use_kernel: bool | None = True,
+                          block_b: int | None = None) -> torch.Tensor:
     """End-to-end §III-D prediction from raw features: fused
     encode/pack -> packed search -> ownership gather."""
+    block_b = _packed_block_b(block_b)
     tier = _tier(feats, use_kernel)
     _count("predict_from_features", tier, B=feats.shape[0],
            D=projection.shape[1], C=am_packed_t.shape[1])
@@ -143,10 +196,13 @@ def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
 
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
                      n_dims: int, mode: str = "popcount",
-                     use_kernel: bool = True,
-                     block_b: int = DEFAULT_BLOCK_B,
+                     use_kernel: bool | None = True,
+                     block_b: int | None = None,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused associative search over the packed 1-bit AM."""
+    """Fused associative search over the packed 1-bit AM. ``block_b``:
+    the query tile, one of ``am_search_packed.BLOCK_B_CHOICES`` (None:
+    ``DEFAULT_BLOCK_B``)."""
+    block_b = _packed_block_b(block_b)
     tier = _tier(q_packed, use_kernel)
     _count("am_search_packed", tier, B=q_packed.shape[0], D=n_dims,
            C=am_packed_t.shape[1])
@@ -159,11 +215,14 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
 
 
 def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
-                 n_dims: int, s: int, use_kernel: bool = True,
+                 n_dims: int, s: int, use_kernel: bool | None = True,
+                 block_b: int | None = None,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Coarse pass of the hierarchical search: ((B, s) cluster ids,
     (B, s) super similarities), best first, ties toward the lower
-    cluster id."""
+    cluster id. ``block_b``: the rows of the kernel's query tile
+    (``am_shortlist.BLOCK_B_CHOICES``) or None."""
+    _block_b("am_shortlist", block_b, _asl_mod.BLOCK_B_CHOICES)
     tier = _tier(q_packed, use_kernel)
     _count("am_shortlist", tier, B=q_packed.shape[0], D=n_dims,
            G=super_packed_t.shape[1], S=s)
@@ -176,14 +235,17 @@ def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
                      col_ids: torch.Tensor, shortlist: torch.Tensor,
                      tile_start: torch.Tensor, tile_count: torch.Tensor, *,
                      n_dims: int, k: int, max_tiles: int,
-                     use_kernel: bool = True,
+                     use_kernel: bool | None = True,
+                     block_b: int | None = None,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fine pass of the hierarchical search over the cluster-contiguous
     slab (``deploy.hierarchical.build_layout``): ((B, k) original
     centroid ids, (B, k) sims) by (-sim, id); exhausted slots (-1,
     float32-min). With S = G the k = 1 column equals
     ``am_search_packed``. The CUDA kernel reads the shortlisted tiles
-    through the layout; the plain tier gathers them first."""
+    through the layout; the plain tier gathers them first. ``block_b``:
+    queries per block (``am_search_sparse.BLOCK_B_CHOICES``) or None."""
+    _block_b("am_search_sparse", block_b, _ass_mod.BLOCK_B_CHOICES)
     tier = _tier(q_packed, use_kernel)
     _count("am_search_sparse", tier, B=q_packed.shape[0], D=n_dims,
            S=shortlist.shape[1], K=k)
@@ -196,7 +258,8 @@ def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
                              max_tiles=max_tiles)
 
 
-def pack_rows(x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+def pack_rows(x: torch.Tensor, *,
+              use_kernel: bool | None = True) -> torch.Tensor:
     """(B, D) bipolar -> (B, ceil(D/8)) uint8, any D (tail bits 0)."""
     tier = _tier(x, use_kernel)
     _count("pack_rows", tier, B=x.shape[0], D=x.shape[1])
@@ -205,7 +268,8 @@ def pack_rows(x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     return _pack_rows(x)
 
 
-def pack_bits(x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+def pack_bits(x: torch.Tensor, *,
+              use_kernel: bool | None = True) -> torch.Tensor:
     """(R, C) bipolar, C % 8 == 0 -> (R, C // 8) uint8."""
     tier = _tier(x, use_kernel)
     _count("pack_bits", tier, R=x.shape[0], C=x.shape[1])
@@ -214,7 +278,7 @@ def pack_bits(x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     return _pack_bits(x.float().contiguous())
 
 
-def unpack_bits(p: torch.Tensor, *, use_kernel: bool = True,
+def unpack_bits(p: torch.Tensor, *, use_kernel: bool | None = True,
                 ) -> torch.Tensor:
     """(R, C // 8) uint8 -> (R, C) float32 {-1, +1}."""
     tier = _tier(p, use_kernel)
@@ -226,7 +290,8 @@ def unpack_bits(p: torch.Tensor, *, use_kernel: bool = True,
 
 def predict_packed(queries: torch.Tensor, am_packed_t: torch.Tensor,
                    centroid_class: torch.Tensor, *, n_dims: int,
-                   mode: str = "popcount", use_kernel: bool = True,
+                   mode: str = "popcount",
+                   use_kernel: bool | None = True,
                    ) -> torch.Tensor:
     """§III-D prediction over the packed residence: pack the bipolar
     queries, XOR+popcount search, ownership lookup."""
@@ -237,7 +302,7 @@ def predict_packed(queries: torch.Tensor, am_packed_t: torch.Tensor,
 
 
 def am_search(queries: torch.Tensor, am: torch.Tensor, *,
-              use_kernel: bool = True,
+              use_kernel: bool | None = True,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused associative search. queries: (B, D); am: (C, D) bipolar
     centroid rows, searched through its (D, C) transposed view (no
@@ -252,7 +317,7 @@ def am_search(queries: torch.Tensor, am: torch.Tensor, *,
 
 def predict_classes(queries: torch.Tensor, am: torch.Tensor,
                     centroid_class: torch.Tensor, *,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool | None = True) -> torch.Tensor:
     """End-to-end §III-D prediction: search + ownership lookup."""
     idx, _ = am_search(queries, am, use_kernel=use_kernel)
     return centroid_class[idx.long()]
@@ -260,7 +325,7 @@ def predict_classes(queries: torch.Tensor, am: torch.Tensor,
 
 def am_search_imc(queries: torch.Tensor, am: torch.Tensor, *, sim,
                   offsets: torch.Tensor | None = None,
-                  use_kernel: bool = True,
+                  use_kernel: bool | None = True,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Device-fidelity associative search (tiled analog MVM + ADC).
 
@@ -285,7 +350,8 @@ def am_search_imc(queries: torch.Tensor, am: torch.Tensor, *, sim,
 def am_search_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor, *,
                        sim=None, scale: torch.Tensor | None = None,
                        offsets: torch.Tensor | None = None,
-                       use_kernel: bool = True,
+                       use_kernel: bool | None = True,
+                       block_b: int | None = None,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bit-sliced associative search over the multi-bit packed AM.
 
@@ -294,9 +360,11 @@ def am_search_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor, *,
     ``ImcSimConfig`` for the array geometry and ADC (default: 128x128,
     16 bits, ``ref.multibit_adc_clip``); scale: optional quantizer scale,
     which dequantizes the returned similarity (idx does not depend on
-    it); offsets: optional per-array code-domain drift grid.
-    Returns (best_idx (B,) int32, best_sim (B,) float32).
+    it); offsets: optional per-array code-domain drift grid; block_b:
+    the kernel's query tile (``am_search_multibit.BLOCK_B_CHOICES``) or
+    None. Returns (best_idx (B,) int32, best_sim (B,) float32).
     """
+    _block_b("am_search_multibit", block_b, _asm_mod.BLOCK_B_CHOICES)
     cell_bits = int(am_planes_t.shape[0])
     tile_rows = sim.arr.rows if sim is not None else 128
     tile_cols = sim.arr.cols if sim is not None else 128
@@ -324,7 +392,8 @@ def am_search_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor, *,
 
 def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
                 centroid_class: torch.Tensor, labels: torch.Tensor,
-                mask: torch.Tensor, *, lr: float, use_kernel: bool = True,
+                mask: torch.Tensor, *, lr: float,
+                use_kernel: bool | None = True,
                 block_b: int | None = None,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused QAIL inner step (§III-C): sims + Eq. 4/5 + Eq.-(6) delta.
@@ -335,9 +404,8 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
     ``QAIL_BLOCK_B_CHOICES`` (None: the default); any choice gives the
     same result.
     """
-    block_b = QAIL_DEFAULT_BLOCK_B if block_b is None else block_b
-    if block_b not in QAIL_BLOCK_B_CHOICES:
-        raise ValueError(f"block_b={block_b} not in {QAIL_BLOCK_B_CHOICES}")
+    block_b = _block_b("qail_update", block_b, QAIL_BLOCK_B_CHOICES,
+                       QAIL_DEFAULT_BLOCK_B)
     tier = _tier(q, use_kernel)
     _count("qail_update", tier, B=q.shape[0], D=am_t.shape[0],
            C=am_t.shape[1])
@@ -353,7 +421,7 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
 def predict_imc(queries: torch.Tensor, am: torch.Tensor,
                 centroid_class: torch.Tensor, *, sim,
                 offsets: torch.Tensor | None = None,
-                use_kernel: bool = True) -> torch.Tensor:
+                use_kernel: bool | None = True) -> torch.Tensor:
     """§III-D prediction through the simulated analog readout: tiled
     analog search + ADC + ownership lookup."""
     idx, _ = am_search_imc(queries, am, sim=sim, offsets=offsets,
@@ -364,7 +432,7 @@ def predict_imc(queries: torch.Tensor, am: torch.Tensor,
 def predict_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor,
                      centroid_class: torch.Tensor, *, sim=None,
                      offsets: torch.Tensor | None = None,
-                     use_kernel: bool = True) -> torch.Tensor:
+                     use_kernel: bool | None = True) -> torch.Tensor:
     """§III-D prediction over the multi-bit residence: bit-sliced
     code-domain search + ownership lookup (argmax does not depend on the
     quantizer scale)."""
@@ -375,7 +443,7 @@ def predict_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                 use_kernel: bool = True) -> torch.Tensor:
+                 use_kernel: bool | None = True) -> torch.Tensor:
     """One-token GQA attention over a length-masked KV cache (the decode
     step's attention). q: (B, H, Dh); k_cache/v_cache: (B, S, KV, Dh),
     not head-repeated; cache_len: (B,) valid keys per row. Returns
@@ -392,7 +460,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
               dt: torch.Tensor, da: torch.Tensor, state: torch.Tensor, *,
-              use_kernel: bool = True,
+              use_kernel: bool | None = True,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Mamba-2 SSD chunk for every (batch, head): x (B, Q, H, P),
     b/c (B, Q, H, N), dt/da (B, Q, H), state (B, H, N, P) entering the

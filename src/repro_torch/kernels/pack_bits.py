@@ -5,13 +5,36 @@ Port of ``repro.kernels.pack_bits`` (``csrc/pack_bits.cu``). A CPU
 tensor goes through the plain version (``ref.pack_bits``,
 ``ref.unpack_bits``); a CUDA tensor through the kernel or raises.
 ``pack_bits.launches`` and ``unpack_bits.launches`` count kernel
-launches.
+launches. ``launch_plan`` is both kernels' grid, computed here from the
+device's SM count so that the CPU tests can check it, and handed to the
+launchers, which refuse any other.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+
+# csrc/pack_bits.cu: threads of a block (a warp a chunk of 128 packed
+# bytes, 1024 floats), and blocks per SM before the grid strides.
+THREADS, CHUNK_BYTES, BLOCKS_PER_SM = 256, 128, 8
+
+
+def launch_plan(n_bytes: int, sms: int) -> dict:
+    """Both kernels' launch for ``n_bytes`` packed bytes on a device of
+    ``sms`` SMs (``multi_processor_count``; 132 on an H100): a warp per
+    chunk of 128 packed bytes, 8 warps a block, at most 8 blocks per SM
+    (further chunks in a grid-stride loop)."""
+    chunks = -(-n_bytes // CHUNK_BYTES)
+    blocks = -(-chunks // (THREADS // 32))
+    return {"grid": min(blocks, BLOCKS_PER_SM * sms), "threads": THREADS,
+            "sms": sms}
+
+
+def _plan(n_bytes: int, device) -> tuple:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    p = launch_plan(n_bytes, sms)
+    return p["grid"], p["threads"], p["sms"]
 
 
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
@@ -27,16 +50,14 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"pack_bits: unsupported device {x.device}")
     _build.check_operand(x, "x", torch.float32, 2)
-    if x.data_ptr() % 16:
-        raise ValueError("pack_bits: x must be 16-byte aligned "
-                         "(the kernel loads float4)")
     out = torch.empty((r, c // 8), dtype=torch.uint8, device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.lib()
     with torch.cuda.device(x.device):
         err = lib.pack_bits_launch(x.data_ptr(), out.data_ptr(),
-                                   out.numel(), _build.stream_of(x))
+                                   out.numel(), *_plan(out.numel(), x.device),
+                                   _build.stream_of(x))
     _build.check(err, "pack_bits")
     pack_bits.launches += 1
     return out
@@ -73,6 +94,7 @@ def unpack_bits(packed: torch.Tensor, n_cols: int | None = None,
     with torch.cuda.device(packed.device):
         err = lib.unpack_bits_launch(packed.data_ptr(), out.data_ptr(),
                                      packed.numel(),
+                                     *_plan(packed.numel(), packed.device),
                                      _build.stream_of(packed))
     _build.check(err, "unpack_bits")
     unpack_bits.launches += 1

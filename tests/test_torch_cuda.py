@@ -55,6 +55,46 @@ def test_pack_bits_and_pack_rows(dev, b, f, d, c):
     assert torch.equal(asp.pack_rows(xr), ref.pack_rows(xr))
 
 
+@pytest.mark.parametrize("r,c", [(1, 8), (3, 8), (5, 136), (17, 1000),
+                                 (129, 1024), (1030, 1016), (8500, 1024)])
+def test_pack_and_unpack_every_chunk_tail_and_byte(dev, r, c):
+    """pack_bits at unaligned R and C (whole chunks, a ragged last chunk,
+    more chunks than the grid holds), pack_rows at a ragged D, and
+    unpack_bits over every byte value, from aligned and misaligned
+    views."""
+    rng = np.random.default_rng([35, r, c])
+    x = bipolar(rng, (r, c), dev)
+    assert torch.equal(pack_bits.pack_bits(x), ref.pack_bits(x))
+    xr = bipolar(rng, (r, c - 3), dev)
+    assert torch.equal(asp.pack_rows(xr), ref.pack_rows(xr))
+    p = torch.as_tensor(rng.integers(0, 256, (r, c // 8), dtype=np.uint8),
+                        device=dev)
+    n = min(256, p.numel())
+    p.view(-1)[:n] = torch.arange(n, device=dev).to(torch.uint8)
+    assert torch.equal(pack_bits.unpack_bits(p), ref.unpack_bits(p))
+    off = torch.empty(p.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    off.copy_(p.view(-1))
+    assert off.data_ptr() % 4 == 1
+    assert torch.equal(pack_bits.unpack_bits(off.view(r, c // 8)),
+                       ref.unpack_bits(p))
+
+
+@pytest.mark.parametrize("fn", ["pack", "unpack"])
+@pytest.mark.parametrize("field,delta", [("grid", 1), ("threads", 32),
+                                         ("sms", 1)])
+def test_pack_bits_launchers_refuse_another_plan(dev, monkeypatch, fn, field,
+                                                 delta):
+    x = torch.ones((64, 1024), device=dev)
+    p = ref.pack_bits(x)
+    run = ((lambda: pack_bits.pack_bits(x)) if fn == "pack"
+           else (lambda: pack_bits.unpack_bits(p)))
+    real = pack_bits.launch_plan
+    monkeypatch.setattr(pack_bits, "launch_plan", lambda *a: {
+        **real(*a), field: real(*a)[field] + delta})
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        run()
+
+
 @pytest.mark.parametrize("b,f,d,c", GEOMS)
 @pytest.mark.parametrize("block_b", asp.BLOCK_B_CHOICES)
 def test_am_search_packed_with_ties(dev, b, f, d, c, block_b):
@@ -774,15 +814,141 @@ def test_am_shortlist(dev, d, g):
 
 
 def test_am_shortlist_streams_a_large_g(dev):
-    # Past the shared-memory budget the keys go through global scratch.
+    # Past the shared-memory budget the stream route's keys go through
+    # global scratch (S = 600: its splits would not merge in a warp); a
+    # short S splits G over the tile route.
     rng = np.random.default_rng(21)
     g = am_shortlist.SMEM_SLOTS + 77
     q = packed_rows(rng, (3, 100), dev)
     spt = packed_rows(rng, (g, 100), dev, dup=True).T.contiguous()
-    for s in (1, 5, 600):
+    for s, route in ((1, "tile"), (5, "tile"), (600, "stream")):
+        am_shortlist.reset_routes()
         got = am_shortlist.am_shortlist(q, spt, n_dims=100, s=s)
         want = ref.am_shortlist(q, spt, 100, s)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert am_shortlist.route_counts()[route] == 1
+
+
+SHORTLIST_G = (1, 2, 3, 45, 448, 1000, 1777)
+
+
+@pytest.mark.parametrize("d", HIER_D)
+@pytest.mark.parametrize("g", SHORTLIST_G)
+def test_am_shortlist_every_split_and_route(dev, d, g):
+    """Both routes and the tile route's splits, bit-exact: random and
+    duplicated super-centroids (forced ties), S in {1, mid, G}, at a
+    served batch, a ragged one of 16-row tiles and one whose plan splits
+    G over fewer blocks; each launch counted on the route its plan names.
+    The grids the plan makes for a 1-SM device (the fewest splits) and an
+    unbounded one (the narrowest) give the same result."""
+    rng = np.random.default_rng([31, d, g])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (5, 37, 600):
+        q = packed_rows(rng, (b, d), dev)
+        for dup in (False, True):
+            spt = packed_rows(rng, (g, d), dev, dup).T.contiguous()
+            for s in sorted({1, max(1, g // 2), g}):
+                want = ref.am_shortlist(q, spt, d, s)
+                plan = am_shortlist.launch_plan(b, -(-d // 8), g, s, sms)
+                am_shortlist.reset_routes()
+                got = am_shortlist.am_shortlist(q, spt, n_dims=d, s=s)
+                assert torch.equal(got[0], want[0]), (b, dup, s)
+                assert torch.equal(got[1], want[1]), (b, dup, s)
+                assert am_shortlist.route_counts() == {
+                    r: int(r == plan["route"]) for r in am_shortlist.ROUTES}
+                for n in (1, 1 << 30):
+                    got = am_shortlist._launch(q, spt, d, s, n)
+                    assert got[2] == am_shortlist.launch_plan(
+                        b, -(-d // 8), g, s, n)["route"]
+                    assert torch.equal(got[0], want[0]), (b, dup, s, n)
+                    assert torch.equal(got[1], want[1]), (b, dup, s, n)
+
+
+@pytest.mark.parametrize("d", [1100, 2048, 4100])
+def test_am_shortlist_long_d_streams_through_the_ring(dev, d):
+    """Past D = 1024 (more k slabs than ring stages) the tile route
+    streams its slabs through the ring: bit-exact at the plan's split
+    and at one (a 1-SM device's plan), ties forced."""
+    rng = np.random.default_rng([40, d])
+    q = packed_rows(rng, (37, d), dev)
+    spt = packed_rows(rng, (448, d), dev, dup=True).T.contiguous()
+    for s in (1, 8, 448):
+        want = ref.am_shortlist(q, spt, d, s)
+        for sms in (None, 1):
+            got = am_shortlist._launch(q, spt, d, s, sms)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+def test_am_shortlist_split_tickets_are_left_all_ones(dev):
+    """The tile route's merge tickets start and end all ones, so launches
+    of any split in a row (the plan's, the narrowest, another S's) need
+    no memset."""
+    rng = np.random.default_rng(32)
+    q = packed_rows(rng, (70, 1024), dev)
+    spt = packed_rows(rng, (448, 1024), dev, dup=True).T.contiguous()
+    for s, sms in ((8, None), (16, None), (3, 1 << 30), (8, 1 << 30)):
+        got = am_shortlist._launch(q, spt, 1024, s, sms)
+        want = ref.am_shortlist(q, spt, 1024, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert bool((am_shortlist._TICKETS[(q.device, stream)] == 255).all())
+
+
+@pytest.mark.parametrize("field,delta", [("splits", 1), ("cols", 16),
+                                         ("kpl", 2), ("grid", (1, 0)),
+                                         ("smem", 16), ("sms", -(1 << 20)),
+                                         ("scratch_bytes", 8)])
+def test_am_shortlist_launcher_refuses_another_plan(dev, monkeypatch, field,
+                                                    delta):
+    """The launcher takes the wrapper's launch_plan and refuses one that
+    is not its own (or made for fewer than one SM); the refused launch
+    drops the stream's tickets and the next launch equals the plain
+    version."""
+    rng = np.random.default_rng(33)
+    q = packed_rows(rng, (40, 1024), dev)
+    spt = packed_rows(rng, (448, 1024), dev).T.contiguous()
+    real = am_shortlist.launch_plan
+
+    def bad(*a):
+        plan = dict(real(*a))
+        if field == "grid":
+            plan["grid"] = tuple(v + dv for v, dv in zip(plan["grid"],
+                                                         delta))
+        else:
+            plan[field] += delta
+        return plan
+
+    monkeypatch.setattr(am_shortlist, "launch_plan", bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        am_shortlist.am_shortlist(q, spt, n_dims=1024, s=8)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert (q.device, stream) not in am_shortlist._TICKETS
+    monkeypatch.undo()
+    got = am_shortlist.am_shortlist(q, spt, n_dims=1024, s=8)
+    want = ref.am_shortlist(q, spt, 1024, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_use_kernel_none_runs_the_kernel(dev):
+    """A reference-style ops call (use_kernel=None, block_b=None) runs the
+    cuda tier on a CUDA tensor."""
+    rng = np.random.default_rng(34)
+    q = packed_rows(rng, (6, 1024), dev)
+    _, (slab, ids, ts, tc), mt = layout(rng, 900, 1024, 7, dev)
+    spt = packed_rows(rng, (7, 1024), dev).T.contiguous()
+    ops.reset_dispatch()
+    kernels.reset_launches()
+    short, _ = ops.am_shortlist(q, spt, n_dims=1024, s=3, use_kernel=None,
+                                block_b=None)
+    ops.am_search_sparse(q, slab, ids, short, ts, tc, n_dims=1024, k=2,
+                         max_tiles=mt, use_kernel=None, block_b=None)
+    tiers = ops.dispatch_breakdown()
+    assert tiers["am_shortlist"] == {"cuda": 1}
+    assert tiers["am_search_sparse"] == {"cuda": 1}
+    assert kernels.launches()["am_shortlist"] == 1
+    assert kernels.launches()["am_search_sparse"] == 1
 
 
 def layout(rng, c, d, g, dev, dup=True):
@@ -913,7 +1079,7 @@ def test_am_search_sparse_gathered_scratch_path(dev):
 
 
 def test_am_shortlist_at_the_huge_label_shape(dev):
-    """am_shortlist (its kernel untouched) bit-exact at B 256, G 448,
+    """am_shortlist bit-exact at the huge-label shape, B 256, G 448,
     D 1024, S 8 and 16."""
     rng = np.random.default_rng(27)
     q = packed_rows(rng, (256, 1024), dev)

@@ -1019,3 +1019,239 @@ def test_am_search_route_predicate():
     assert ams.int8_route(full, full.T)
     full = torch.full((2, 1041), 127.0)
     assert not ams.int8_route(full, full.T)
+
+
+# -- am_shortlist -------------------------------------------------------------
+
+INVALID = (1 << 64) - 1
+
+
+def _shortlist_plans():
+    for b, g, s in ((1, 1, 1), (5, 45, 45), (32, 45, 45), (37, 448, 8),
+                    (256, 448, 8), (256, 448, 16), (256, 448, 448),
+                    (7, 1000, 3), (7, 1777, 1777), (3, 16461, 5),
+                    (3, 16461, 600), (300, 129, 64)):
+        for sms in (1, 78, 132, 10_000):
+            yield b, g, s, sms
+
+
+@pytest.mark.parametrize("b,g,s,sms", list(_shortlist_plans()))
+def test_shortlist_plan_covers_every_row_and_column_once(b, g, s, sms):
+    """Tile route: (query tiles of 16 rows) x (splits of cols columns, a
+    multiple of 16, at most 512) cover every (row, column) once, the
+    last split's columns past G masked; each split's top-min(S, cols)
+    keys and the merge fit a warp's KPL keys a lane; the shared memory
+    (the ring or the keys, whichever is larger) fits a block. Otherwise
+    the stream route's block per query, its keys in shared memory up to
+    SMEM_SLOTS."""
+    pl = asl.launch_plan(b, 128, g, s, sms)
+    if pl["route"] == "stream":
+        assert pl["grid"] == (b, 1) and pl["threads"] == 256
+        n_split = -(-g // asl._tile_cols(g, -(-g // asl.MAX_KEYS)))
+        assert n_split * min(s, asl.MAX_KEYS) > asl.MAX_KEYS
+        assert (pl["scratch_bytes"] == 0) == (g <= asl.SMEM_SLOTS)
+        assert pl["smem"] <= SMEM_LIMIT
+        return
+    tiles, splits = pl["grid"]
+    cols = pl["cols"]
+    assert tiles * asl.ROWS >= b > (tiles - 1) * asl.ROWS
+    assert cols % 16 == 0 and cols <= asl.MAX_KEYS
+    assert splits == pl["splits"] and splits * cols >= g > (splits - 1) * cols
+    seen = np.zeros((tiles * asl.ROWS, splits * cols), np.int64)
+    for x, y in itertools.product(range(tiles), range(splits)):
+        seen[x * 16:(x + 1) * 16, y * cols:(y + 1) * cols] += 1
+    assert (seen == 1).all()
+    merge = splits * min(s, cols) if splits > 1 else 0
+    assert merge <= asl.MAX_KEYS
+    assert 32 * pl["kpl"] >= max(cols, merge) > 32 * (pl["kpl"] - 2)
+    assert pl["kpl"] % 2 == 0 and 2 <= pl["kpl"] <= 16
+    ring = 4 * (16 * 48 + 32 * max(cols + 16, 32))
+    assert pl["smem"] == max(ring, 8 * 16 * (32 * pl["kpl"] + 1))
+    assert pl["smem"] <= SMEM_LIMIT
+    assert pl["scratch_bytes"] == 8 * tiles * 16 * merge
+    assert pl["ticket_bytes"] == (4 * tiles if splits > 1 else 0)
+
+
+@pytest.mark.parametrize("sms", [1, 16, 78, 132, 10_000])
+def test_shortlist_plan_follows_the_devices_sm_count(sms):
+    """The plan takes the fewest G splits, or splits of MIN_SPLIT_COLS
+    columns where that grid has at most one block an SM and their merge
+    leaves a lane fewer keys: at B = 256, G = 448 one split of 448 on a
+    16-SM device, 7 splits of 64 on an H100; at S = G never the narrow
+    split; the served B = 32, G = 45 never splits."""
+    for b, g, s in ((256, 448, 8), (256, 448, 16), (256, 448, 448),
+                    (32, 45, 45), (7, 1000, 3), (7, 1000, 40),
+                    (1024, 1000, 8), (300, 129, 64)):
+        pl = asl.launch_plan(b, 128, g, s, sms)
+        assert pl["sms"] == sms and pl["route"] == "tile"
+        tiles, splits = pl["grid"]
+        fewest = asl._tile_cols(g, -(-g // asl.MAX_KEYS))
+        narrow = -(-g // asl.MIN_SPLIT_COLS)
+        takes_narrow = (tiles * narrow <= sms
+                        and asl.MIN_SPLIT_COLS < fewest
+                        and narrow * min(s, asl.MIN_SPLIT_COLS) < fewest)
+        assert pl["cols"] == (asl.MIN_SPLIT_COLS if takes_narrow
+                              else fewest)
+        if takes_narrow:
+            assert tiles * splits <= sms
+    assert asl.launch_plan(256, 128, 448, 8, 16)["grid"] == (16, 1)
+    assert asl.launch_plan(256, 128, 448, 8, 132)["grid"] == (16, 7)
+    assert asl.launch_plan(32, 128, 45, 45, 132)["grid"] == (2, 1)
+
+
+@pytest.mark.parametrize("b", [16, 256, 512, 1024, 2048])
+def test_shortlist_plan_spans_the_fewest_and_the_narrowest_splits(b):
+    """The grids chip_smoke.py times against the plan's at the huge-label
+    shape (G = 448, S = 8): a 1-SM device's plan takes the fewest splits
+    (one block of all 448 columns a tile, no merge scratch or tickets), an
+    unbounded one the narrowest (MIN_SPLIT_COLS columns), and the H100's
+    the narrowest while that grid has at most one block an SM (B <= 288),
+    else the fewest."""
+    one = asl.launch_plan(b, 128, 448, 8, 1)
+    assert one["grid"] == (b // 16, 1) and one["kpl"] == 14
+    assert one["scratch_bytes"] == 0 and one["ticket_bytes"] == 0
+    wide = asl.launch_plan(b, 128, 448, 8, 1 << 30)
+    assert wide["cols"] == asl.MIN_SPLIT_COLS and wide["grid"] == (b // 16, 7)
+    assert wide["kpl"] == 2 and wide["ticket_bytes"] == 4 * (b // 16)
+    h100 = asl.launch_plan(b, 128, 448, 8, H100_SMS)
+    assert h100["grid"] == (wide if 7 * (b // 16) <= H100_SMS
+                            else one)["grid"]
+
+
+def _warp_select(keys, k):
+    """A numpy model of csrc/am_shortlist.cu warp_select: lane l holds
+    keys[l + 32 i]; nv and the counts are warp sums, h* the least hamming
+    with >= min(k, nv) keys at or below it (a binary search between the
+    least and the largest), the candidates compacted slot by slot in lane
+    order, each ranked by the candidates below it. Returns the k output
+    slots (INVALID where exhausted)."""
+    kpl = -(-len(keys) // 32)
+    reg = np.full((kpl, 32), INVALID, dtype=np.uint64)
+    reg.reshape(-1)[:len(keys)] = keys
+    ham = (reg >> np.uint64(32)).astype(np.int64)
+    valid = reg != np.uint64(INVALID)
+    nv = int(valid.sum())
+    keff = min(k, nv)
+    out = [INVALID] * k
+    if keff == 0:
+        return out
+    lo, hi = int(ham[valid].min()), int(ham[valid].max())
+    while lo < hi:
+        mid = lo + (hi - lo) // 2
+        if int((valid & (ham <= mid)).sum()) >= keff:
+            hi = mid
+        else:
+            lo = mid + 1
+    cand = valid & (ham <= lo)
+    lst = [int(v) for v in reg[cand]]  # slot-major, lane order
+    for v in lst:
+        rank = sum(w < v for w in lst)
+        if rank < keff:
+            assert out[rank] == INVALID  # ranks are unique
+            out[rank] = v
+    return out
+
+
+def _shortlist_model(ham, s, cols):
+    """Every row's top S of (hamming << 32 | id), through G splits of
+    ``cols`` columns, each split's top-min(S, cols) (its ragged tail
+    exhausted), then the merge of the splits' keys, as the tile route."""
+    b, g = ham.shape
+    ids = np.arange(g, dtype=np.uint64)
+    keys = (ham.astype(np.uint64) << np.uint64(32)) | ids
+    n_split = -(-g // cols)
+    rows = []
+    for r in range(b):
+        if n_split == 1:
+            rows.append(_warp_select(keys[r], s))
+            continue
+        s_eff = min(s, cols)
+        part = []
+        for y in range(n_split):
+            part += _warp_select(keys[r, y * cols:(y + 1) * cols], s_eff)
+        rows.append(_warp_select(np.array(part, dtype=np.uint64), s))
+    return np.array(rows, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("g,s,cols", [(45, 45, 48), (45, 1, 16),
+                                      (448, 8, 64), (448, 16, 448),
+                                      (448, 448, 448), (100, 40, 16),
+                                      (130, 9, 32), (9, 9, 16), (300, 7, 64)])
+def test_shortlist_split_merge_and_warp_selection_are_exact(g, s, cols):
+    """The tile route's selection, modelled in numpy, equals the (-sim,
+    id) order of ref.am_shortlist: ties forced by repeated hammings (few
+    distinct values), S = G, S past a split's columns (the split's own
+    top-cols), ragged last splits."""
+    rng = np.random.default_rng([36, g, s, cols])
+    for ham in (rng.integers(0, 6, (5, g)), rng.integers(400, 600, (5, g)),
+                np.full((2, g), 17)):
+        got = _shortlist_model(ham, s, cols)
+        order = np.lexsort((np.broadcast_to(np.arange(g), ham.shape), ham),
+                           axis=1)[:, :s]
+        assert np.array_equal((got & np.uint64(0xffffffff)).astype(np.int64),
+                              order)
+        assert np.array_equal((got >> np.uint64(32)).astype(np.int64),
+                              np.take_along_axis(ham, order, axis=1))
+
+
+def test_shortlist_model_matches_the_plain_version_on_packed_rows():
+    """End to end on packed operands: hamming from the bits, then the
+    model's top S at the huge-label plan's split equals ref.am_shortlist
+    (ids and sims = D - 2 hamming)."""
+    rng = np.random.default_rng(37)
+    d, g = 100, 448
+    q = rng.choice([-1.0, 1.0], (6, d)).astype(np.float32)
+    sup = rng.choice([-1.0, 1.0], (g, d)).astype(np.float32)
+    sup[200:] = sup[:248]  # duplicated super-centroids: ties
+    ham = (q[:, None, :] != sup[None, :, :]).sum(axis=2)
+    qp = ref.pack_rows(torch.as_tensor(q))
+    spt = ref.pack_rows(torch.as_tensor(sup)).T.contiguous()
+    for s in (1, 8, 16, 448):
+        pl = asl.launch_plan(6, 13, g, s, H100_SMS if s < 448 else 1)
+        got = _shortlist_model(ham, s, pl["cols"])
+        w_idx, w_sim = ref.am_shortlist(qp, spt, d, s)
+        assert np.array_equal((got & np.uint64(0xffffffff)).astype(np.int64),
+                              w_idx.numpy())
+        assert np.array_equal(d - 2 * (got >> np.uint64(32)).astype(np.int64),
+                              w_sim.numpy().astype(np.int64))
+
+
+def test_shortlist_on_the_cpu_is_the_plain_version():
+    """CPU operands take ref.am_shortlist, whatever the SM count asked
+    for, and launch nothing; a shortlist outside [1, G] is refused."""
+    rng = np.random.default_rng(39)
+    q = ref.pack_rows(torch.as_tensor(rng.choice([-1.0, 1.0], (5, 100))))
+    spt = ref.pack_rows(torch.as_tensor(
+        rng.choice([-1.0, 1.0], (45, 100)))).T.contiguous()
+    n = asl.am_shortlist.launches
+    want = ref.am_shortlist(q, spt, 100, 7)
+    got = asl.am_shortlist(q, spt, n_dims=100, s=7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for sms in (1, 132):
+        got = asl._launch(q, spt, 100, 7, sms)
+        assert got[2] is None
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert asl.am_shortlist.launches == n
+    for s in (0, 46):
+        with pytest.raises(ValueError, match="outside"):
+            asl.am_shortlist(q, spt, n_dims=100, s=s)
+
+
+# -- pack_bits / unpack_bits ------------------------------------------------
+
+@pytest.mark.parametrize("sms", [1, 78, 132, 144, 10_000])
+def test_pack_plan_follows_the_devices_sm_count(sms):
+    """A warp per chunk of 128 packed bytes (1024 floats), 8 warps a
+    block, at most 8 blocks per SM of the device the plan is made for
+    (the launcher refuses a plan for another SM count); more chunks
+    stride over the grid. R = C = 1024 is 128 blocks of one chunk a warp
+    on an H100; the first version capped its grid at a hard-coded
+    132 * 16 blocks."""
+    from repro_torch.kernels import pack_bits as pb
+    for n in (1, 127, 128, 129, 1024 * 128, 8500 * 128, 10 ** 8):
+        pl = pb.launch_plan(n, sms)
+        chunks = -(-n // 128)
+        assert pl["sms"] == sms and pl["threads"] == 256
+        assert pl["grid"] == min(-(-chunks // 8), 8 * sms)
+        assert pl["grid"] * 8 >= chunks or pl["grid"] == 8 * sms
+    assert pb.launch_plan(1024 * 128, 132)["grid"] == 128

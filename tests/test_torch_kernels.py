@@ -435,3 +435,148 @@ class TestDispatch:
         with pytest.raises(ValueError, match="takes"):
             pack_bits.unpack_bits(torch.zeros(4, dtype=torch.uint8))
 
+
+
+# -- the ops surface against the reference's: cycles, use_kernel, block_b --
+
+from repro.core import imc as jax_imc  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro_torch.core import imc as torch_imc  # noqa: E402
+
+CYCLE_SHAPES = [(1, 1), (8, 3), (100, 50), (127, 129), (128, 128),
+                (130, 257), (512, 300), (617, 1024), (1000, 1000),
+                (1024, 1024), (4096, 100_000)]
+
+
+@pytest.mark.parametrize("d,c", CYCLE_SHAPES)
+def test_cycle_counts_equal_the_references(d, c):
+    """search_cycles, packed_search_cycles and encode_pack_cycles equal
+    the reference's over ragged and whole-tile D and C, and the IMC
+    mapping's cycles (map_memhd for the AM, map_basic for the encoder),
+    as the reference's own tests hold them."""
+    dp = -(-d // 8)
+    arr = torch_imc.ImcArrayConfig()
+    jarr = jax_imc.ImcArrayConfig()
+    assert ops.search_cycles((d, c)) == jax_ops.search_cycles((d, c))
+    assert ops.search_cycles((d, c)) == torch_imc.map_memhd(d, c, arr).cycles
+    assert ops.search_cycles((d, c)) == jax_imc.map_memhd(d, c, jarr).cycles
+    assert ops.packed_search_cycles((dp, c)) == \
+        jax_ops.packed_search_cycles((dp, c))
+    if d % 128 == 0 or -(-dp // 16) == -(-d // 128):
+        assert ops.packed_search_cycles((dp, c)) == ops.search_cycles((d, c))
+    f = d  # features x dims of the encoder
+    assert ops.encode_pack_cycles((4, f), (f, c)) == \
+        jax_ops.encode_pack_cycles((4, f), (f, c))
+    assert ops.encode_pack_cycles((4, f), (f, c)) == \
+        torch_imc.map_basic(f, c, arr).cycles
+    assert ops.encode_pack_cycles((4, f), (f, c)) == ops.mvm_cycles(
+        (4, f), (f, c))
+
+
+@pytest.mark.parametrize("use_kernel,device,tier", [
+    (True, "cuda", "cuda"), (None, "cuda", "cuda"), (False, "cuda",
+                                                     "torch-ref"),
+    (True, "cpu", "torch-ref"), (None, "cpu", "torch-ref"),
+    (False, "cpu", "torch-ref")])
+def test_tier_reads_none_as_the_kernel(use_kernel, device, tier):
+    """use_kernel=None (the reference's auto-dispatch) is the kernel on a
+    CUDA tensor, the plain version on the CPU; only False asks for the
+    plain version on the card."""
+    from types import SimpleNamespace
+    x = SimpleNamespace(device=torch.device(device))
+    assert ops._tier(x, use_kernel) == tier
+
+
+def _hier_operands():
+    rng = rng_for(11)
+    d, g = 100, 7
+    q = ref.pack_rows(t(bipolar(rng, (4, d))))
+    spt = ref.pack_rows(t(bipolar(rng, (g, d)))).T.contiguous()
+    from repro_torch.deploy import hierarchical as hier
+    am_t = ref.pack_rows(t(bipolar(rng, (300, d)))).T.contiguous()
+    lay = hier.build_layout(am_t.numpy(), rng.integers(0, g, size=300), g)
+    return d, q, spt, lay
+
+
+REFERENCE_STYLE = ["encode_pack", "search_from_features",
+                   "predict_from_features", "am_search_packed",
+                   "am_search_multibit", "am_shortlist", "am_search_sparse",
+                   "qail_update"]
+
+
+def _reference_style_call(name, block_b, use_kernel):
+    """One ops call per op with a tile, as a caller of the reference
+    writes it (keyword block_b and use_kernel)."""
+    rng = rng_for(12)
+    x, w = t(dyadic(rng, (4, 16))), t(bipolar(rng, (16, 24)))
+    am_t = ref.pack_rows(t(bipolar(rng, (5, 24)))).T.contiguous()
+    owners = torch.arange(5, dtype=torch.int32)
+    qb = torch.where(x @ w >= 0, 1.0, -1.0)
+    kw = dict(block_b=block_b, use_kernel=use_kernel)
+    if name == "encode_pack":
+        return ops.encode_pack(x, w, **kw)
+    if name == "search_from_features":
+        return ops.search_from_features(x, w, am_t, **kw)
+    if name == "predict_from_features":
+        return ops.predict_from_features(x, w, am_t, owners, **kw)
+    if name == "am_search_packed":
+        return ops.am_search_packed(ref.pack_rows(qb), am_t, n_dims=24, **kw)
+    if name == "am_search_multibit":
+        from repro_torch.core import am as am_lib
+        codes, _ = am_lib.quantize_am(t(bipolar(rng, (5, 24))) * 3, 4)
+        return ops.am_search_multibit(qb, am_lib.pack_am_planes(codes, 4),
+                                      **kw)
+    if name == "qail_update":
+        return ops.qail_update(qb, qb, t(bipolar(rng, (24, 5))), owners,
+                               owners[:4], torch.ones(4), lr=0.5, **kw)
+    d, q, spt, lay = _hier_operands()
+    if name == "am_shortlist":
+        return ops.am_shortlist(q, spt, n_dims=d, s=3, **kw)
+    short = torch.tensor([[0, 2], [1, 1], [6, 3], [5, 4]], dtype=torch.int32)
+    return ops.am_search_sparse(
+        q, *(torch.as_tensor(a) for a in (lay.slab, lay.col_ids)), short,
+        *(torch.as_tensor(a) for a in (lay.tile_start, lay.tile_count)),
+        n_dims=d, k=2, max_tiles=lay.max_tiles, **kw)
+
+
+def _tile_choices(name):
+    """The query tiles the port's kernel behind ops.<name> runs."""
+    from repro_torch.kernels import am_search_sparse, am_shortlist
+    return {"encode_pack": encode_fused.BLOCK_B_CHOICES,
+            "search_from_features": asp.BLOCK_B_CHOICES,
+            "predict_from_features": asp.BLOCK_B_CHOICES,
+            "am_search_packed": asp.BLOCK_B_CHOICES,
+            "am_search_multibit": am_search_multibit.BLOCK_B_CHOICES,
+            "qail_update": qail_update.BLOCK_B_CHOICES,
+            "am_shortlist": am_shortlist.BLOCK_B_CHOICES,
+            "am_search_sparse": am_search_sparse.BLOCK_B_CHOICES}[name]
+
+
+@pytest.mark.parametrize("name", REFERENCE_STYLE)
+def test_reference_style_calls_take_block_b_none(name):
+    """block_b=None and use_kernel=None, as the reference's callers pass
+    them, are accepted by every op with a tile and give the plain
+    version's result on the CPU; so does the kernel's own tile."""
+    ops.reset_dispatch()
+    want = _reference_style_call(name, None, False)
+    for block_b, use_kernel in ((None, None), (None, True),
+                                (_tile_choices(name)[-1], None)):
+        got = _reference_style_call(name, block_b, use_kernel)
+        if isinstance(want, tuple):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            assert torch.equal(got, want)
+    assert set(ops.dispatch_breakdown()[name]) == {"torch-ref"}
+
+
+@pytest.mark.parametrize("name", REFERENCE_STYLE)
+@pytest.mark.parametrize("block_b", [64, 128, 1024, 7])
+def test_a_tile_the_kernel_cannot_run_raises(name, block_b):
+    """An explicit tile outside the kernel's own (the reference's 64-1024
+    autotuned tiles, or any other) raises a ValueError naming the values
+    the kernel takes; it is not mapped onto another tile."""
+    if block_b in _tile_choices(name):
+        _reference_style_call(name, block_b, True)
+        return
+    with pytest.raises(ValueError, match=r"block_b=\d+ not in \("):
+        _reference_style_call(name, block_b, True)
