@@ -40,9 +40,10 @@ script exits non-zero without the final result line:
    counts, S in {1, 3, G}, k in {1, 5, candidates + 2}, forced ties and
    the global-scratch path; ``am_shortlist`` at its plan's G split, each
    launch's route (tile or stream) counted;
-3. the main path at the paper's widest MNIST point (f = 784, D = C =
-   1024, R = 0.8, lr = 0.02, batch 256, 25 k-means iterations) on the
-   full synthetic MNIST: ``MemhdModel.create`` -> ``fit`` ->
+3. the main path at the paper's widest MNIST point
+   (``paper_config("mnist", "1024x1024")``: f = 784, D = C = 1024, R =
+   0.8, lr = 0.02; batch 256, 25 k-means iterations) on the full
+   synthetic MNIST: ``MemhdModel.create`` -> ``fit`` ->
    ``deploy(target="packed")`` -> ``serve_batches`` staged and fused at
    depth 2; kernel launch counts are zeroed just before and read just
    after, and staged == fused == the plain ``MemhdModel.predict`` bit for
@@ -115,6 +116,9 @@ script exits non-zero without the final result line:
    fp32 route (``ms_fp32_route``, with that route's bound); the
    hierarchical kernels at the huge-label shape; ``flash_decode`` at
    B = 8, S = 32,768 and ``ssd_chunk`` at B = 8, Q = 256), and
+   ``launches_by_path`` on the rows whose kernels phases 13 and 14 run
+   (``binary_mvm``, ``am_search``: baselines; ``qail_update``,
+   ``am_search_packed``, ``pack_bits``: online), and
    ``library_ms`` (cuBLAS SGEMM through ``torch.matmul`` for
    ``binary_mvm``, ``scaled_dot_product_attention`` for
    ``flash_decode``); the ``flash_decode`` row also carries the served
@@ -154,7 +158,28 @@ script exits non-zero without the final result line:
    the ``rates`` line: the peaks the bounds use, the SM count and clock,
    and ``mma_rate``, the measured issue rates of the int8 and the 1-bit
    ``mma.sync`` (whose ratio sets the 1-bit peak that bounds popcount
-   mode).
+   mode);
+13. the Table I baselines (phase ``baselines``): BasicHDC, QuantHD,
+   LeHDC and SearcHD (N = 64) fit at D = 10,240 on the full synthetic
+   MNIST (fit seconds, accuracy, memory KB, the id_level encode's
+   seconds); ``ops.predict_classes`` (``am_search``, every launch on its
+   int8 route; C = 10 and 640) == ``BaselineModel.predict`` on every test
+   row; BasicHDC's encode through ``binary_mvm`` (D = 10,240) == the
+   plain product on dyadic features; ``fit(init_method="random")`` at
+   the main point through ``qail_update``;
+14. online serving (phase ``online``): the ``OnlineEngine`` in-process at
+   the 1024 x 1024 point trained without its last class, a Poisson
+   stream with a drifted same-C fold and a class-append fold (before
+   it, a batch launched on the old generation and still queued when a
+   class-append fold swaps equals the old artifact's predict; each
+   fold minibatch a ``qail_update`` launch on its int8 route, counted);
+   every response == the plain predict of the generation that served
+   it, ``recompiles_steady_state`` 0, launch counts zeroed just before
+   and read just after, the stream under ``torch.profiler``
+   (``online_profile``: the engine's ``fold`` / ``rewarm`` / ``dispatch``
+   / ``device_wait`` ranges); the ``serve_online --smoke --append-class``
+   CLI and ``serve_memhd --metrics-out/--trace-out`` as subprocesses,
+   both files parsed. Phases 13 and 14 run after the hierarchical paths.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -252,6 +277,18 @@ FD_ROW = dict(b=8, s=32768, h=25, kv=5, dh=64)
 FD_SERVE = dict(b=4, s=320, h=25, kv=5, dh=64)
 SSD_ROW = dict(b=8, q=256, h=50, n=16, p=64)
 SSD_SERVE_B = 2  # ... and at the forward's batch (lm_forward: B 2)
+# The Table I baselines at the paper's width (SearcHD's N as published),
+# and the random-init fit's epochs at the main point (cut from 100).
+BASELINE_KINDS = ("basic", "quanthd", "lehdc", "searchd")
+BASELINE_DIM = 10_240
+BASELINE_N = 64
+RANDOM_EPOCHS = 20
+# The online stream at the main point without its last class: fit epochs
+# (cut from 100), QAIL epochs per fold, the engine's batch budget,
+# requests a phase and their Poisson rate.
+ONLINE = dict(epochs=20, fold_epochs=2, max_batch=256, requests=120,
+              rate=2000.0)
+ENGINE_RANGES = ("fold", "rewarm", "dispatch", "device_wait")
 
 
 def check(cond, what) -> None:
@@ -920,6 +957,7 @@ class Smoke:
     def main_path(self):
         np, torch = self.np, self.torch
         from repro_torch import kernels
+        from repro_torch.configs.memhd_paper import paper_config
         from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
         from repro_torch.data import load_dataset
         from repro_torch.launch import serve_memhd as sm
@@ -928,10 +966,14 @@ class Smoke:
         ds = load_dataset("mnist", device=self.dev)
         n_train, n_test = ds.train_x.shape[0], ds.test_x.shape[0]
         t_data = time.perf_counter() - t0
-        enc = EncoderConfig(kind="projection", features=784, dim=1024)
-        amc = MemhdConfig(dim=1024, columns=1024, classes=10,
-                          init_ratio=0.8, lr=0.02, batch_size=256,
-                          kmeans_iters=25, epochs=EPOCHS)
+        enc, amc = paper_config("mnist", "1024x1024", batch_size=256,
+                                kmeans_iters=25, epochs=EPOCHS)
+        check(enc == EncoderConfig(kind="projection", features=784,
+                                   dim=1024)
+              and amc == MemhdConfig(dim=1024, columns=1024, classes=10,
+                                     init_ratio=0.8, lr=0.02,
+                                     batch_size=256, kmeans_iters=25,
+                                     epochs=EPOCHS), (enc, amc))
         log({"phase": "main_path_config", "features": 784, "dim": 1024,
              "columns": 1024, "init_ratio": 0.8, "lr": 0.02,
              "batch_size": 256, "kmeans_iters": 25,
@@ -1698,6 +1740,328 @@ class Smoke:
             rec[f"{key}_binary_equal"] = same_bin
             rec[f"{key}_fp_equal"] = same_fp
         log(rec)
+
+    # -- phase 13: the Table I baselines -----------------------------------------
+    def baselines(self):
+        """The four Table I baselines at the paper's 10,240-D on the full
+        synthetic MNIST (SearcHD at N = 64): fit seconds, accuracy and
+        memory. ``am_search`` (``ops.predict_classes``, its int8 route)
+        == ``BaselineModel.predict`` on every test row; BasicHDC's encode
+        through ``binary_mvm`` == the plain product on dyadic features.
+        Then ``fit(init_method="random")`` at the main path's point."""
+        np, torch = self.np, self.torch
+        from repro_torch.core import BaselineConfig, baselines, encoding
+        from repro_torch.kernels import am_search as ams
+        from repro_torch.kernels import ops, ref
+        ds = self.ds
+        test_dy = torch.round(ds.test_x * 256) / 256
+        out, counts = {}, {"am_search": 0, "binary_mvm": 0}
+        for kind in BASELINE_KINDS:
+            cfg = BaselineConfig(kind=kind, dim=BASELINE_DIM, classes=10,
+                                 n_models=BASELINE_N)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = baselines.fit_baseline(0, cfg, ds.train_x, ds.train_y,
+                                           device=self.dev)
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t0
+            acc = model.score(ds.test_x, ds.test_y)
+            plain = torch.cat([model.predict(ds.test_x[i:i + 2048])
+                               for i in range(0, ds.test_x.shape[0], 2048)])
+            q = model.encode_query(ds.test_x)
+
+            def search():
+                return torch.cat([ops.predict_classes(
+                    q[i:i + 2048], model.am, model.owners)
+                    for i in range(0, q.shape[0], 2048)])
+
+            pred, launches, tiers = self.path_counts(search)
+            check(torch.equal(pred, plain), (kind, "am_search != predict"))
+            routes = check_routes(ams, {"int8": launches["am_search"],
+                                        "fp32": 0}, (kind, "baseline"))
+            rec = {"fit_seconds": round(t_fit, 3), "test_accuracy": acc,
+                   "memory_kb": model.memory_kb,
+                   "am_shape": list(model.am.shape),
+                   "am_search_eq_predict": True,
+                   "am_search_routes": routes}
+            counts["am_search"] += launches["am_search"]
+            if kind == "basic":
+                proj = model.enc_params["projection"]
+                h, launches, _ = self.path_counts(
+                    lambda: ops.encode_mvm(test_dy, proj))
+                check(torch.equal(h, ref.binary_mvm(test_dy, proj)),
+                      "binary_mvm != the plain product at D = 10,240")
+                counts["binary_mvm"] += launches["binary_mvm"]
+                rec["binary_mvm_eq_plain"] = True
+            else:
+                # The id_level encode of the training set, timed alone.
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                encoding.encode(model.enc_params, model.enc_cfg, ds.train_x)
+                torch.cuda.synchronize()
+                rec["id_level_encode_seconds"] = round(
+                    time.perf_counter() - t0, 3)
+                rec["id_level_encode_rows"] = int(ds.train_x.shape[0])
+            out[kind] = rec
+            del model, q
+        self.baseline_launches = counts
+
+        # Random-sampling init (Fig. 5's baseline) at the main point,
+        # trained through qail_update.
+        from repro_torch.core import MemhdModel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = MemhdModel.create(0, self.enc, self.amc, device=self.dev)
+        model, hist = model.fit(1, ds.train_x, ds.train_y,
+                                init_method="random", epochs=RANDOM_EPOCHS,
+                                use_kernel=True)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        owners = model.am_state["centroid_class"]
+        check(torch.equal(torch.bincount(owners.long(), minlength=10),
+                          torch.full((10,), 1024 // 10, device=self.dev)
+                          + (torch.arange(10, device=self.dev) < 4)),
+              "random init's even split")
+        acc = model.score(ds.test_x, ds.test_y)
+        check(acc > 0.5, ("random-init accuracy", acc))
+        log({"phase": "baselines", "dim": BASELINE_DIM,
+             "searchd_n": BASELINE_N, "train": int(ds.train_x.shape[0]),
+             "test": int(ds.test_x.shape[0]), "fits": out,
+             "launches": counts,
+             "random_init": {"epochs": RANDOM_EPOCHS,
+                             "fit_seconds": round(t_fit, 3),
+                             "test_accuracy": acc,
+                             "clustering_init_test_accuracy":
+                                 self.plain_fit["acc"],
+                             "final_train_miss":
+                                 hist["curve"][-1]["train_miss"]}})
+
+    # -- phase 14: online serving with live class growth -------------------------
+    def online(self):
+        """The online engine in-process at the paper's 1024 x 1024 MNIST
+        point, trained without the last class: phase A, a drifted
+        same-C fold, phase B, a class-append fold, phase C. Every
+        response == the plain predict of the generation that served it;
+        zero steady-state rebuilds; every fold minibatch a
+        ``qail_update`` launch. Then the ``serve_online`` CLI and
+        ``serve_memhd --metrics-out/--trace-out`` as subprocesses."""
+        import dataclasses
+        np, torch = self.np, self.torch
+        from repro_torch import obs
+        from repro_torch.configs.memhd_paper import paper_config
+        from repro_torch.core import MemhdModel
+        from repro_torch.serve import (
+            OnlineEngine, StreamingUpdater, apply_drift, feedback_burst,
+            merge_events, poisson_arrivals,
+        )
+        ds = self.ds
+        known = 9
+        tr_x, tr_y = ds.train_x.cpu().numpy(), ds.train_y.cpu().numpy()
+        te_x, te_y = ds.test_x.cpu().numpy(), ds.test_y.cpu().numpy()
+        enc, amc = paper_config("mnist", "1024x1024", classes=known,
+                                batch_size=256, kmeans_iters=25,
+                                epochs=ONLINE["epochs"])
+        mask = tr_y < known
+        t0 = time.perf_counter()
+        model = MemhdModel.create(0, enc, amc, device=self.dev)
+        model, _ = model.fit(1, tr_x[mask], tr_y[mask], use_kernel=True)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        # A batch launched on generation 0 and still in flight when a
+        # class-append fold swaps in generation 1 finishes against the
+        # old artifact, and the old artifact still answers the same.
+        probe = StreamingUpdater(model, model.deploy(target="packed"))
+        old = probe.artifact
+        xq = self.t(te_x[:1024])
+        want = old.predict(xq)
+        torch.cuda.synchronize()
+        inflight = old.predict(xq)  # no sync: queued when the fold starts
+        grow_rows = np.nonzero(tr_y == known)[0][:1024]
+        probe.ingest(tr_x[grow_rows], tr_y[grow_rows])
+        res = probe.fold()
+        check(not res.shape_stable and probe.artifact is not old,
+              "the probe fold did not swap a grown artifact")
+        check(torch.equal(inflight, want), "in-flight batch changed")
+        check(torch.equal(old.predict(xq), want), "old artifact changed")
+        check(probe.artifact.swap_signature != old.swap_signature,
+              "grown artifact kept its signature")
+        del probe, old
+        updater = StreamingUpdater(model, model.deploy(target="packed"),
+                                   fold_epochs=ONLINE["fold_epochs"])
+        engine = OnlineEngine(updater, max_batch=ONLINE["max_batch"],
+                              depth=2, max_wait_ms=20.0)
+        models = {0: model}
+        fold = updater.fold
+
+        def recording_fold():
+            res = fold()
+            if res is not None:
+                models[res.generation] = updater.model
+            return res
+
+        updater.fold = recording_fold
+        rng = np.random.default_rng(5)
+        kw = dict(rate_qps=ONLINE["rate"], max_size=32, deadline_ms=250.0,
+                  labels_pool=te_y)
+        n_req, cap = ONLINE["requests"], updater.buffer_cap
+        a = poisson_arrivals(te_x, n_requests=n_req, classes=range(known),
+                             seed=10, **kw)
+        t = a[-1].t + 1e-3
+        drift_rows = rng.choice(np.nonzero(mask)[0],
+                                min(cap, int(mask.sum())), replace=False)
+        f1 = feedback_burst(apply_drift(tr_x[drift_rows], 0.35),
+                            tr_y[drift_rows], t=t, fold=True)
+        pool_b = apply_drift(te_x, 0.35)
+        b = poisson_arrivals(pool_b, n_requests=n_req, classes=range(known),
+                             start=t, rid_base=100_000, seed=11, **kw)
+        t = b[-1].t + 1e-3
+        new_rows = np.nonzero(tr_y == known)[0][:cap]
+        f2 = feedback_burst(tr_x[new_rows], tr_y[new_rows], t=t, fold=True)
+        c = (poisson_arrivals(pool_b, n_requests=n_req // 2,
+                              classes=range(known), start=t,
+                              rid_base=200_000, seed=12, **kw)
+             + poisson_arrivals(te_x, n_requests=n_req // 2,
+                                classes=[known], start=t, rid_base=300_000,
+                                seed=13, **kw))
+        events = merge_events(a, f1, b, f2, c)
+        obs.TRACER.reset()
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            report, launches, tiers = self.path_counts(
+                lambda: engine.serve(events))
+        want_folds = ONLINE["fold_epochs"] * (
+            -(-len(drift_rows) // 256) + -(-len(new_rows) // 256))
+        check(launches["qail_update"] == want_folds,
+              ("fold launches", launches["qail_update"], want_folds))
+        fold_routes = check_int8_routes(want_folds, "online folds")
+        for name in ("am_search_packed", "pack_bits"):
+            check(launches[name] > 0, f"{name} was not launched online")
+        check(report["recompiles_steady_state"] == 0, report)
+        check(report["model_generation"] == 2, report)
+        check([g["shape_stable"] for g in report["generations"]]
+              == [True, False], report["generations"])
+        phases = {"A": (a, 0), "B": (b, 1), "C": (c, 2)}
+        stats = {}
+        for name, (arr, gen) in phases.items():
+            hits = rows = 0
+            for ev in arr:
+                r = ev.request
+                check(engine.request_generation[r.rid] == gen,
+                      (name, r.rid, engine.request_generation[r.rid]))
+                plain = models[gen].predict(self.t(r.feats)).cpu().numpy()
+                check(np.array_equal(engine.responses[r.rid], plain),
+                      ("online", name, r.rid))
+                hits += int((plain == r.labels).sum())
+                rows += r.size
+            stats[name] = {"requests": len(arr), "rows": rows,
+                           "accuracy": round(hits / rows, 4)}
+        self.online_launches = launches
+        # Where the stream's time goes: the engine's record_function
+        # ranges (host time of each; the profiler also lays each range on
+        # the device timeline as a user annotation, whose length is not
+        # busy time) and the device-busy total of the kernels and copies.
+        ranges = {}
+        device_us = 0.0
+        top = []
+        for ev in prof.key_averages():
+            if ev.key in ENGINE_RANGES:
+                rec = ranges.setdefault(ev.key, {"count": ev.count})
+                if ev.device_type == DeviceType.CUDA:
+                    rec["device_annotation_ms"] = round(
+                        ev.self_device_time_total / 1e3, 3)
+                else:
+                    rec["cpu_ms"] = round(ev.cpu_time_total / 1e3, 3)
+            elif (ev.device_type == DeviceType.CUDA
+                    and ev.self_device_time_total > 0):
+                device_us += ev.self_device_time_total
+                top.append((ev.self_device_time_total, ev.key, ev.count))
+        top.sort(reverse=True)
+        spans = {}
+        for e in obs.TRACER.events():
+            s = spans.setdefault(e.name, [0, 0.0])
+            s[0] += 1
+            s[1] += e.dur_ns / 1e6
+        log({"phase": "online", "geometry": "1024x1024", "classes": known,
+             "fit_epochs": ONLINE["epochs"],
+             "fit_seconds": round(t_fit, 3),
+             "report": {k: report[k] for k in (
+                 "requests", "rows", "batches", "avg_batch_rows",
+                 "pad_overhead", "buckets", "wall_s", "qps", "rows_per_s",
+                 "lat_ms_p50", "lat_ms_p95", "lat_ms_p99",
+                 "service_ms_p50", "deadline_miss_rate",
+                 "model_generation", "generations",
+                 "recompiles_steady_state", "recompiles_excluded")},
+             "phases": stats, "each_response_eq_its_generation": True,
+             "preswap_inflight_eq_old_generation": True,
+             "launches": launches, "dispatch_tiers": tiers,
+             "fold_launches_expected": want_folds,
+             "qail_update_routes_in_folds": fold_routes})
+        log({"phase": "online_profile", "ranges": ranges,
+             "device_busy_ms": round(device_us / 1e3, 3),
+             "device_busy_share": round(device_us / 1e6 / report["wall_s"],
+                                        4),
+             "span_ms": {k: {"count": v[0], "ms": round(v[1], 3)}
+                         for k, v in sorted(spans.items())},
+             "top_device_ops": [{"op": k[:80], "us": round(u, 1),
+                                 "count": n_} for u, k, n_ in top[:8]]})
+        self.online_cli()
+
+    def online_cli(self):
+        """``serve_online --smoke --append-class`` and ``serve_memhd
+        --metrics-out/--trace-out`` as subprocesses on the card."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        build = os.path.join(HERE, "build")
+        os.makedirs(build, exist_ok=True)
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_online",
+             "--smoke", "--append-class"], env=env, capture_output=True,
+            text=True, timeout=600)
+        check(p.returncode == 0, p.stderr[-2000:])
+        rep = json.loads(p.stdout)
+        check(rep["model_generation"] == 2, rep)
+        check(rep["recompiles_steady_state"] == 0, rep)
+        check([g["shape_stable"] for g in rep["generations"]]
+              == [True, False], rep["generations"])
+        check(rep["device"].startswith("cuda"), rep["device"])
+        log({"phase": "online_cli", "seconds": round(
+            time.perf_counter() - t0, 3),
+            **{k: rep[k] for k in ("model_generation", "generations",
+                                   "recompiles_steady_state",
+                                   "recompiles_excluded", "qps",
+                                   "lat_ms_p50", "lat_ms_p99", "phases")}})
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            mpath = os.path.join(tmp, "metrics.json")
+            tpath = os.path.join(tmp, "trace.json")
+            p = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve_memhd",
+                 "--smoke", "--requests", "32", "--metrics-out", mpath,
+                 "--trace-out", tpath], env=env, capture_output=True,
+                text=True, timeout=600)
+            check(p.returncode == 0, p.stderr[-2000:])
+            rep = json.loads(p.stdout)
+            with open(mpath) as f:
+                snap = json.load(f)
+            with open(tpath) as f:
+                trace = json.load(f)
+        check(rep["metrics"]["recompiles_steady_state"] == 0, rep["metrics"])
+        tiers = rep["metrics"]["dispatch_tiers"]
+        check("torch-ref" not in json.dumps(tiers), tiers)
+        check(snap["serve_requests_total"]["values"][""] == 64, snap.get(
+            "serve_requests_total"))
+        dispatch = snap["kernel_dispatch_total"]["values"]
+        check(all('tier="cuda"' in k for k in dispatch), dispatch)
+        gauges = snap.get("torch_device_memory_bytes", {}).get("values", {})
+        check(any('device="cuda:0"' in k for k in gauges), "memory gauges")
+        names = {e["name"] for e in trace["traceEvents"]}
+        check({"warmup", "serve", "dispatch", "device_wait"} <= names, names)
+        log({"phase": "serve_memhd_obs_files",
+             "metrics_families": sorted(snap), "trace_events":
+             len(trace["traceEvents"]), "span_names": sorted(names),
+             "kernel_builds_total": snap["kernel_builds_total"]["values"],
+             "compiles_total": rep["metrics"]["compiles_total"]})
 
     # -- phase 11: the LM inference path ---------------------------------------
     def check_lm_kernels(self):
@@ -2541,6 +2905,15 @@ class Smoke:
         row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
         row["shape_serve"] = FD_SERVE
         rows = {r["name"]: r for r in out}
+        # Launches on this slice's paths, beside each row's own path.
+        for name, path, counts in (
+                ("binary_mvm", "baselines", self.baseline_launches),
+                ("am_search", "baselines", self.baseline_launches),
+                ("qail_update", "online", self.online_launches),
+                ("am_search_packed", "online", self.online_launches),
+                ("pack_bits", "online", self.online_launches)):
+            rows[name].setdefault("launches_by_path", {})[path] = counts[
+                name]
         rows["am_search"].update(self.am_search_extra(q, am_binary))
         rows["am_search_packed"].update(self.popcount_extra(qp, am_t, sms))
         row = out[[r["name"] for r in out].index("am_search_packed_unpack")]
@@ -2630,10 +3003,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
-                         "hier,lm,robustness,cli,trainer,repro (development "
-                         "runs; train, fidelity and hier need main, the "
-                         "kernels line needs kernels, main, train, "
-                         "fidelity, hier and lm)")
+                         "hier,baselines,online,lm,robustness,cli,trainer,"
+                         "repro (development runs; train, fidelity, hier, "
+                         "baselines and online need main, the kernels line "
+                         "needs kernels, main, train, fidelity, hier, "
+                         "baselines, online and lm)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -2650,7 +3024,8 @@ def main():
          "cuda": torch.version.cuda, "kind": kind,
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
-               "lm", "robustness", "cli", "trainer", "repro"]
+               "baselines", "online", "lm", "robustness", "cli", "trainer",
+               "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -2669,6 +3044,16 @@ def main():
     if "hier" in phases:
         smoke.hier_path()
         smoke.hier_huge()
+    if "baselines" in phases:
+        t_ph = time.perf_counter()
+        smoke.baselines()
+        log({"phase": "baselines_group",
+             "seconds": round(time.perf_counter() - t_ph, 3)})
+    if "online" in phases:
+        t_ph = time.perf_counter()
+        smoke.online()
+        log({"phase": "online_group",
+             "seconds": round(time.perf_counter() - t_ph, 3)})
     if "lm" in phases:
         t_lm = time.perf_counter()
         smoke.check_lm_kernels()
@@ -2687,7 +3072,7 @@ def main():
     if "repro" in phases:
         smoke.reproducibility()
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
-                                 "hier", "lm")):
+                                 "hier", "baselines", "online", "lm")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

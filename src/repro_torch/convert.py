@@ -1,5 +1,6 @@
 """Carry weights across: numpy arrays -> the port's ``MemhdModel``,
-``MemhdTrainState``, ``HierarchicalMemhd`` and LM params.
+``MemhdTrainState``, ``HierarchicalMemhd``, ``BaselineModel`` and LM
+params.
 
 The parity tests build a model (or a training state) in the JAX package,
 pull its arrays to numpy on that side, and hand them here, so the port
@@ -19,6 +20,9 @@ never sees a jax object:
          "tile_start": ts, "tile_count": tc, "centroid_class": cc},
         dataclasses.asdict(enc_cfg), dataclasses.asdict(am_cfg),
         shortlist=8, device="cpu")
+    base = baseline_from_numpy(
+        {"ids": ids, "levels": levels}, am, owners,          # (M, D), (M,)
+        dataclasses.asdict(baseline_cfg), device="cpu")
     lm_params = lm_params_from_numpy(
         jax.tree.map(np.asarray, params), cfg, device="cpu")
 """
@@ -40,14 +44,35 @@ def model_from_numpy(enc_params: Mapping[str, np.ndarray],
                      device=None) -> MemhdModel:
     """Build the port's model from numpy weights and plain-dict configs.
 
-    ``enc_params`` holds the (f, D) float32 ``projection``; ``am_state``
-    the (C, D) float32 ``fp`` and ``binary`` AMs and the (C,) int32
-    ``centroid_class``.
+    ``enc_params`` holds the (f, D) float32 ``projection``, or the
+    ``id_level`` encoder's (f, D) ``ids`` and (L, D) ``levels``;
+    ``am_state`` the (C, D) float32 ``fp`` and ``binary`` AMs and the (C,)
+    int32 ``centroid_class``.
     """
     device = resolve_device(device)
-    return MemhdModel({"projection": _f32(enc_params["projection"], device)},
+    return MemhdModel(_enc_params(enc_params, device),
                       _am_state(am_state, device),
                       EncoderConfig(**enc_cfg), MemhdConfig(**am_cfg))
+
+
+def baseline_from_numpy(enc_params: Mapping[str, np.ndarray],
+                        am: np.ndarray, owners: np.ndarray,
+                        cfg: Mapping, *, device=None):
+    """The port's ``BaselineModel`` from a reference baseline's arrays:
+    its encoder params (``projection``, or ``ids`` and ``levels``), the
+    (M, D) bipolar ``am``, the (M,) ``owners`` and the plain-dict
+    ``BaselineConfig``; the encoder config follows from the kind and the
+    params' shapes, as the reference's ``_encoder_cfg``."""
+    from repro_torch.core.baselines import BaselineModel, _encoder_cfg
+    from repro_torch.core.types import BaselineConfig
+    device = resolve_device(device)
+    cfg = BaselineConfig(**cfg)
+    params = _enc_params(enc_params, device)
+    features = next(iter(params.values())).shape[0]  # f of (f, D)
+    return BaselineModel(cfg, _encoder_cfg(cfg, features), params,
+                         _f32(am, device),
+                         torch.tensor(np.asarray(owners, np.int32),
+                                      device=device))
 
 
 def train_state_from_numpy(am_state: Mapping[str, np.ndarray], epoch: int,
@@ -85,6 +110,12 @@ def hierarchical_from_numpy(enc_params: Mapping[str, np.ndarray],
         np.asarray(leaves["centroid_class"], np.int32),
         EncoderConfig(**enc_cfg), MemhdConfig(**am_cfg),
         shortlist=shortlist, device=device)
+
+
+def _enc_params(enc_params: Mapping[str, np.ndarray], device) -> dict:
+    keys = (("projection",) if "projection" in enc_params
+            else ("ids", "levels"))
+    return {k: _f32(enc_params[k], device) for k in keys}
 
 
 def _f32(a, device) -> torch.Tensor:

@@ -3,7 +3,10 @@ from repro_torch.core.types import (  # noqa: F401
     BaselineConfig, DatasetSpec, EncoderConfig, ImcArrayConfig,
     ImcSimConfig, MemhdConfig, dataset_spec,
 )
-from repro_torch.core.memhd import MemhdModel  # noqa: F401
+from repro_torch.core.memhd import MemhdModel, MemhdTrainState  # noqa: F401
+from repro_torch.core.baselines import (  # noqa: F401
+    BaselineDraws, BaselineModel, fit_baseline,
+)
 from repro_torch.core import (  # noqa: F401
-    am, encoding, evaluate, init, kmeans, qail,
+    am, baselines, encoding, evaluate, init, kmeans, qail,
 )

@@ -161,6 +161,37 @@ def clustering_init(
     return centroids, owners, history
 
 
-def random_sampling_init(gen, cfg, h_train, labels):
-    raise NotImplementedError(
-        "random-sampling AM init is not ported yet (ROADMAP queue 1, item 5)")
+def random_sampling_init(
+    gen: Optional[torch.Generator],
+    cfg: MemhdConfig,
+    h_train: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The baseline initializer of Fig. 5: centroids are randomly sampled
+    training hypervectors, columns split evenly across classes (remainder
+    round-robin).
+
+    The rows are drawn by ``np.random.default_rng(seed).choice``, as the
+    reference draws them; ``seed`` defaults to an int drawn from ``gen``.
+    Passing the reference's seed (``sum(key_data(key)) % 2**31``) gives
+    the same rows, so the same centroids and owners bit for bit.
+    """
+    if seed is None:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                 device=gen.device))
+    k, c_total = cfg.classes, cfg.columns
+    base, rem = divmod(c_total, k)
+    budgets = [base + (i < rem) for i in range(k)]
+    labels_np = labels.cpu().numpy()
+    rng = np.random.default_rng(int(seed) % (2 ** 31))
+    takes, owners = [], []
+    for c in range(k):
+        pool = np.nonzero(labels_np == c)[0]
+        takes.append(rng.choice(pool, size=budgets[c],
+                                replace=len(pool) < budgets[c]))
+        owners.append(np.full((budgets[c],), c, np.int32))
+    rows = torch.from_numpy(np.concatenate(takes).astype(np.int64))
+    return (h_train[rows.to(h_train.device)].float(),
+            torch.from_numpy(np.concatenate(owners)).to(h_train.device))

@@ -24,6 +24,7 @@ import dataclasses
 import logging
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch import generator, on_device, resolve_device
@@ -110,22 +111,27 @@ class MemhdModel:
                       method: str = "clustering",
                       h: Optional[torch.Tensor] = None,
                       q: Optional[torch.Tensor] = None,
+                      init_seed: Optional[int] = None,
                       ) -> Tuple["MemhdModel", List[dict]]:
-        """Clustering-based AM init (§III-A). Pass pre-encoded ``h`` /
-        ``q`` to reuse an existing encode of ``feats``."""
-        if method == "random":
-            raise NotImplementedError(
-                "random-sampling init is not ported yet "
-                "(ROADMAP queue 1, item 5)")
-        if method != "clustering":
+        """Clustering-based (or random-sampling baseline) AM init
+        (§III-A). Pass pre-encoded ``h`` / ``q`` to reuse an existing
+        encode of ``feats``. ``init_seed`` is the numpy seed of
+        ``method="random"`` (default: drawn from ``gen``)."""
+        if method not in ("clustering", "random"):
             raise ValueError(f"unknown init method {method!r}")
         if h is None:
             h = self.encode(feats)
         if q is None:
             q = encoding.binarize_query(h)
-        fp, owners, history = init_lib.clustering_init(
-            _as_generator(gen, self.device), self.am_cfg, h,
-            self._on_device(labels), queries=q)
+        gen = _as_generator(gen, self.device)
+        labels = self._on_device(labels)
+        if method == "clustering":
+            fp, owners, history = init_lib.clustering_init(
+                gen, self.am_cfg, h, labels, queries=q)
+        else:
+            fp, owners = init_lib.random_sampling_init(
+                gen, self.am_cfg, h, labels, seed=init_seed)
+            history = []
         state = am_lib.make_am_state(fp, owners, self.am_cfg.threshold)
         return dataclasses.replace(self, am_state=state), history
 
@@ -139,6 +145,7 @@ class MemhdModel:
             use_kernel: bool = False,
             noise_sim=None, noise_mode: str = "fixed",
             cell_bits: Optional[int] = None, noise_sampler=None,
+            init_seed: Optional[int] = None,
             ) -> Tuple["MemhdModel", Dict]:
         """Full training pipeline: init + QAIL epochs.
 
@@ -147,8 +154,9 @@ class MemhdModel:
         buffers, with one host sync per epoch (the miss rate).
 
         Args:
-          init_method: "clustering" (§III-A) or "keep" (keep the current
-            AM and skip initialization).
+          init_method: "clustering" (§III-A), "random" (the Fig. 5
+            baseline: sampled training hypervectors) or "keep" (keep the
+            current AM and skip initialization).
           mode: "batched" (the scan engine) or "sequential" (sample by
             sample; its miss rate is not computed and reads NaN).
           refresh_every: binary-AM refresh cadence inside the epoch.
@@ -171,6 +179,9 @@ class MemhdModel:
             ``noise_sim``).
           noise_sampler: where the noise fields come from (default: the
             seeded generators of ``imcsim.device.draw``).
+          init_seed: the numpy seed of ``init_method="random"`` (default:
+            drawn from ``gen``; the reference's is
+            ``sum(key_data(key)) % 2**31``).
 
         Returns (model, history) with per-epoch train miss rates and
         optional eval accuracies.
@@ -210,7 +221,8 @@ class MemhdModel:
                 state = self.am_state
             else:
                 model, init_hist = self.initialize_am(
-                    gen, feats, labels, method=init_method, h=h, q=q)
+                    gen, feats, labels, method=init_method, h=h, q=q,
+                    init_seed=init_seed)
                 state = model.am_state
         else:
             model = dataclasses.replace(self, am_state=state)
@@ -269,9 +281,68 @@ class MemhdModel:
         raise NotImplementedError(
             "data-parallel fit is not ported yet (ROADMAP queue 1, item 13)")
 
-    def grow_classes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "class growth is not ported yet (ROADMAP queue 1, item 14)")
+    # -- class-incremental growth ---------------------------------------------
+    def grow_classes(self, feats, labels, *, centroids_per_class: int = 1,
+                     h: Optional[torch.Tensor] = None) -> "MemhdModel":
+        """Append never-seen classes to the AM: (C, D) -> (C + k·n, D).
+
+        Classes beyond ``am_cfg.classes`` get fresh centroids: the
+        per-class mean of their encoded samples (split into
+        ``centroids_per_class`` chunks), rescaled to the mean norm of the
+        existing float centroids, without touching the existing ones.
+        The new classes must be contiguous from ``am_cfg.classes``. Grow
+        BEFORE folding feedback that carries the new labels: QAIL's
+        Eq.-(5) target masks on centroid ownership. ``h`` reuses an
+        existing ``encode(feats)``. Raises if no label exceeds the current
+        classes.
+
+        The means and rescale run in numpy float32 on the host, as the
+        reference's do; the mean norm of the float AM is summed in another
+        order than the reference's, so the new rows agree with its rows
+        within float32 rounding of that one scale.
+        """
+        old_k = self.am_cfg.classes
+        yn = (labels.cpu().numpy() if isinstance(labels, torch.Tensor)
+              else np.asarray(labels)).astype(np.int64)
+        new_classes = sorted(int(c) for c in np.unique(yn) if c >= old_k)
+        if not new_classes:
+            raise ValueError(
+                f"no labels beyond the current {old_k} classes")
+        if new_classes != list(range(old_k, old_k + len(new_classes))):
+            raise ValueError(
+                f"appended classes must be contiguous from {old_k}, "
+                f"got {new_classes}")
+        if centroids_per_class < 1:
+            raise ValueError("centroids_per_class must be >= 1")
+        if h is None:
+            h = self.encode(feats)
+        hn = h.detach().cpu().numpy().astype(np.float32)
+
+        fp = self.am_state["fp"]
+        owners = self.am_state["centroid_class"]
+        fp_np = fp.detach().cpu().numpy()
+        scale = float(np.mean(np.linalg.norm(fp_np, axis=-1)))
+        rows, row_owners = [], []
+        for c in new_classes:
+            members = hn[yn == c]
+            if members.shape[0] == 0:
+                raise ValueError(f"class {c} has no samples to seed from")
+            for part in np.array_split(members, centroids_per_class):
+                m = (part if part.shape[0] else members).mean(axis=0)
+                if scale > 0:
+                    m = m * (scale / max(float(np.linalg.norm(m)), 1e-8))
+                rows.append(m)
+                row_owners.append(c)
+
+        fp_new = torch.cat([fp, torch.as_tensor(
+            np.stack(rows).astype(np.float32), device=fp.device)])
+        owners_new = torch.cat([owners, torch.as_tensor(
+            row_owners, dtype=torch.int32, device=owners.device)])
+        cfg = dataclasses.replace(
+            self.am_cfg, columns=self.am_cfg.columns + len(rows),
+            classes=old_k + len(new_classes))
+        state = am_lib.make_am_state(fp_new, owners_new, cfg.threshold)
+        return MemhdModel(self.enc_params, state, self.enc_cfg, cfg)
 
     # -- inference ---------------------------------------------------------------
     def predict(self, feats) -> torch.Tensor:

@@ -3,10 +3,13 @@
 Port of ``repro.deploy.base``. A concrete artifact supplies its fields,
 ``predict_query`` (the backend's search), ``resident_bytes`` and the
 ``backend`` / ``serving_mode`` labels; the staged predict, the padded
-scoring and the residence ratio are written here once.
+scoring, the residence ratio, ``refresh`` and ``swap_signature`` (the
+online swap's fingerprint) are written here once. Artifacts are frozen
+dataclasses.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -69,6 +72,32 @@ class DeployedArtifact:
         from repro_torch.deploy import registry
         return registry.deploy(model, self.backend, **self._deploy_opts())
 
+    @property
+    def swap_signature(self) -> tuple:
+        """Hashable fingerprint of what a launch on this artifact sees.
+
+        For each compared dataclass field: a tensor gives (field, shape,
+        dtype, device), a dict of tensors one such entry per key, and any
+        other field (configs, mode, groups, cell bits, ...) its value;
+        ``n_dims`` (the AM's D) closes it. The port's launch plans are
+        functions of the shapes, so two artifacts with equal signatures
+        get the same plans, and swap one for the other reuses every plan
+        and scratch (the reference's zero-recompile swap). A changed
+        signature (class growth widened the AM) means new plans.
+        """
+        sig = []
+        for f in dataclasses.fields(self):
+            if not f.compare:
+                continue
+            v = getattr(self, f.name)
+            if isinstance(v, dict):
+                sig.extend(_leaf(f"{f.name}.{k}", t)
+                           for k, t in sorted(v.items()))
+            else:
+                sig.append(_leaf(f.name, v))
+        sig.append(("n_dims", self.am_cfg.dim))
+        return tuple(sig)
+
     # -- reporting / accounting ------------------------------------------------
     @property
     def backend(self) -> str:
@@ -105,3 +134,9 @@ class DeployedArtifact:
         from repro_torch.core.imc import memhd_pipeline
         return memhd_pipeline(self.enc_cfg.features, self.am_cfg.dim,
                               self.am_cfg.columns, arr or self._cost_arr())
+
+
+def _leaf(name: str, v) -> tuple:
+    if isinstance(v, torch.Tensor):
+        return (name, tuple(v.shape), str(v.dtype), str(v.device))
+    return (name, v)

@@ -9,7 +9,8 @@ objects are linked into one shared library and loaded with ctypes. The
 library lives in ``build/repro_torch_kernels/<hash>/`` at the root of
 the checkout, named by a hash of the sources and flags, so an unchanged
 checkout builds once. A failed build raises with nvcc's stderr; nothing
-falls back.
+falls back. Each build that runs nvcc adds one to the
+``kernel_builds_total`` counter (``obs.torchmon``); a cache hit does not.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from repro_torch.obs import torchmon
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("pack_bits.cu", "am_search_packed.cu", "encode_pack.cu",
@@ -119,6 +122,7 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    torchmon.count_build()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         procs = []
         for name in SOURCES:

@@ -5,9 +5,10 @@ reference's ``use_kernel`` switch: a CUDA tensor with ``use_kernel=True``
 or ``None`` (the reference's "the kernel on the accelerator") is served
 by the hand-written CUDA kernel (tier ``cuda``); a CPU tensor, or
 ``use_kernel=False``, by the plain PyTorch version (tier ``torch-ref``).
-Every call adds one to the ``(kernel, tier, geometry)`` dispatch
-counter, the port's ``kernel_dispatch_total``; ``dispatch_breakdown()``
-sums it over geometries for the serving report.
+Every call adds one to the ``(kernel, tier, geometry)`` series of the
+``kernel_dispatch_total`` counter of the metrics registry
+(``obs.metrics``), as in the reference; ``dispatch_breakdown()`` sums it
+over geometries for the serving report.
 
 Every op with a query tile takes the reference's ``block_b: int | None
 = None``. ``None`` is the port's launch plan; an explicit tile must be
@@ -19,8 +20,6 @@ one the kernel runs (the module's ``BLOCK_B_CHOICES``), else a
 the reference's, as pure integer functions of the shapes.
 """
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -81,13 +80,16 @@ from repro_torch.kernels.qail_update import (
 )
 from repro_torch.kernels.qail_update import qail_update as _qail_update
 from repro_torch.kernels.ssd_chunk import ssd_chunk as _ssd_chunk
+from repro_torch.obs import metrics as _obs_metrics
 
-_DISPATCH: collections.Counter = collections.Counter()
+_DISPATCH = _obs_metrics.counter(
+    "kernel_dispatch_total",
+    "kernel dispatches by (kernel, tier, geometry)")
 
 
 def _count(kernel: str, tier: str, **dims) -> None:
     geometry = ",".join(f"{k}={v}" for k, v in sorted(dims.items()))
-    _DISPATCH[(kernel, tier, geometry)] += 1
+    _DISPATCH.inc(kernel=kernel, tier=tier, geometry=geometry)
 
 
 def _tier(x: torch.Tensor, use_kernel: bool | None) -> str:
@@ -113,7 +115,9 @@ def _block_b(kernel: str, block_b: int | None, choices: tuple,
 def dispatch_breakdown() -> dict[str, dict[str, int]]:
     """{kernel: {tier: count}} summed over geometries."""
     out: dict[str, dict[str, int]] = {}
-    for (k, t, _), n in sorted(_DISPATCH.items()):
+    series = sorted(((lab["kernel"], lab["tier"]), int(n))
+                    for lab, n in _DISPATCH.series())
+    for (k, t), n in series:
         out.setdefault(k, {})
         out[k][t] = out[k].get(t, 0) + n
     return out

@@ -20,7 +20,11 @@ then ``am_search_sparse`` over ``--shortlist`` clusters' tiles), and
 ``--topk k`` serves each row's k best classes through its ``predict_topk``.
 
 The JSON report keeps the reference's keys; its ``metrics`` section
-holds the port's dispatch tiers (``cuda`` / ``torch-ref``).
+holds the port's dispatch tiers (``cuda`` / ``torch-ref``), the kernel
+builds and graph captures (``compiles_total``, ``obs.torchmon``) and
+those of the timed pass (``recompiles_steady_state``, 0 in steady
+state). ``--metrics-out`` writes the metrics registry's snapshot,
+``--trace-out`` the host spans as a Chrome trace.
 
 Usage (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke --fused \
@@ -46,7 +50,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.deploy.padding import pad_to_multiple, round_up
+from repro_torch.obs import span
 
 log = logging.getLogger("serve_memhd")
 
@@ -114,6 +120,11 @@ def serve_batches(deployed, requests: Sequence[Request],
     behind earlier batches on the one in-order stream) +
     ``service_ms_*``; at ``depth=1`` the queue wait is zero.
 
+    Each batch also emits host spans (``host_prep`` / ``pad`` /
+    ``dispatch`` / ``device_wait``) and feeds the ``serve_batch_ms``
+    histogram and the ``serve_rows_total`` / ``serve_requests_total``
+    counters of the default metrics registry.
+
     ``topk >= 1`` serves through the backend's ``predict_topk`` (the
     hierarchical backend's top-k epilogue): each response row widens to
     the k best classes. It excludes ``fused``, and a backend without
@@ -151,13 +162,20 @@ def serve_batches(deployed, requests: Sequence[Request],
     queue_ms: List[float] = []
     service_ms: List[float] = []
     rows_real = rows_padded = 0
-    inflight: deque = deque()  # (batch, n_valid, result, event, t_disp)
+    inflight: deque = deque()  # (idx, batch, n_valid, result, event, t0)
     last_ready = [float("-inf")]  # when the device finished batch k-1
+    hist = obs.histogram(
+        "serve_batch_ms", "per-batch serving latency by stage")
+    served_rows = obs.counter("serve_rows_total",
+                              "feature rows served (pre-padding)")
+    served_reqs = obs.counter("serve_requests_total",
+                              "classification requests served")
 
     def _drain_one():
-        batch, n_valid, fut, event, t_disp = inflight.popleft()
-        if event is not None:
-            event.synchronize()
+        idx, batch, n_valid, fut, event, t_disp = inflight.popleft()
+        with span("device_wait", batch=idx):
+            if event is not None:
+                event.synchronize()
         t_ready = time.perf_counter()
         # In-order device queue: time up to the previous batch's
         # completion is queue wait, the rest this batch's service time.
@@ -167,29 +185,37 @@ def serve_batches(deployed, requests: Sequence[Request],
         lat_ms.append(lat * 1e3)
         queue_ms.append(queue * 1e3)
         service_ms.append((lat - queue) * 1e3)
+        hist.observe(lat * 1e3, stage="total")
+        hist.observe(queue * 1e3, stage="queue")
+        hist.observe((lat - queue) * 1e3, stage="service")
         pred = fut.cpu().numpy()[:n_valid]
         ofs = 0
         for r in batch:
             responses[r.rid] = pred[ofs:ofs + r.size]
             ofs += r.size
 
-    for batch in batches:
+    for i, batch in enumerate(batches):
         # Host-side prep of batch k+1 overlaps device work on batch k.
-        feats = np.concatenate([r.feats for r in batch])
-        padded, n_valid = pad_to_multiple(feats, tile)
+        with span("host_prep", batch=i, requests=len(batch)):
+            feats = np.concatenate([r.feats for r in batch])
+            with span("pad", batch=i):
+                padded, n_valid = pad_to_multiple(feats, tile)
         rows_real += n_valid
         rows_padded += padded.shape[0]
         t0 = time.perf_counter()
-        fut = predict(_to_device(padded, device))
-        event = None
-        if device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-        inflight.append((batch, n_valid, fut, event, t0))
+        with span("dispatch", batch=i, rows=padded.shape[0]):
+            fut = predict(_to_device(padded, device))
+            event = None
+            if device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
+        inflight.append((i, batch, n_valid, fut, event, t0))
         while len(inflight) >= depth:
             _drain_one()
     while inflight:
         _drain_one()
+    served_rows.inc(rows_real)
+    served_reqs.inc(len(requests))
     stats = {
         "depth": depth,
         "batches": len(batches),
@@ -233,13 +259,22 @@ def synthetic_requests(feats: np.ndarray, n_requests: int,
     return reqs
 
 
-def metrics_summary() -> Dict:
-    """The report's ``metrics`` section: which tier (``cuda`` kernel or
-    ``torch-ref`` plain version) served each kernel dispatch. The
-    reference's compile counters wait for the observability slice
-    (ROADMAP queue 1, item 15)."""
+def metrics_summary(recompiles_steady_state: Optional[int] = None,
+                    ) -> Dict:
+    """The report's ``metrics`` section, under the reference's keys:
+    ``compiles_total``, in the port the kernel-library builds plus CUDA
+    graph captures so far (``obs.torchmon.rebuilds``); those of the
+    steady-state (post-warmup) window, ``recompiles_steady_state``, when
+    given; and ``dispatch_tiers``, which tier (``cuda`` kernel or
+    ``torch-ref`` plain version) served each kernel dispatch."""
     from repro_torch.kernels import ops
-    return {"dispatch_tiers": ops.dispatch_breakdown()}
+    out = {
+        "compiles_total": obs.torchmon.rebuilds(),
+        "dispatch_tiers": ops.dispatch_breakdown(),
+    }
+    if recompiles_steady_state is not None:
+        out["recompiles_steady_state"] = int(recompiles_steady_state)
+    return out
 
 
 def build_report(deployed, requests: Sequence[Request], stats: Dict,
@@ -324,8 +359,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                     help="torch device; default the GPU (raises without "
                          "one), 'cpu' for the plain path")
     args = ap.parse_args(argv)
-    from repro_torch import obs
     obs.setup_logging(json_mode=args.log_json)
+    obs.install()
 
     if args.target and args.unpacked:
         ap.error("--unpacked is the legacy alias; drop it with --target")
@@ -342,8 +377,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         _not_ported("--devices > 1", "ROADMAP queue 1, item 13")
     if args.record_dir:
         _not_ported("--record-dir", "ROADMAP queue 1, item 16")
-    if args.metrics_out or args.trace_out:
-        _not_ported("--metrics-out/--trace-out", "ROADMAP queue 1, item 15")
 
     from repro_torch import resolve_device
     from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
@@ -372,20 +405,32 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     reqs = synthetic_requests(ds.test_x.cpu().numpy(), args.requests,
                               args.max_size)
     # The warmup pass builds the kernels and runs every padded shape; the
-    # timed pass then measures serving alone.
-    serve_batches(deployed, reqs, args.max_batch, fused=args.fused,
-                  depth=args.depth, topk=args.topk)
-    t0 = time.time()
-    responses, stats = serve_batches(
-        deployed, reqs, args.max_batch, warmup=False, fused=args.fused,
-        depth=args.depth, topk=args.topk)
-    wall = time.time() - t0
-    report = build_report(deployed, reqs, stats, wall, fused=args.fused,
-                          topk=args.topk)
+    # timed pass then measures serving alone, and must build nothing.
+    with span("warmup"):
+        serve_batches(deployed, reqs, args.max_batch, fused=args.fused,
+                      depth=args.depth, topk=args.topk)
+    with obs.count_rebuilds() as steady:
+        t0 = time.time()
+        with span("serve", requests=len(reqs), depth=args.depth):
+            responses, stats = serve_batches(
+                deployed, reqs, args.max_batch, warmup=False,
+                fused=args.fused, depth=args.depth, topk=args.topk)
+        wall = time.time() - t0
+    obs.update_memory_gauges()
+    report = build_report(
+        deployed, reqs, stats, wall, fused=args.fused, topk=args.topk,
+        metrics=metrics_summary(recompiles_steady_state=steady()))
     print(json.dumps(report, indent=1))
     if len(responses) != len(reqs):
         raise RuntimeError(f"{len(responses)} responses for "
                            f"{len(reqs)} requests")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(obs.snapshot(), f, indent=1)
+        log.info("metrics snapshot -> %s", args.metrics_out)
+    if args.trace_out:
+        obs.export_chrome_trace(args.trace_out)
+        log.info("chrome trace -> %s", args.trace_out)
     return report
 
 

@@ -34,6 +34,8 @@ import signal
 import tempfile
 import time
 
+from repro_torch import obs
+
 log = logging.getLogger("train")
 
 
@@ -100,7 +102,6 @@ def run_memhd(cfg: TrainRunConfig) -> dict:
     )
     from repro_torch.core.memhd import MemhdTrainState
     from repro_torch.data import load_dataset
-    from repro_torch.obs import EventLog
 
     device = resolve_device(cfg.device)
     if cfg.smoke:
@@ -128,7 +129,7 @@ def run_memhd(cfg: TrainRunConfig) -> dict:
 
     ckpt_dir = _ckpt_dir(cfg)
     ckpt = CheckpointManager(CheckpointConfig(ckpt_dir, keep=cfg.keep))
-    events = EventLog(os.path.join(ckpt_dir, "events.jsonl"))
+    events = obs.EventLog(os.path.join(ckpt_dir, "events.jsonl"))
 
     def timed_save(step, tree, extra):
         t0 = time.perf_counter()
@@ -234,16 +235,6 @@ def run(cfg: TrainRunConfig) -> dict:
         "(ROADMAP queue 1, item 17); the port trains --arch memhd")
 
 
-def _setup_logging(json_mode: bool) -> None:
-    if json_mode:
-        raise NotImplementedError(
-            "--log-json is not ported yet (ROADMAP queue 1, item 15)")
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname).1s %(name)s :: "
-                               "%(message)s", datefmt="%H:%M:%S",
-                        force=True)
-
-
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     for f in dataclasses.fields(TrainRunConfig):
@@ -255,7 +246,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     cfg = TrainRunConfig(**{f.name: getattr(args, f.name)
                             for f in dataclasses.fields(TrainRunConfig)})
-    _setup_logging(cfg.log_json)
+    obs.setup_logging(json_mode=cfg.log_json)
     out = run(cfg)
     print(json.dumps(out, indent=1))
     return out

@@ -65,6 +65,18 @@ ops.unpack_bits(dep.am_packed_t)
 hier = m.deploy(target="hierarchical", shortlist=2)
 hier.predict_topk(ds.test_x, 3)
 serve_memhd.serve_batches(hier, reqs, topk=2)
+from repro_torch import obs
+from repro_torch.configs.memhd_paper import paper_config
+from repro_torch.core import BaselineConfig, baselines
+from repro_torch.serve import OnlineEngine, StreamingUpdater, poisson_arrivals
+paper_config("mnist")
+baselines.fit_baseline(0, BaselineConfig(kind="quanthd", dim=64, epochs=1),
+                       ds.train_x, ds.train_y, device="cpu").score(
+    ds.test_x, ds.test_y)
+eng = OnlineEngine(StreamingUpdater(m, dep), max_batch=16)
+eng.serve(poisson_arrivals(ds.test_x.numpy(), n_requests=4, rate_qps=1000,
+                           max_size=3))
+obs.update_memory_gauges()
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "repro" or k.startswith("repro."))
 assert not bad, bad

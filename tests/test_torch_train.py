@@ -60,8 +60,19 @@ def test_lm_archs_and_json_logs_are_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 17"):
         train.run(train.TrainRunConfig(arch="mamba2-130m", device="cpu",
                                        ckpt_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train.main(["--arch", "memhd", "--log-json", "--device", "cpu"])
+    # --log-json is ported: the run logs one JSON object per line.
+    import logging
+    from repro_torch import obs
+    try:
+        out = train.main(["--arch", "memhd", "--log-json", "--device",
+                          "cpu", "--steps", "2", "--ckpt-every", "1",
+                          "--ckpt-dir", str(tmp_path / "json")])
+        handlers = logging.getLogger().handlers
+        assert any(isinstance(h.formatter, obs.JsonFormatter)
+                   for h in handlers)
+    finally:
+        obs.setup_logging()
+    assert out["device"] == "cpu"
 
 
 def test_watchdog_fires_its_handler_and_raises():
