@@ -116,9 +116,10 @@ script exits non-zero without the final result line:
    fp32 route (``ms_fp32_route``, with that route's bound); the
    hierarchical kernels at the huge-label shape; ``flash_decode`` at
    B = 8, S = 32,768 and ``ssd_chunk`` at B = 8, Q = 256), and
-   ``launches_by_path`` on the rows whose kernels phases 13 and 14 run
-   (``binary_mvm``, ``am_search``: baselines; ``qail_update``,
-   ``am_search_packed``, ``pack_bits``: online), and
+   ``launches_by_path`` on the rows whose kernels phases 13, 14, 16 and
+   17 run (``binary_mvm``, ``am_search``: baselines; ``qail_update``,
+   ``am_search_packed``, ``pack_bits``: online; the serving kernels:
+   sharded; ``qail_update``: fit_sharded), and
    ``library_ms`` (cuBLAS SGEMM through ``torch.matmul`` for
    ``binary_mvm``, ``scaled_dot_product_attention`` for
    ``flash_decode``); the ``flash_decode`` row also carries the served
@@ -179,7 +180,43 @@ script exits non-zero without the final result line:
    (``online_profile``: the engine's ``fold`` / ``rewarm`` / ``dispatch``
    / ``device_wait`` ranges); the ``serve_online --smoke --append-class``
    CLI and ``serve_memhd --metrics-out/--trace-out`` as subprocesses,
-   both files parsed. Phases 13 and 14 run after the hierarchical paths.
+   both files parsed. Phases 13 and 14 run after the hierarchical paths;
+15. the autotuner (phase ``autotune``): ``repro_torch.kernels.autotune``
+   over every spec at its ``DEFAULT_GEOMETRIES`` into a temporary cache,
+   every candidate bit-exact against its plain version on the card (each
+   winner printed with its times and the card's power limit); then, at
+   the main path's geometries, which the committed cache
+   (``kernels/autotune_cache.json``) holds for this card,
+   ``ops.am_search_packed``, ``ops.qail_update`` and ``ops.encode_pack``
+   with ``block_b=None`` launch the committed configuration (their
+   launches by configuration, ``kernels.config_launches()``) and equal
+   the default configuration bit for bit, while a batch below the tuned
+   range and unpack mode (which the tuner does not time) launch the
+   default (phase ``autotune_dispatch``). After phase 17 the
+   ``dispatched_batches`` line gives the batches (B) the CUDA dispatches
+   of the tuned kernels had over every phase so far, and the share inside
+   the tuned range. Every phase before it already ran with the committed
+   tiles, and the kernels line's rows of these three kernels add the
+   tuned configuration and its time (``tuned``, ``ms_tuned``) beside the
+   default's ``ms``;
+16. sharded serving (phase ``sharded``): the main path's model deployed
+   packed (staged and fused), unpacked, imc (ideal), multibit 4-bit and
+   hierarchical (top-5), each wrapped in ``ShardedArtifact`` over two
+   shards of the card and served with the ragged request stream (through
+   ``serve_batches`` and, for the first requests, odd row counts
+   included, directly): every response equals the unwrapped artifact's,
+   launch counts zeroed just before and read just after, no ``torch-ref``
+   tier; then ``serve_memhd --devices 1`` and ``serve_online --smoke
+   --append-class --devices 1`` in-process (``recompiles_steady_state``
+   0; phase ``sharded_cli``);
+17. the data-parallel fit (phase ``fit_sharded``): ``fit_sharded`` over
+   two shards of the card equals it over one in ``fp``, ``binary`` and
+   every epoch's miss under phase 5's exact conditions with the ±1
+   payload (``update_with="binary"``), at D = C = 128 and at full width,
+   10 epochs, each shard delta one ``qail_update`` launch on its int8
+   route (shards x batches x epochs); at the paper's lr, 20 epochs (cut
+   from 100), its binary AM agrees with ``fit(use_kernel=True)``'s on >=
+   95 % of cells and its accuracy within 0.05.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -289,6 +326,15 @@ RANDOM_EPOCHS = 20
 ONLINE = dict(epochs=20, fold_epochs=2, max_batch=256, requests=120,
               rate=2000.0)
 ENGINE_RANGES = ("fold", "rewarm", "dispatch", "device_wait")
+# Multi-device MEMHD on the one card: two shards of one device; the
+# requests served directly through the wrapper (odd row counts pad); the
+# paper-lr fit_sharded's epochs (cut from 100), its binary agreement with
+# fit(use_kernel=True) and its accuracy gap (the reference's contract,
+# tests/test_qail_engine.py::TestFitSharded).
+SHARDS = 2
+SHARDED_DIRECT_REQUESTS = 32
+SHARDED_EPOCHS = 20
+SHARDED_AGREE, SHARDED_ACC_GAP = 0.95, 0.05
 
 
 def check(cond, what) -> None:
@@ -436,8 +482,19 @@ class Smoke:
                         "am_shortlist_served": 0.0,
                         "flash_decode": 0.0, "ssd_chunk": 0.0}
         self.path_launches = {}  # kernel -> launches on its own path
+        self.batches_seen = {}   # kernel -> {B: CUDA dispatches}
 
     # -- helpers ---------------------------------------------------------------
+    def note_batches(self):
+        """Add the batches of the CUDA dispatches since the dispatch
+        counter's last reset to ``batches_seen`` (called before each
+        reset)."""
+        from repro_torch.kernels import ops
+        for kernel, per in ops.dispatch_batches().items():
+            seen = self.batches_seen.setdefault(kernel, {})
+            for b, n in per.items():
+                seen[b] = seen.get(b, 0) + n
+
     def t(self, a):
         return self.torch.as_tensor(a, device=self.dev)
 
@@ -1086,6 +1143,7 @@ class Smoke:
         ds, reqs = self.ds, self.reqs
 
         kernels.reset_launches()
+        self.note_batches()
         ops.reset_dispatch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1192,6 +1250,7 @@ class Smoke:
         from repro_torch import kernels
         from repro_torch.kernels import ops
         kernels.reset_launches()
+        self.note_batches()
         ops.reset_dispatch()
         torch.cuda.synchronize()
         result = fn()
@@ -1420,6 +1479,7 @@ class Smoke:
         self.max_err["am_shortlist_served"] = (
             served[1] - w_served[1]).abs().max().item()
         self.hier_served = (sq, sspt, exact.groups)
+        self.hier_exact = exact
         owners = model.am_state["centroid_class"]
         flat = am_lib.packed_predict(self.deployed.am_packed_t, owners, q,
                                      self.amc.dim)
@@ -2063,6 +2123,345 @@ class Smoke:
              "kernel_builds_total": snap["kernel_builds_total"]["values"],
              "compiles_total": rep["metrics"]["compiles_total"]})
 
+    # -- phase 15: the autotuner ----------------------------------------------
+    def tuned_operands(self):
+        """The three tuned kernels' calls at the main path's shapes through
+        ``ops``: {kernel: (dims, fn(block_b))}."""
+        from repro_torch.core import encoding
+        from repro_torch.kernels import ops, ref
+        torch = self.torch
+        b, f, d, c = FULL
+        feats = self.t(self.np.round(
+            self.ds.test_x[:b].cpu().numpy() * 256) / 256)
+        proj = self.model.enc_params["projection"]
+        qp = ref.pack_rows(encoding.encode_query(
+            self.model.enc_params, self.model.enc_cfg, feats))
+        am_t = self.deployed.am_packed_t
+        km = self.kmodel
+        h = km.encode(self.ds.train_x[:TRAIN_B])
+        tq = encoding.binarize_query(h)
+        ty = self.ds.train_y[:TRAIN_B].to(torch.int32)
+        tmask = torch.ones(TRAIN_B, device=self.dev)
+        tam_t = km.am_state["binary"].T
+        owners = km.am_state["centroid_class"]
+        lr = self.amc.lr
+        self.tuned_qp = qp
+        return {
+            "am_search_packed": ({"D": d, "C": c}, lambda bb: (
+                ops.am_search_packed(qp, am_t, n_dims=d, block_b=bb))),
+            "qail_update": ({"D": d, "C": c}, lambda bb: ops.qail_update(
+                tq, h, tam_t, owners, ty, tmask, lr=lr, block_b=bb)),
+            "encode_pack": ({"f": f, "D": d}, lambda bb: (
+                ops.encode_pack(feats, proj, block_b=bb),))}
+
+    def autotune(self):
+        """The tuner over every spec at ``DEFAULT_GEOMETRIES`` into a
+        temporary cache (every candidate bit-exact against its plain
+        version on the card, else it raises); then, at the main path's
+        geometries, which the committed cache holds for this card,
+        ``block_b=None`` through ``ops`` launches the committed
+        configuration (the launches by configuration) and equals the
+        default configuration bit for bit."""
+        torch = self.torch
+        from repro_torch import kernels
+        from repro_torch.kernels import am_search_packed as asp
+        from repro_torch.kernels import autotune, ops, qail_update
+        kind = torch.cuda.get_device_name(0)
+        build = os.path.join(HERE, "build")
+        os.makedirs(build, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            entries = autotune.autotune_all(
+                cache=os.path.join(tmp, "cache.json"), verbose=False)
+        seconds = time.perf_counter() - t0
+        n_geoms = sum(len(g) for g in autotune.DEFAULT_GEOMETRIES.values())
+        check(len(entries) == n_geoms, (len(entries), n_geoms))
+        winners = []
+        for e in entries:
+            check(e["device"] == kind and e["power_limit_w"] > 0, e)
+            winners.append({k: e[k] for k in (
+                "kernel", "geometry", "block_b", "tuned_batches", "best_us",
+                "default_block_b", "default_us", "speedup_vs_default",
+                "candidates_us",
+                "same_plan", "skipped_smem", "power_limit_w")})
+            if "tile" in e:
+                winners[-1]["tile"] = e["tile"]
+        log({"phase": "autotune", "device": kind,
+             "power_limit": nvidia_smi("power.limit"),
+             "seconds": round(seconds, 3), "entries": len(entries),
+             "every_candidate_bit_exact": True, "winners": winners})
+
+        check(autotune.cache_path() == autotune.DEFAULT_CACHE,
+              ("ops reads", autotune.cache_path()))
+        committed = autotune.load_cache(autotune.DEFAULT_CACHE)
+        geoms = {(k, autotune.geometry_key(k, **dims))
+                 for k, gs in autotune.DEFAULT_GEOMETRIES.items()
+                 for dims in gs}
+        missing = sorted(g for g in geoms
+                         if f"{g[0]}|{kind}|{g[1]}" not in committed)
+        check(not missing, ("the committed cache lacks", kind, missing))
+        self.tuned = {}
+        out = {}
+        for kernel, (dims, run) in self.tuned_operands().items():
+            spec = autotune.KERNELS[kernel]
+            entry = committed[f"{kernel}|{kind}|"
+                              f"{autotune.geometry_key(kernel, **dims)}"]
+            cfg = entry.get("tile", entry["block_b"])
+            kernels.reset_launches()
+            got = run(None)
+            torch.cuda.synchronize()
+            launched = kernels.config_launches()[kernel]
+            check(launched == {cfg: 1}, (kernel, "launched", launched, cfg))
+            if kernel == "qail_update":
+                check(qail_update.route_counts() == {"int8": 1, "fp32": 0},
+                      qail_update.route_counts())
+            want = run(spec.default_block_b)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  (kernel, "tuned != default"))
+            self.tuned[kernel] = cfg
+            out[kernel] = {"geometry": entry["geometry"], "tuned": cfg,
+                           "tuned_batches": entry["tuned_batches"],
+                           "default": spec.default_candidate,
+                           "launched": launched,
+                           "committed_best_us": entry["best_us"],
+                           "committed_default_us": entry["default_us"],
+                           "committed_power_limit_w":
+                               entry["power_limit_w"]}
+        # The packed search reads the tuned tile only in popcount mode and
+        # inside the tuned batch range: 8 rows and unpack mode launch the
+        # default.
+        d = FULL[2]
+        outside = {}
+        for what, call in (
+                ("B = 8", lambda: ops.am_search_packed(
+                    self.tuned_qp[:8], self.deployed.am_packed_t, n_dims=d)),
+                ("unpack", lambda: ops.am_search_packed(
+                    self.tuned_qp, self.deployed.am_packed_t, n_dims=d,
+                    mode="unpack"))):
+            kernels.reset_launches()
+            call()
+            torch.cuda.synchronize()
+            launched = kernels.config_launches()["am_search_packed"]
+            check(launched == {asp.DEFAULT_BLOCK_B: 1},
+                  ("am_search_packed", what, launched))
+            outside[what] = launched
+        log({"phase": "autotune_dispatch", "device": kind, "cache":
+             os.path.relpath(autotune.DEFAULT_CACHE, HERE),
+             "tuned_eq_default": True, "kernels": out,
+             "am_search_packed_default_launches": outside})
+
+    def dispatched_batches(self):
+        """The batches (B) of the CUDA dispatches of the tuned kernels
+        over every phase so far (plain-path runs excluded), with the share
+        of them inside the tuned batch range, which ``ops`` reads the
+        tuned tile for."""
+        from repro_torch.kernels import autotune, ops
+        self.note_batches()
+        ops.reset_dispatch()
+        spec_of = {"am_search_packed": "am_search_packed",
+                   "search_from_features": "am_search_packed",
+                   "predict_from_features": "am_search_packed",
+                   "encode_pack": "encode_pack", "qail_update": "qail_update"}
+        out = {}
+        for kernel, spec in spec_of.items():
+            seen = self.batches_seen.get(kernel, {})
+            batches = autotune.KERNELS[spec].batches
+            n = sum(seen.values())
+            inside = sum(v for b, v in seen.items()
+                         if min(batches) <= b <= max(batches))
+            out[kernel] = {"dispatches": n, "tuned_batches": list(batches),
+                           "in_tuned_range": inside / n if n else None,
+                           "by_batch": dict(sorted(seen.items()))}
+        log({"phase": "dispatched_batches", "kernels": out})
+
+    # -- phase 16: sharded serving -------------------------------------------
+    def sharded(self):
+        """The main path's model deployed packed (staged and fused),
+        unpacked, imc (ideal), multibit 4-bit and hierarchical (top-5),
+        each wrapped in ``ShardedArtifact`` over two shards of the card and
+        served with ragged requests (through ``serve_batches`` and
+        directly, odd row counts included): every response equals the
+        unwrapped artifact's; launch counts zeroed just before and read
+        just after, no ``torch-ref`` tier. Then ``serve_memhd --devices
+        1`` and ``serve_online --smoke --append-class --devices 1``."""
+        np, torch = self.np, self.torch
+        from repro_torch.deploy import ShardedArtifact
+        from repro_torch.launch import serve_memhd as sm
+        from repro_torch.launch import serve_online
+        mesh = (self.dev,) * SHARDS
+        deps = {
+            "packed_staged": (self.deployed, False, 0,
+                              ("pack_bits", "am_search_packed")),
+            "packed_fused": (self.deployed, True, 0,
+                             ("encode_pack", "am_search_packed")),
+            "unpacked": (self.model.deploy(target="unpacked"), False, 0,
+                         ("am_search",)),
+            "imc_ideal": (self.imc_operands[2], False, 0,
+                          ("am_search_imc",)),
+            "multibit4": (self.multibit_operands[1], False, 0,
+                          ("am_search_multibit",)),
+            "hierarchical_top5": (self.hier_exact, False, 5,
+                                  ("pack_bits", "am_shortlist",
+                                   "am_search_sparse"))}
+        feats = self.t(np.concatenate([r.feats for r in self.reqs]))
+        ofs = np.cumsum([0] + [r.size for r in self.reqs])
+        direct = self.reqs[:SHARDED_DIRECT_REQUESTS]
+        out = {}
+        self.sharded_launches = {}
+        for name, (dep, fused, k, names) in deps.items():
+            if k:
+                want = dep.predict_topk(feats, k)[0]
+            else:
+                want = (dep.predict_features if fused else dep.predict)(feats)
+            sh = ShardedArtifact(dep, mesh=mesh)
+            check(sh.n_devices == SHARDS and sh.row_multiple == SHARDS,
+                  sh.mesh)
+
+            def run(sh=sh, fused=fused, k=k):
+                sm.serve_batches(sh, self.reqs, max_batch=1024, depth=2,
+                                 fused=fused, topk=k)
+                t0 = time.perf_counter()
+                resp, stats = sm.serve_batches(
+                    sh, self.reqs, max_batch=1024, warmup=False, depth=2,
+                    fused=fused, topk=k)
+                wall = time.perf_counter() - t0
+                rows = {}
+                for r in direct:
+                    x = self.t(r.feats)
+                    rows[r.rid] = (sh.predict_topk(x, k)[0] if k else
+                                   (sh.predict_features if fused
+                                    else sh.predict)(x))
+                return resp, sm.build_report(sh, self.reqs, stats, wall,
+                                             fused=fused, topk=k), rows
+
+            (resp, rep, rows), launches, tiers = self.path_counts(run)
+            for kn in names:
+                check(launches[kn] > 0, (name, kn, "not launched"))
+                self.sharded_launches[kn] = (
+                    self.sharded_launches.get(kn, 0) + launches[kn])
+            self.check_responses(resp, want, ofs,
+                                 ("sharded == unwrapped", name))
+            for i, r in enumerate(direct):
+                check(torch.equal(rows[r.rid], want[ofs[i]:ofs[i + 1]]),
+                      ("sharded direct == unwrapped", name, r.rid))
+            check(rep["devices"] == SHARDS, rep["devices"])
+            out[name] = {"launches": {kn: launches[kn] for kn in names},
+                         "dispatch_tiers": tiers,
+                         "odd_direct_requests": sum(r.size % 2
+                                                    for r in direct),
+                         **{key: rep[key] for key in (
+                             "rows_per_s", "rows_per_s_per_device",
+                             "lat_ms_p50", "pad_overhead", "batches")}}
+        log({"phase": "sharded", "mesh": [str(d) for d in sh.mesh],
+             "requests": len(self.reqs), "each_response_eq_unwrapped": True,
+             "deployments": out})
+        t0 = time.perf_counter()
+        rep = sm.main(["--smoke", "--requests", "32", "--max-size", "24",
+                       "--max-batch", "128", "--devices", "1"])
+        check(rep["devices"] == 1, rep["devices"])
+        check(rep["metrics"]["recompiles_steady_state"] == 0, rep["metrics"])
+        check("torch-ref" not in json.dumps(rep["metrics"]["dispatch_tiers"]),
+              rep["metrics"])
+        orep = serve_online.main(["--smoke", "--append-class", "--devices",
+                                  "1"])
+        check(orep["devices"] == 1 and orep["device"].startswith("cuda"),
+              orep["device"])
+        check(orep["model_generation"] == 2, orep)
+        check(orep["recompiles_steady_state"] == 0, orep)
+        check([g["shape_stable"] for g in orep["generations"]]
+              == [True, False], orep["generations"])
+        log({"phase": "sharded_cli", "seconds": round(
+            time.perf_counter() - t0, 3),
+            "serve_memhd": {k: rep[k] for k in (
+                "devices", "rows_per_s", "rows_per_s_per_device")},
+            "serve_online": {k: orep[k] for k in (
+                "devices", "model_generation", "generations",
+                "recompiles_steady_state", "phases")}})
+
+    # -- phase 17: the data-parallel fit --------------------------------------
+    def fit_sharded(self):
+        """``fit_sharded`` over two shards of the card against one shard,
+        under exact conditions (phase 5's dyadic features, lr = 2^-4, the
+        ±1 payload: every shard delta and their bfloat16 sum exact) at
+        D = C = 128 and at full width: ``fp``, ``binary`` and every epoch's
+        miss equal, each shard delta one ``qail_update`` launch on its int8
+        route. Then at the paper's lr against ``fit(use_kernel=True)``."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch import kernels
+        from repro_torch.core import EncoderConfig, MemhdModel
+        ds = self.ds
+        x = torch.round(ds.train_x * 16) / 16
+        n_batches = -(-ds.train_x.shape[0] // self.amc.batch_size)
+        exact = []
+        for width in DYADIC_WIDTHS:
+            enc = EncoderConfig(kind="projection", features=784, dim=width)
+            amc = dataclasses.replace(self.amc, dim=width, columns=width,
+                                      lr=0.0625, epochs=DYADIC_EPOCHS,
+                                      update_with="binary")
+            fits = {}
+            for k in (1, SHARDS):
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                m = MemhdModel.create(0, enc, amc, device=self.dev)
+                m, hist = m.fit_sharded(1, x, ds.train_y,
+                                        mesh=(self.dev,) * k)
+                torch.cuda.synchronize()
+                n = kernels.launches()["qail_update"]
+                want = k * n_batches * DYADIC_EPOCHS
+                check(n == want, ("fit_sharded launches", width, k, n, want))
+                routes = check_int8_routes(n, ("fit_sharded", width, k))
+                fits[k] = (m.am_state, [r["train_miss"]
+                                        for r in hist["curve"]],
+                           time.perf_counter() - t0, n, routes)
+            one, two = fits[1], fits[SHARDS]
+            for key in ("fp", "binary"):
+                check(torch.equal(one[0][key], two[0][key]),
+                      ("fit_sharded", width, key))
+            check(one[1] == two[1], ("fit_sharded miss curve", width))
+            exact.append({"dim": width, "columns": width,
+                          "epochs": DYADIC_EPOCHS, "fp_equal": True,
+                          "binary_equal": True, "miss_equal": True,
+                          "miss_curve": two[1],
+                          "launches": {1: one[3], SHARDS: two[3]},
+                          "qail_update_routes": two[4],
+                          "fit_seconds": {1: round(one[2], 3),
+                                          SHARDS: round(two[2], 3)}})
+        log({"phase": "fit_sharded_exact", "shards": SHARDS, "fits": exact})
+
+        amc = dataclasses.replace(self.amc, epochs=SHARDED_EPOCHS)
+        m = MemhdModel.create(0, self.enc, amc, device=self.dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sh, sh_hist = m.fit_sharded(1, ds.train_x, ds.train_y,
+                                    mesh=(self.dev,) * SHARDS)
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t0
+        n = kernels.launches()["qail_update"]
+        check(n == SHARDS * n_batches * SHARDED_EPOCHS, ("launches", n))
+        routes = check_int8_routes(n, "fit_sharded paper lr")
+        self.fit_sharded_launches = {"qail_update": n}
+        t0 = time.perf_counter()
+        kf, k_hist = m.fit(1, ds.train_x, ds.train_y, use_kernel=True)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        agree = (sh.am_state["binary"] == kf.am_state["binary"]).float(
+            ).mean().item()
+        acc_sh = sh.score(ds.test_x, ds.test_y)
+        acc_k = kf.score(ds.test_x, ds.test_y)
+        check(agree >= SHARDED_AGREE, ("binary agreement", agree))
+        check(abs(acc_sh - acc_k) <= SHARDED_ACC_GAP, (acc_sh, acc_k))
+        check(len(sh_hist["curve"]) == SHARDED_EPOCHS, sh_hist["curve"])
+        log({"phase": "fit_sharded_paper_lr", "shards": SHARDS,
+             "epochs": SHARDED_EPOCHS, "lr": amc.lr,
+             "binary_agreement": agree, "accuracy_sharded": acc_sh,
+             "accuracy_kernel_fit": acc_k,
+             "final_miss_sharded": sh_hist["curve"][-1]["train_miss"],
+             "final_miss_kernel_fit": k_hist["curve"][-1]["train_miss"],
+             "fit_seconds_sharded": round(t_sh, 3),
+             "fit_seconds_kernel_fit": round(t_k, 3),
+             "launches": n, "qail_update_routes": routes})
+
     # -- phase 11: the LM inference path ---------------------------------------
     def check_lm_kernels(self):
         """flash_decode and ssd_chunk against their plain versions.
@@ -2346,6 +2745,7 @@ class Smoke:
         torch.cuda.empty_cache()
         # The plain-path runs above count torch-ref dispatches; later
         # phases read the dispatch counter of their own runs.
+        self.note_batches()
         ops.reset_dispatch()
 
     def lm_cli(self):
@@ -2911,9 +3311,25 @@ class Smoke:
                 ("am_search", "baselines", self.baseline_launches),
                 ("qail_update", "online", self.online_launches),
                 ("am_search_packed", "online", self.online_launches),
-                ("pack_bits", "online", self.online_launches)):
+                ("pack_bits", "online", self.online_launches),
+                ("qail_update", "fit_sharded", self.fit_sharded_launches),
+                *((name, "sharded", self.sharded_launches)
+                  for name in self.sharded_launches)):
             rows[name].setdefault("launches_by_path", {})[path] = counts[
                 name]
+        # The autotuned kernels: the committed configuration beside the
+        # default the row's ms is timed at.
+        tuned = self.tuned
+        for name, fn in (
+                ("am_search_packed", lambda: asp.am_search_packed(
+                    qp, am_t, n_dims=d, block_b=tuned["am_search_packed"])),
+                ("qail_update", lambda: qail_update.qail_update(
+                    tq, h, tam_t, owners, ty, tmask, lr=lr,
+                    block_b=tuned["qail_update"])),
+                ("encode_pack", lambda: encode_fused.encode_pack_tiled(
+                    feats, proj, tuned["encode_pack"]))):
+            rows[name].update({"tuned": tuned[name],
+                               "ms_tuned": time_device_ms(fn)})
         rows["am_search"].update(self.am_search_extra(q, am_binary))
         rows["am_search_packed"].update(self.popcount_extra(qp, am_t, sms))
         row = out[[r["name"] for r in out].index("am_search_packed_unpack")]
@@ -3003,11 +3419,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
-                         "hier,baselines,online,lm,robustness,cli,trainer,"
-                         "repro (development runs; train, fidelity, hier, "
-                         "baselines and online need main, the kernels line "
-                         "needs kernels, main, train, fidelity, hier, "
-                         "baselines, online and lm)")
+                         "hier,baselines,online,autotune,sharded,"
+                         "fit_sharded,lm,robustness,cli,trainer,repro "
+                         "(development runs; train, fidelity, hier, "
+                         "baselines, online and fit_sharded need main, "
+                         "autotune needs main and train, sharded main, "
+                         "fidelity and hier; the kernels line needs "
+                         "kernels, main, train, fidelity, hier, baselines, "
+                         "online, autotune, sharded, fit_sharded and lm)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -3024,8 +3443,8 @@ def main():
          "cuda": torch.version.cuda, "kind": kind,
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
-               "baselines", "online", "lm", "robustness", "cli", "trainer",
-               "repro"]
+               "baselines", "online", "autotune", "sharded", "fit_sharded",
+               "lm", "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -3054,6 +3473,14 @@ def main():
         smoke.online()
         log({"phase": "online_group",
              "seconds": round(time.perf_counter() - t_ph, 3)})
+    for name in ("autotune", "sharded", "fit_sharded"):
+        if name in phases:
+            t_ph = time.perf_counter()
+            getattr(smoke, name)()
+            log({"phase": f"{name}_group",
+                 "seconds": round(time.perf_counter() - t_ph, 3)})
+    if "autotune" in phases:
+        smoke.dispatched_batches()
     if "lm" in phases:
         t_lm = time.perf_counter()
         smoke.check_lm_kernels()
@@ -3072,7 +3499,8 @@ def main():
     if "repro" in phases:
         smoke.reproducibility()
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
-                                 "hier", "baselines", "online", "lm")):
+                                 "hier", "baselines", "online", "autotune",
+                                 "sharded", "fit_sharded", "lm")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -277,9 +277,43 @@ class MemhdModel:
         model = dataclasses.replace(model, am_state=state)
         return model, {"init": init_hist, "curve": curve}
 
-    def fit_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "data-parallel fit is not ported yet (ROADMAP queue 1, item 13)")
+    def fit_sharded(self, gen: GenLike, feats, labels, *, mesh=None,
+                    epochs: Optional[int] = None,
+                    init_method: str = "clustering",
+                    refresh_every: int = 1) -> Tuple["MemhdModel", Dict]:
+        """Data-parallel fit over a device list (``core.distributed``).
+
+        Encode, initialize, then every prebatched minibatch is cut into one
+        row shard per mesh entry; each shard computes its Eq.-(6) delta
+        (``qail.qail_batch_delta``: the ``qail_update`` kernel on a GPU) and
+        the shards' bfloat16 deltas are summed into the float AM, one host
+        sync per epoch. ``mesh``: devices, one shard each, repeats allowed
+        (default: every visible GPU for a model on the GPU, the model's
+        device otherwise). The batch rounds up to a multiple of the shard
+        count. Returns (model, {"init": ..., "curve": ...}).
+        """
+        from repro_torch.core import distributed
+        from repro_torch.deploy.sharded import serving_mesh
+        if mesh is None:
+            mesh = (None if self.device.type == "cuda" else (self.device,))
+        mesh = serving_mesh(mesh)
+        epochs = self.am_cfg.epochs if epochs is None else epochs
+        labels = self._on_device(labels)
+
+        h = self.encode(feats)
+        q = encoding.binarize_query(h)
+        model, init_hist = self.initialize_am(
+            gen, feats, labels, method=init_method, h=h, q=q)
+
+        n, k = h.shape[0], len(mesh)
+        bs = -(-self.am_cfg.batch_size // k) * k
+        hb, qb, yb, mask = qail.prebatch(h, q, labels, bs)
+        state, curve = distributed.fit_sharded_epochs(
+            mesh, model.am_state, self.am_cfg, hb, qb, yb, mask,
+            epochs=epochs, refresh_every=refresh_every, n_samples=n)
+        state = {key: v.to(self.device) for key, v in state.items()}
+        model = dataclasses.replace(model, am_state=state)
+        return model, {"init": init_hist, "curve": curve}
 
     # -- class-incremental growth ---------------------------------------------
     def grow_classes(self, feats, labels, *, centroids_per_class: int = 1,

@@ -32,8 +32,9 @@ aware QAIL: the sims MVM sees a device-perturbed view of the binary AM,
 ``repro_torch.imcsim``) and ``cell_bits`` (multi-bit QAT: it sees the
 ``cell_bits``-bit quantized view of the live float shadow).
 
-Not ported yet: ``qail_batch_delta``, the data-parallel delta (ROADMAP
-queue 1, item 13).
+``qail_batch_delta`` is the data-parallel delta (``core.distributed``):
+it returns the batch's Eq.-(6) increment in a wire dtype instead of
+adding it, so that shards can sum their deltas first.
 """
 from __future__ import annotations
 
@@ -173,10 +174,78 @@ def qail_batch_update(state: AmState, cfg: MemhdConfig, h: torch.Tensor,
     return dict(state, fp=fp), miss
 
 
-def qail_batch_delta(*args, **kwargs):
-    raise NotImplementedError(
-        "the data-parallel QAIL delta is not ported yet "
-        "(ROADMAP queue 1, item 13)")
+def _add_rows_in_order(acc: torch.Tensor, idx: torch.Tensor,
+                       rows: torch.Tensor) -> None:
+    """``acc[idx[i]] += rows[i]`` for i = 0, 1, ... in place, every add
+    rounded to ``acc``'s dtype: the rows of one target are added in row
+    order, one rank of repeats at a time (within a rank the targets are
+    distinct, so no add races another)."""
+    idx = idx.long()
+    n = idx.numel()
+    if n == 0:
+        return
+    order = torch.argsort(idx, stable=True)
+    sidx = idx[order]
+    pos = torch.arange(n, device=idx.device)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = sidx[1:] != sidx[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - start
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        t = idx[sel]
+        acc[t] = acc[t] + rows[sel]
+
+
+def qail_batch_delta(state: AmState, cfg: MemhdConfig, h: torch.Tensor,
+                     queries: torch.Tensor, labels: torch.Tensor,
+                     wire_dtype=torch.bfloat16,
+                     mask: Optional[torch.Tensor] = None, *,
+                     use_kernel: Optional[bool] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq.-(6) update *delta* for a batch (no state mutation).
+
+    Returns (delta, n_miss): delta shaped like the float AM, in
+    ``wire_dtype`` (what shards sum), and the float32 count of
+    mispredicted samples; ``mask`` (B,) zeroes padded samples.
+
+    ``use_kernel`` None means the ``qail_update`` kernel on a CUDA tensor
+    (``ops.qail_update``, the single-device kernel fit's int8 route) and
+    the plain version on the CPU. The plain version is the reference's:
+    each coefficient row lr * mis * upd is rounded to ``wire_dtype``, then
+    accumulated in it, true targets first and then predicted ones, each in
+    row order (no ``index_add_``, whose float atomics on CUDA sum in any
+    order). The kernel route rounds each summed delta once instead of
+    each term: the two agree wherever every partial sum is exact in
+    ``wire_dtype`` (±1 payloads at a dyadic lr, at most 256 terms a cell
+    in bfloat16), and otherwise within (m + 1) ulps of ``wire_dtype``
+    times the sum of |terms| (m terms a cell).
+    """
+    centroid_class, binary = state["centroid_class"], state["binary"]
+    upd = h if cfg.update_with == "encoded" else queries
+    labels = labels.to(torch.int32)
+    if mask is None:
+        mask = torch.ones(labels.shape, device=queries.device)
+    mask = mask.float()
+    if use_kernel is None:
+        use_kernel = queries.device.type == "cuda"
+    if use_kernel:
+        from repro_torch.kernels import ops
+        delta, n_miss = ops.qail_update(queries, upd, binary.T,
+                                        centroid_class, labels, mask,
+                                        lr=cfg.lr)
+        return delta.to(wire_dtype), n_miss
+    pred_t, true_t, mis = kernel_ref.qail_targets(
+        queries, binary.T, centroid_class, labels, mask)
+    coef = ((cfg.lr * mis)[:, None] * upd.float()).to(wire_dtype)
+    delta = torch.zeros(state["fp"].shape, dtype=wire_dtype,
+                        device=queries.device)
+    # Rows that hit add lr * 0 * u = 0: they change nothing.
+    hit = mis != 0
+    _add_rows_in_order(delta, true_t[hit], coef[hit])
+    _add_rows_in_order(delta, pred_t[hit], -coef[hit])
+    return delta, mis.sum()
 
 
 def _training_view(fp: torch.Tensor, binary: torch.Tensor, b: int, *,

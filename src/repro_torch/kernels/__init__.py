@@ -34,15 +34,33 @@ KERNELS = {"pack_bits": (_pb.pack_bits, "launches"),
            "ssd_chunk": (_sc.ssd_chunk, "launches")}
 
 
+# Launches by configuration, on the wrappers whose tile the autotuner
+# picks: {block_b or SGEMM_TILES index: launches}.
+CONFIG_COUNTS = {"am_search_packed": (_asp.am_search_packed,
+                                      "block_b_launches"),
+                 "qail_update": (_qu.qail_update, "block_b_launches"),
+                 "encode_pack": (_ef.encode_pack, "tile_launches")}
+
+
 def reset_launches() -> None:
-    """Zero every launch counter and the route counts of ``qail_update``,
-    ``am_search``, ``am_search_imc``, ``am_search_multibit`` and
-    ``am_shortlist``."""
+    """Zero every launch counter, the launches by configuration and the
+    route counts of ``qail_update``, ``am_search``, ``am_search_imc``,
+    ``am_search_multibit`` and ``am_shortlist``."""
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
+    for fn, attr in CONFIG_COUNTS.values():
+        getattr(fn, attr).clear()
     for mod in (_qu, _as, _asi, _asm, _asl):
         mod.reset_routes()
 
 
 def launches() -> dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
+
+
+def config_launches() -> dict[str, dict[int, int]]:
+    """Launches by configuration since the last reset:
+    ``{"am_search_packed": {block_b: n}, "qail_update": {block_b: n},
+    "encode_pack": {tile: n}}``."""
+    return {name: dict(getattr(fn, attr))
+            for name, (fn, attr) in CONFIG_COUNTS.items()}

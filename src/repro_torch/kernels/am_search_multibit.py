@@ -31,12 +31,12 @@ from repro_torch.kernels._search_pass import (
 )
 from repro_torch.kernels.am_search_imc import check_readout
 
-# csrc/am_search_multibit.cu: queries of a search block (the reference's
-# autotuned batch tile has no counterpart, ROADMAP queue 1 item 15), dims
-# per k step of the fp32 route (the SIMT tile of csrc/sims_argmax.cuh) and
-# the dynamic shared memory: the ring (each stage the int8 query rows and
-# up to 8 planes' 16 bytes of k for each column), the decoded u8 code
-# rows, the sum tile.
+# csrc/am_search_multibit.cu: queries of a search block (its one
+# configuration, which the autotuner times; a wider tile is kernel work,
+# ROADMAP 2b), dims per k step of the fp32 route (the SIMT tile of
+# csrc/sims_argmax.cuh) and the dynamic shared memory: the ring (each
+# stage the int8 query rows and up to 8 planes' 16 bytes of k for each
+# column), the decoded u8 code rows, the sum tile.
 BLOCK_ROWS = 64
 BLOCK_B_CHOICES = (BLOCK_ROWS,)
 FP32_STEP = 16

@@ -212,8 +212,11 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
         am_search_packed.unpack_launches += 1
     else:
         am_search_packed.launches += 1
+    counts = am_search_packed.block_b_launches
+    counts[block_b] = counts.get(block_b, 0) + 1
     return idx, sim
 
 
 am_search_packed.launches = 0
 am_search_packed.unpack_launches = 0
+am_search_packed.block_b_launches = {}  # block_b -> launches (both modes)

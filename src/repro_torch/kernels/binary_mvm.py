@@ -25,6 +25,15 @@ TILE = 128  # IMC array dim: one (K, N) tile pass is one array cycle
 SGEMM_TILES = ((128, 64, 4, 256, 32), (64, 64, 4, 128, 32),
                (128, 128, 8, 256, 32), (64, 64, 8, 64, 16))
 SGEMM_TILE = 3
+SGEMM_STAGES = 3  # cp.async ring stages of the mainloop (NST)
+
+
+def sgemm_smem(tile: int) -> int:
+    """Dynamic shared bytes of a block of tile ``SGEMM_TILES[tile]``: the
+    ring of ``SGEMM_STAGES`` stages of a (BM, BK) A slab and a (BK, BN) B
+    slab of floats (``Tile::SMEM`` in ``csrc/sgemm_tile.cuh``)."""
+    bm, bn, _, _, bk = SGEMM_TILES[tile]
+    return 4 * SGEMM_STAGES * (bm * bk + bk * bn)
 
 
 def sgemm_grid(b: int, n: int, tile: int = SGEMM_TILE) -> tuple[int, int]:

@@ -72,20 +72,25 @@ def encode_pack_tiled(feats: torch.Tensor, projection: torch.Tensor,
                                      _build.stream_of(feats))
     _build.check(err, "encode_pack")
     encode_pack.launches += 1
+    encode_pack.tile_launches[tile] = encode_pack.tile_launches.get(tile,
+                                                                    0) + 1
     return out
 
 
 encode_pack.launches = 0
+encode_pack.tile_launches = {}  # SGEMM_TILES index -> launches
 
 
 def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
                          am_packed_t: torch.Tensor, *,
                          mode: str = "popcount",
                          block_b: int | None = DEFAULT_BLOCK_B,
+                         tile: int = SGEMM_TILE,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """encode_pack |> am_search_packed: (best_idx, best_sim) bit-exact
-    with the staged encode_query -> pack_rows -> am_search_packed chain."""
-    qp = encode_pack(feats, projection)
+    with the staged encode_query -> pack_rows -> am_search_packed chain.
+    ``tile``: the encode's block tile, ``block_b`` the search's."""
+    qp = encode_pack_tiled(feats, projection, tile)
     return am_search_packed(qp, am_packed_t, n_dims=projection.shape[1],
                             mode=mode, block_b=block_b)
 
@@ -95,8 +100,9 @@ def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
                           centroid_class: torch.Tensor, *,
                           mode: str = "popcount",
                           block_b: int | None = DEFAULT_BLOCK_B,
+                          tile: int = SGEMM_TILE,
                           ) -> torch.Tensor:
     """encode_pack |> am_search_packed |> ownership gather: (B,) classes."""
     idx, _ = search_from_features(feats, projection, am_packed_t,
-                                  mode=mode, block_b=block_b)
+                                  mode=mode, block_b=block_b, tile=tile)
     return centroid_class[idx.long()]

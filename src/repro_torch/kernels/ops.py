@@ -11,10 +11,26 @@ Every call adds one to the ``(kernel, tier, geometry)`` series of the
 over geometries for the serving report.
 
 Every op with a query tile takes the reference's ``block_b: int | None
-= None``. ``None`` is the port's launch plan; an explicit tile must be
-one the kernel runs (the module's ``BLOCK_B_CHOICES``), else a
-``ValueError`` names those values: the reference's autotuned tiles
-(64-1024) are not mapped onto the port's. The IMC cycle counts
+= None``. An explicit tile wins and must be one the kernel runs (the
+module's ``BLOCK_B_CHOICES``, else a ``ValueError`` names those values:
+the reference's tiles, 64-1024, are not mapped onto the port's).
+``None`` on a CUDA tensor reads the autotune cache (``kernels.autotune``)
+for the tensor's card and geometry where the tuner timed more than one
+configuration (``am_search_packed`` in popcount mode, ``qail_update``,
+``encode_pack``) and the batch lies within the entry's
+``tuned_batches``; a cached tile the kernel cannot run raises a
+``ValueError`` naming the cache file. Otherwise (no entry, a batch
+outside the tuned range, unpack mode, which the tuner does not time, the
+single-configuration kernels, or the CPU, where the plain tier has no
+tile) it is the kernel's default. The entry's tile is memoised per
+(kernel, device, geometry), so after a geometry's first dispatch a
+dispatch reads no environment, file or key string: set
+``MEMHD_TORCH_AUTOTUNE_CACHE`` before the first dispatch
+(``autotune.save_entry`` clears the memo). ``encode_pack``'s tuned
+entry names a block tile of the fp32 mainloop
+(``binary_mvm.SGEMM_TILES``); an explicit ``block_b`` is its default
+tile's rows. ``tuned_block_b`` answers with the reference's signature
+and rule (explicit, cached, default) for any batch. The IMC cycle counts
 (``search_cycles``, ``packed_search_cycles``, ``encode_pack_cycles``,
 ``mvm_cycles``, ``imc_search_cycles``, ``multibit_search_cycles``) are
 the reference's, as pure integer functions of the shapes.
@@ -24,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import am_search_multibit as _asm_mod
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import am_search_packed as _asp_mod
 from repro_torch.kernels import am_search_sparse as _ass_mod
 from repro_torch.kernels import am_shortlist as _asl_mod
@@ -55,7 +72,9 @@ from repro_torch.kernels.am_search_sparse import (
 )
 from repro_torch.kernels.am_search_sparse import am_search_sparse_plain
 from repro_torch.kernels.am_shortlist import am_shortlist as _am_shortlist
-from repro_torch.kernels.encode_fused import encode_pack as _encode_pack
+from repro_torch.kernels.encode_fused import (
+    encode_pack_tiled as _encode_pack_tiled,
+)
 from repro_torch.kernels.encode_fused import (  # noqa: F401
     imc_cycles_for as encode_pack_cycles,
 )
@@ -65,6 +84,7 @@ from repro_torch.kernels.encode_fused import (
 from repro_torch.kernels.encode_fused import (
     search_from_features as _search_from_features,
 )
+from repro_torch.kernels.binary_mvm import SGEMM_TILE, SGEMM_TILES
 from repro_torch.kernels.binary_mvm import binary_mvm as _binary_mvm
 from repro_torch.kernels.binary_mvm import (  # noqa: F401
     imc_cycles_for as mvm_cycles,
@@ -74,9 +94,6 @@ from repro_torch.kernels.pack_bits import pack_bits as _pack_bits
 from repro_torch.kernels.pack_bits import unpack_bits as _unpack_bits
 from repro_torch.kernels.qail_update import (
     BLOCK_B_CHOICES as QAIL_BLOCK_B_CHOICES,
-)
-from repro_torch.kernels.qail_update import (
-    DEFAULT_BLOCK_B as QAIL_DEFAULT_BLOCK_B,
 )
 from repro_torch.kernels.qail_update import qail_update as _qail_update
 from repro_torch.kernels.ssd_chunk import ssd_chunk as _ssd_chunk
@@ -100,16 +117,122 @@ def _tier(x: torch.Tensor, use_kernel: bool | None) -> str:
     return "torch-ref"
 
 
-def _block_b(kernel: str, block_b: int | None, choices: tuple,
-             default: int | None = None) -> int | None:
-    """The query tile of a launch: ``default`` for None, else an explicit
-    tile the kernel runs (one of ``choices``)."""
-    if block_b is None:
-        return default
+# The query tiles an explicit block_b may name, by tunable kernel.
+_CHOICES = {"encode_pack": _ef_mod.BLOCK_B_CHOICES,
+            "am_search_packed": _asp_mod.BLOCK_B_CHOICES,
+            "am_search_multibit": _asm_mod.BLOCK_B_CHOICES,
+            "am_shortlist": _asl_mod.BLOCK_B_CHOICES,
+            "am_search_sparse": _ass_mod.BLOCK_B_CHOICES,
+            "qail_update": QAIL_BLOCK_B_CHOICES}
+
+
+def _block_b(kernel: str, block_b: int) -> int:
+    """An explicit query tile: one the kernel runs, else it raises."""
+    choices = _CHOICES[kernel]
     if block_b not in choices:
         raise ValueError(f"{kernel}: block_b={block_b} not in {choices} "
-                         f"(None: the port's launch plan)")
+                         f"(None: the tuned tile)")
     return block_b
+
+
+def _cached(kernel: str, device: str, **dims) -> dict | None:
+    """The autotune cache's entry for ``kernel`` at ``dims`` on the device
+    named ``device``, or None; an entry the kernel cannot run (a block_b
+    outside its choices; for encode_pack a tile that is not one of
+    ``SGEMM_TILES`` of those rows; no ``tuned_batches``) raises."""
+    geometry = _autotune.geometry_key(kernel, **dims)
+    entry = _autotune.lookup(kernel, geometry, device)
+    if entry is None:
+        return None
+    bb = entry.get("block_b")
+    if kernel == "encode_pack":
+        tile = entry.get("tile")
+        ok = tile in range(len(SGEMM_TILES)) and bb == SGEMM_TILES[tile][0]
+        runs = f"tile={tile}, block_b={bb}: no such SGEMM_TILES entry"
+    else:
+        ok = bb in _CHOICES[kernel]
+        runs = f"block_b={bb} not in {_CHOICES[kernel]}"
+    batches = entry.get("tuned_batches")
+    if ok and not (batches and all(isinstance(b, int) and b > 0
+                                   for b in batches)):
+        ok, runs = False, f"tuned_batches={batches}: no batch range"
+    if not ok:
+        raise ValueError(
+            f"{kernel}: the autotune cache {_autotune.cache_path()} holds "
+            f"{runs} for {device} {geometry}, which the kernel cannot run")
+    return entry
+
+
+def tuned_block_b(kernel: str, block_b: int | None, **dims) -> int:
+    """Resolve the batch tile for a dispatch: an explicit ``block_b`` wins
+    (validated against the kernel's ``BLOCK_B_CHOICES``), then the
+    autotune cache's entry for the current device and this geometry, then
+    the kernel's default."""
+    if block_b is not None:
+        return _block_b(kernel, block_b)
+    entry = _cached(kernel, _autotune.device_name(), **dims)
+    if entry is not None:
+        return int(entry["block_b"])
+    return _autotune.KERNELS[kernel].default_block_b
+
+
+_MISS = object()
+
+
+def _tuned(kernel: str, index: int, dims: tuple) -> tuple | None:
+    """(block_b, tile, least and most tuned batch) of the cached entry of
+    ``kernel`` at ``dims`` (in its spec's ``key_dims`` order) on CUDA
+    device ``index``, or None. Memoised in ``autotune.RESOLVED``, which
+    ``autotune.save_entry`` clears: the cache path is read at a
+    geometry's first dispatch, so a hit reads no environment and builds
+    no key string."""
+    key = (kernel, index, dims)
+    tuned = _autotune.RESOLVED.get(key, _MISS)
+    if tuned is not _MISS:
+        return tuned
+    name = _autotune.device_name(torch.device("cuda", index))
+    entry = _cached(kernel, name,
+                    **dict(zip(_autotune.KERNELS[kernel].key_dims, dims)))
+    tuned = None
+    if entry is not None:
+        batches = entry["tuned_batches"]
+        tuned = (int(entry["block_b"]), entry.get("tile"), min(batches),
+                 max(batches))
+    _autotune.RESOLVED[key] = tuned
+    return tuned
+
+
+def _resolve(kernel: str, block_b: int | None, x: torch.Tensor,
+             *dims: int) -> tuple[int, int | None]:
+    """(block_b, encode_pack's tile or None) of a dispatch of ``kernel``
+    on ``x`` at ``dims`` (``key_dims`` order): an explicit tile,
+    validated; for None on a CUDA tensor whose batch lies in the cached
+    entry's tuned range, the entry's; else the kernel's default."""
+    if block_b is not None:
+        return _block_b(kernel, block_b), None
+    index = x.get_device()
+    if index >= 0:
+        tuned = _tuned(kernel, index, dims)
+        if tuned is not None and tuned[2] <= x.shape[0] <= tuned[3]:
+            return tuned[0], tuned[1]
+    return _autotune.KERNELS[kernel].default_block_b, None
+
+
+def _encode_tile(x: torch.Tensor, f: int, d: int) -> int:
+    """encode_pack's block tile (an index of ``SGEMM_TILES``) for
+    block_b=None: the tuned one where ``_resolve`` finds it, else the
+    default."""
+    _, tile = _resolve("encode_pack", None, x, f, d)
+    return SGEMM_TILE if tile is None else int(tile)
+
+
+def _packed_block_b(block_b: int | None, x: torch.Tensor, mode: str,
+                    d: int, c: int) -> int:
+    """The packed search's query tile. The tuner times popcount mode
+    only, so unpack mode runs an explicit tile or the default."""
+    if mode != "popcount" and block_b is None:
+        return _asp_mod.DEFAULT_BLOCK_B
+    return _resolve("am_search_packed", block_b, x, d, c)[0]
 
 
 def dispatch_breakdown() -> dict[str, dict[str, int]]:
@@ -123,13 +246,22 @@ def dispatch_breakdown() -> dict[str, dict[str, int]]:
     return out
 
 
+def dispatch_batches(tier: str = "cuda") -> dict[str, dict[int, int]]:
+    """{kernel: {B: count}} of the ``tier`` dispatches whose geometry has
+    a batch B."""
+    out: dict[str, dict[int, int]] = {}
+    for lab, n in _DISPATCH.series():
+        if lab["tier"] != tier:
+            continue
+        dims = dict(kv.split("=") for kv in lab["geometry"].split(",") if kv)
+        if "B" in dims:
+            per = out.setdefault(lab["kernel"], {})
+            per[int(dims["B"])] = per.get(int(dims["B"]), 0) + int(n)
+    return out
+
+
 def reset_dispatch() -> None:
     _DISPATCH.clear()
-
-
-def _packed_block_b(block_b: int | None) -> int:
-    return _block_b("am_search_packed", block_b,
-                    _asp_mod.BLOCK_B_CHOICES, _asp_mod.DEFAULT_BLOCK_B)
 
 
 def encode_mvm(feats: torch.Tensor, projection: torch.Tensor, *,
@@ -148,15 +280,19 @@ def encode_pack(feats: torch.Tensor, projection: torch.Tensor, *,
                 use_kernel: bool | None = True,
                 block_b: int | None = None) -> torch.Tensor:
     """Fused encode + sign + bitpack: (B, f) -> (B, ceil(D/8)) uint8.
-    ``block_b``: the kernel's fixed row tile (``encode_fused.
-    BLOCK_B_CHOICES``) or None."""
-    _block_b("encode_pack", block_b, _ef_mod.BLOCK_B_CHOICES)
+    ``block_b``: the rows of the kernel's default block tile
+    (``encode_fused.BLOCK_B_CHOICES``), or None for the tuned tile."""
+    f, d = projection.shape
+    tile = SGEMM_TILE
+    if block_b is not None:
+        _block_b("encode_pack", block_b)
+    else:
+        tile = _encode_tile(feats, f, d)
     tier = _tier(feats, use_kernel)
-    _count("encode_pack", tier, B=feats.shape[0], f=projection.shape[0],
-           D=projection.shape[1])
+    _count("encode_pack", tier, B=feats.shape[0], f=f, D=d)
     if tier == "torch-ref":
         return ref.encode_pack(feats, projection)
-    return _encode_pack(feats.float().contiguous(), projection)
+    return _encode_pack_tiled(feats.float().contiguous(), projection, tile)
 
 
 def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
@@ -166,16 +302,20 @@ def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
                          block_b: int | None = None,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Feature -> search chain over the packed AM: (best_idx, best_sim).
-    ``block_b``: the packed search's query tile (None: its default)."""
-    block_b = _packed_block_b(block_b)
+    ``block_b``: the packed search's query tile (None: the tuned tiles of
+    the encode and of the search)."""
+    f, d = projection.shape
+    c = am_packed_t.shape[1]
+    tile = _encode_tile(feats, f, d)
+    block_b = _packed_block_b(block_b, feats, mode, d, c)
     tier = _tier(feats, use_kernel)
-    _count("search_from_features", tier, B=feats.shape[0],
-           D=projection.shape[1], C=am_packed_t.shape[1])
+    _count("search_from_features", tier, B=feats.shape[0], D=d, C=c)
     if tier == "torch-ref":
         qp = ref.encode_pack(feats, projection)
-        return ref.am_search_packed(qp, am_packed_t, projection.shape[1])
+        return ref.am_search_packed(qp, am_packed_t, d)
     return _search_from_features(feats.float().contiguous(), projection,
-                                 am_packed_t, mode=mode, block_b=block_b)
+                                 am_packed_t, mode=mode, block_b=block_b,
+                                 tile=tile)
 
 
 def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
@@ -185,17 +325,20 @@ def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
                           use_kernel: bool | None = True,
                           block_b: int | None = None) -> torch.Tensor:
     """End-to-end §III-D prediction from raw features: fused
-    encode/pack -> packed search -> ownership gather."""
-    block_b = _packed_block_b(block_b)
+    encode/pack -> packed search -> ownership gather (tiles as in
+    ``search_from_features``)."""
+    f, d = projection.shape
+    c = am_packed_t.shape[1]
+    tile = _encode_tile(feats, f, d)
+    block_b = _packed_block_b(block_b, feats, mode, d, c)
     tier = _tier(feats, use_kernel)
-    _count("predict_from_features", tier, B=feats.shape[0],
-           D=projection.shape[1], C=am_packed_t.shape[1])
+    _count("predict_from_features", tier, B=feats.shape[0], D=d, C=c)
     if tier == "torch-ref":
         return ref.predict_from_features(feats, projection, am_packed_t,
                                          centroid_class)
     return _predict_from_features(feats.float().contiguous(), projection,
                                   am_packed_t, centroid_class, mode=mode,
-                                  block_b=block_b)
+                                  block_b=block_b, tile=tile)
 
 
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
@@ -205,8 +348,9 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused associative search over the packed 1-bit AM. ``block_b``:
     the query tile, one of ``am_search_packed.BLOCK_B_CHOICES`` (None:
-    ``DEFAULT_BLOCK_B``)."""
-    block_b = _packed_block_b(block_b)
+    the tuned tile)."""
+    block_b = _packed_block_b(block_b, q_packed, mode, n_dims,
+                              am_packed_t.shape[1])
     tier = _tier(q_packed, use_kernel)
     _count("am_search_packed", tier, B=q_packed.shape[0], D=n_dims,
            C=am_packed_t.shape[1])
@@ -226,7 +370,8 @@ def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
     (B, s) super similarities), best first, ties toward the lower
     cluster id. ``block_b``: the rows of the kernel's query tile
     (``am_shortlist.BLOCK_B_CHOICES``) or None."""
-    _block_b("am_shortlist", block_b, _asl_mod.BLOCK_B_CHOICES)
+    if block_b is not None:
+        _block_b("am_shortlist", block_b)
     tier = _tier(q_packed, use_kernel)
     _count("am_shortlist", tier, B=q_packed.shape[0], D=n_dims,
            G=super_packed_t.shape[1], S=s)
@@ -249,7 +394,8 @@ def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
     ``am_search_packed``. The CUDA kernel reads the shortlisted tiles
     through the layout; the plain tier gathers them first. ``block_b``:
     queries per block (``am_search_sparse.BLOCK_B_CHOICES``) or None."""
-    _block_b("am_search_sparse", block_b, _ass_mod.BLOCK_B_CHOICES)
+    if block_b is not None:
+        _block_b("am_search_sparse", block_b)
     tier = _tier(q_packed, use_kernel)
     _count("am_search_sparse", tier, B=q_packed.shape[0], D=n_dims,
            S=shortlist.shape[1], K=k)
@@ -368,8 +514,9 @@ def am_search_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor, *,
     the kernel's query tile (``am_search_multibit.BLOCK_B_CHOICES``) or
     None. Returns (best_idx (B,) int32, best_sim (B,) float32).
     """
-    _block_b("am_search_multibit", block_b, _asm_mod.BLOCK_B_CHOICES)
     cell_bits = int(am_planes_t.shape[0])
+    if block_b is not None:
+        _block_b("am_search_multibit", block_b)
     tile_rows = sim.arr.rows if sim is not None else 128
     tile_cols = sim.arr.cols if sim is not None else 128
     adc_bits = sim.adc_bits if sim is not None else 16
@@ -405,11 +552,11 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
     q/upd: (B, D); am_t: (D, C) transposed binary AM (a view is fine);
     labels/mask: (B,). Returns (delta (C, D) float32, n_miss float32).
     ``block_b``: queries per similarity tile of the kernel, one of
-    ``QAIL_BLOCK_B_CHOICES`` (None: the default); any choice gives the
+    ``QAIL_BLOCK_B_CHOICES`` (None: the tuned tile); any choice gives the
     same result.
     """
-    block_b = _block_b("qail_update", block_b, QAIL_BLOCK_B_CHOICES,
-                       QAIL_DEFAULT_BLOCK_B)
+    block_b, _ = _resolve("qail_update", block_b, q, am_t.shape[0],
+                          am_t.shape[1])
     tier = _tier(q, use_kernel)
     _count("qail_update", tier, B=q.shape[0], D=am_t.shape[0],
            C=am_t.shape[1])

@@ -46,6 +46,17 @@ def _align256(n: int) -> int:
     return -(-n // 256) * 256
 
 
+def sims_smem(block_b: int) -> int:
+    """Dynamic shared bytes of a sims-pass block of ``block_b`` queries
+    (``sims_smem`` in ``csrc/qail_update.cu``): the largest of the int8
+    ring (4 stages of the block's query and AM rows, 128 bytes of k each),
+    the float sims tile and the fp32 route's k stage."""
+    ring = 4 * (block_b + BN) * K_SLAB
+    tile = 4 * block_b * (BN + 1)
+    stage = 4 * 16 * (block_b + 1 + BN + 1)
+    return max(ring, tile, stage)
+
+
 def plan(b: int, d: int, c: int, block_b: int) -> dict:
     """The kernel's tiles and the byte offsets of its scratch (``Plan`` in
     ``csrc/qail_update.cu``, which refuses a call whose size differs):
@@ -146,6 +157,8 @@ def qail_update_targets(q: torch.Tensor, upd: torch.Tensor,
             block_b, _build.stream_of(q))
     _build.check(err, "qail_update")
     qail_update.launches += 1
+    counts = qail_update.block_b_launches
+    counts[block_b] = counts.get(block_b, 0) + 1
     return delta, n_miss, pred_t, true_t, mis
 
 
@@ -176,3 +189,4 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
 
 
 qail_update.launches = 0
+qail_update.block_b_launches = {}  # block_b -> launches

@@ -18,6 +18,9 @@ device through ``am_search_imc`` (equal to the digital predictions), and
 coarse-to-fine artifact (``am_shortlist`` over ``--groups`` super-centroids,
 then ``am_search_sparse`` over ``--shortlist`` clusters' tiles), and
 ``--topk k`` serves each row's k best classes through its ``predict_topk``.
+``--devices N`` serves through ``deploy.ShardedArtifact``: each batch cut
+into N row shards over the first N GPUs (N CPU shards with ``--device
+cpu``), equal to the single-device predictions.
 
 The JSON report keeps the reference's keys; its ``metrics`` section
 holds the port's dispatch tiers (``cuda`` / ``torch-ref``), the kernel
@@ -35,6 +38,8 @@ Usage (on the GPU):
       --target multibit --cell-bits 4
   PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
       --target hierarchical --topk 5
+  PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke \
+      --devices 2
 and ``--device cpu`` for the plain path on the CPU.
 """
 from __future__ import annotations
@@ -43,6 +48,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import math
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -139,6 +145,8 @@ def serve_batches(deployed, requests: Sequence[Request],
     if topk and fused:
         raise ValueError("topk serving and the fused feature pipeline "
                          "are mutually exclusive")
+    # Sharded artifacts need every batch to split evenly across shards.
+    tile = math.lcm(tile, getattr(deployed, "row_multiple", 1))
     device = deployed.device
     if topk:
         if not hasattr(deployed, "predict_topk"):
@@ -311,6 +319,16 @@ def build_report(deployed, requests: Sequence[Request], stats: Dict,
     }
 
 
+def shard(deployed, n: int, device):
+    """``deployed`` wrapped in a ``ShardedArtifact`` of ``n`` shards: the
+    first ``n`` GPUs (raising if there are fewer), or ``n`` CPU shards
+    when ``device`` is the CPU."""
+    from repro_torch.deploy import ShardedArtifact, serving_mesh
+    devices = ["cpu"] * max(n, 0) if torch.device(device).type == "cpu" \
+        else None
+    return ShardedArtifact(deployed, mesh=serving_mesh(devices, n=n))
+
+
 def _not_ported(flag: str, item: str):
     raise NotImplementedError(f"{flag} is not ported yet ({item})")
 
@@ -346,8 +364,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--fused", action="store_true",
                     help="serve raw features through the fused "
                          "encode->pack->search pipeline")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="data-parallel serving devices (only 1 ported)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve through ShardedArtifact over N shards: "
+                         "the first N GPUs, or N CPU shards with "
+                         "--device cpu (default: no wrapper)")
     ap.add_argument("--depth", type=int, default=2,
                     help="pipeline depth (batches in flight)")
     ap.add_argument("--record-dir", default=None)
@@ -373,8 +393,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if (args.groups or args.shortlist) and target != "hierarchical":
         ap.error("--groups/--shortlist only apply to "
                  "--target hierarchical")
-    if args.devices > 1:
-        _not_ported("--devices > 1", "ROADMAP queue 1, item 13")
     if args.record_dir:
         _not_ported("--record-dir", "ROADMAP queue 1, item 16")
 
@@ -401,6 +419,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         deployed = model.deploy(target=target, cell_bits=args.cell_bits)
     else:
         deployed = model.deploy(target=target)
+    if args.devices is not None:
+        deployed = shard(deployed, args.devices, device)
+        log.info("sharded serving over %s", deployed.mesh)
 
     reqs = synthetic_requests(ds.test_x.cpu().numpy(), args.requests,
                               args.max_size)

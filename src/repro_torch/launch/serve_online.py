@@ -26,6 +26,12 @@ Examples (on the GPU; ``--device cpu`` for the plain path on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.serve_online --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_online --smoke \
         --append-class --target hierarchical
+    PYTHONPATH=src python -m repro_torch.launch.serve_online --smoke \
+        --append-class --devices 2 --device cpu
+
+``--devices N`` serves through ``deploy.ShardedArtifact`` (N GPUs, or N
+CPU shards with ``--device cpu``); each fold's new artifact is swapped
+in through the wrapper's ``refresh``, which keeps its mesh.
 """
 from __future__ import annotations
 
@@ -97,8 +103,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                              "multibit"])
     ap.add_argument("--fused", action="store_true",
                     help="serve through the fused feature pipeline")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="serving devices (only 1 ported)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve through ShardedArtifact over N shards: "
+                         "the first N GPUs, or N CPU shards with "
+                         "--device cpu (default: no wrapper)")
     ap.add_argument("--depth", type=int, default=2,
                     help="double-buffer depth (batches in flight)")
     ap.add_argument("--fold-epochs", type=int, default=2,
@@ -124,9 +132,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = ap.parse_args(argv)
     obs.setup_logging(json_mode=args.log_json)
     obs.install()
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 is not ported yet (ROADMAP queue 1, item 13)")
     if args.record_dir:
         raise NotImplementedError(
             "--record-dir is not ported yet (ROADMAP queue 1, item 16)")
@@ -160,6 +165,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
              amc.columns, amc.dim)
 
     deployed = model.deploy(target=args.target)
+    if args.devices is not None:
+        from repro_torch.launch.serve_memhd import shard
+        deployed = shard(deployed, args.devices, device)
+        log.info("sharded serving over %s", deployed.mesh)
 
     events_log = obs.EventLog(args.events_out)
     updater = StreamingUpdater(model, deployed,

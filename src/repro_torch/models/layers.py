@@ -248,7 +248,7 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     The attention is ``ops.flash_decode`` over the un-repeated KV heads.
     """
     if seq_parallel:
-        deferred("seq_parallel_decode", "queue 1 item 13")
+        deferred("seq_parallel_decode")
     if spec.logit_softcap is not None:
         deferred("logit_softcap in decode (flash_decode has no softcap)")
     pos = cache["len"]  # (B,) absolute position of the new token

@@ -46,7 +46,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.kv_cache_quant:
         L.deferred("kv_cache_quant (the int8 KV cache)")
     if cfg.seq_parallel_decode:
-        L.deferred("seq_parallel_decode", "queue 1 item 13")
+        L.deferred("seq_parallel_decode")
     if cfg.param_dtype != cfg.activation_dtype:
         L.deferred("mixed param/activation dtypes")
     for b in cfg.blocks:

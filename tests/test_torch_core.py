@@ -535,8 +535,11 @@ def test_qail_not_ported_options_raise():
                              torch.zeros(8, dtype=torch.int32))
     hb = torch.zeros((1, 4, 8))
     yb = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qail.qail_batch_delta(state, cfg, hb[0], hb[0], yb[0])
+    # qail_batch_delta is ported (tests/test_torch_sharded.py holds it
+    # against the reference): a wire-typed delta of fp's shape.
+    delta, n_miss = qail.qail_batch_delta(state, cfg, hb[0], hb[0], yb[0])
+    assert delta.shape == state["fp"].shape
+    assert delta.dtype == torch.bfloat16 and n_miss.dtype == torch.float32
     # The sim and cell_bits hooks, use_kernel=True, the sequential and
     # host-loop epochs and fold_feedback are ported: on CPU tensors they
     # run the plain path.

@@ -1504,3 +1504,250 @@ def test_lm_wrappers_reject_bad_operands_and_a_failed_build_raises(
     monkeypatch.setattr(_build, "_repo_root", lambda: tmp_path)
     with pytest.raises(RuntimeError, match="build failed"):
         _build.build()
+
+
+# -- the autotuner and multi-device MEMHD ---------------------------------------
+
+TUNE_SMALL = {"am_search_multibit": {"D": 128, "C": 96, "bits": 4},
+              "am_search_packed": {"D": 1024, "C": 1024},
+              "am_shortlist": {"D": 128, "G": 16, "S": 8},
+              "am_search_sparse": {"D": 128, "T": 2, "K": 3},
+              "encode_pack": {"f": 100, "D": 128},
+              "qail_update": {"D": 128, "C": 64}}
+
+
+@pytest.mark.parametrize("name", sorted(TUNE_SMALL))
+def test_autotune_every_candidate_is_bit_exact(dev, name, tmp_path,
+                                                monkeypatch):
+    """The tuner on the card at one small geometry per spec: every
+    candidate checked bit for bit against the plain version (a mismatch
+    raises), timed on CUDA events; the entry names the card."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "cache.json"))
+    spec = autotune.KERNELS[name]
+    entry = autotune.autotune_kernel(name, TUNE_SMALL[name],
+                                     batches=(32, 64), device=dev)
+    assert entry["device"] == torch.cuda.get_device_name(dev)
+    assert entry["power_limit_w"] > 0 and entry["sms"] > 0
+    assert entry["timing"].startswith("cuda events")
+    timed = set(entry["candidates_us"]) | set(entry["same_plan"]) \
+        | set(entry["skipped_smem"])
+    assert timed == {str(c) for c in spec.candidates}
+    assert all(t > 0 for v in entry["candidates_us"].values()
+               for t in v.values())
+    assert entry["tuned_batches"] == [32, 64]
+    assert ops.tuned_block_b(name, None, **TUNE_SMALL[name]) \
+        == entry["block_b"]
+
+
+def test_block_b_none_launches_the_cached_configuration(dev, tmp_path,
+                                                        monkeypatch):
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "cache.json"))
+    # The tiles this test resolves stay out of the process's memo.
+    monkeypatch.setattr(autotune, "RESOLVED", {})
+    name = torch.cuda.get_device_name(dev)
+    for kernel, geometry, fields in (
+            ("am_search_packed", "D256_C300", {"block_b": 32}),
+            ("qail_update", "D256_C300", {"block_b": 64}),
+            ("encode_pack", "f100_D256", {"block_b": 128, "tile": 0})):
+        autotune.save_entry({"kernel": kernel, "device": name,
+                             "geometry": geometry, "tuned_batches": [32, 64],
+                             **fields})
+    rng = np.random.default_rng(4)
+    q = bipolar(rng, (40, 256), dev)
+    am = bipolar(rng, (300, 256), dev)
+    qp, amt = ref.pack_rows(q), ref.pack_rows(am).T.contiguous()
+    x = feats(rng, (40, 100), dev, True)
+    proj = bipolar(rng, (100, 256), dev)
+    own = torch.as_tensor(rng.integers(0, 5, 300).astype(np.int32),
+                          device=dev)
+    y = torch.as_tensor(rng.integers(0, 5, 40).astype(np.int32), device=dev)
+    m = torch.ones(40, device=dev)
+    kernels.reset_launches()
+    got = (ops.am_search_packed(qp, amt, n_dims=256),
+           ops.qail_update(q, q, am.T, own, y, m, lr=0.0625),
+           ops.encode_pack(x, proj))
+    assert kernels.config_launches() == {"am_search_packed": {32: 1},
+                                         "qail_update": {64: 1},
+                                         "encode_pack": {0: 1}}
+    want = (ops.am_search_packed(qp, amt, n_dims=256, block_b=8),
+            ops.qail_update(q, q, am.T, own, y, m, lr=0.0625, block_b=16),
+            ops.encode_pack(x, proj, block_b=64))
+    for g, w in zip(got, want):
+        for a, b in zip(g if isinstance(g, tuple) else (g,),
+                        w if isinstance(w, tuple) else (w,)):
+            assert torch.equal(a, b)
+    # Outside the tuned batches, and in unpack mode (not tuned), the
+    # default runs.
+    kernels.reset_launches()
+    ops.am_search_packed(qp[:8], amt, n_dims=256)
+    ops.qail_update(q[:8], q[:8], am.T, own, y[:8], m[:8], lr=0.0625)
+    ops.encode_pack(x[:8], proj)
+    ops.am_search_packed(qp, amt, n_dims=256, mode="unpack")
+    assert kernels.config_launches() == {"am_search_packed": {8: 2},
+                                         "qail_update": {16: 1},
+                                         "encode_pack": {3: 1}}
+    autotune.save_entry({"kernel": "am_search_packed", "device": name,
+                         "geometry": "D256_C300", "block_b": 64,
+                         "tuned_batches": [32, 64]})
+    with pytest.raises(ValueError, match="cache.json"):
+        ops.am_search_packed(qp, amt, n_dims=256)
+
+
+def _small_model(dev):
+    from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
+    from repro_torch.data import load_dataset
+    ds = load_dataset("mnist", train_per_class=40, test_per_class=10,
+                      device=dev)
+    enc = EncoderConfig(kind="projection", features=ds.features, dim=128)
+    amc = MemhdConfig(dim=128, columns=64, classes=ds.classes, epochs=2,
+                      kmeans_iters=5)
+    m, _ = MemhdModel.create(0, enc, amc, device=dev).fit(
+        1, ds.train_x, ds.train_y, use_kernel=True)
+    return m, ds
+
+
+@pytest.mark.parametrize("target,kw", [
+    ("packed", {}), ("packed", {"mode": "unpack"}), ("unpacked", {}),
+    ("imc", {}), ("multibit", {"cell_bits": 4}), ("hierarchical", {})])
+def test_sharded_on_one_card_equals_the_unwrapped_artifact(dev, target, kw):
+    from repro_torch.deploy import ShardedArtifact
+    m, ds = _small_model(dev)
+    dep = m.deploy(target=target, **kw)
+    sh = ShardedArtifact(dep, mesh=(dev, dev))
+    assert sh.n_devices == 2 and sh.device.type == dev.type
+    ofs = 0
+    for rows in (1, 7, 33, 100):
+        x = ds.test_x[ofs:ofs + rows]
+        ofs += rows
+        assert torch.equal(sh.predict(x), dep.predict(x))
+        assert torch.equal(sh.predict_features(x), dep.predict_features(x))
+        if target == "hierarchical":
+            for a, b in zip(sh.predict_topk(x, 5), dep.predict_topk(x, 5)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_qail_batch_delta_kernel_route_equals_the_plain_one(dev, masked):
+    """The ±1 payload at lr = 2^-4, at most 256 terms a cell: every sum
+    is exact in bfloat16, so the kernel route (one qail_update launch, its
+    float32 delta rounded once) equals the plain row-order bfloat16
+    version on the CPU bit for bit."""
+    from repro_torch.core import qail, types
+    rng = np.random.default_rng([9, masked])
+    b, d, c = 256, 200, 96
+    fp = rng.normal(size=(c, d)).astype(np.float32)
+    state = {"fp": fp, "binary": np.where(fp >= 0, 1.0, -1.0)
+             .astype(np.float32),
+             "centroid_class": rng.integers(0, 6, c).astype(np.int32)}
+    q = rng.choice([-1.0, 1.0], (b, d)).astype(np.float32)
+    y = rng.integers(0, 6, b).astype(np.int32)
+    mask = (rng.random(b) < 0.7).astype(np.float32) if masked else None
+    cfg = types.MemhdConfig(dim=d, columns=c, classes=6, lr=0.0625,
+                            update_with="binary")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        st = {k: torch.as_tensor(v, device=where) for k, v in state.items()}
+        t = (lambda a: None if a is None
+             else torch.as_tensor(a, device=where))
+        kernels.reset_launches()
+        out[where.type] = qail.qail_batch_delta(st, cfg, t(q), t(q), t(y),
+                                                mask=t(mask))
+        if where.type == "cuda":
+            assert kernels.launches()["qail_update"] == 1
+            assert qail_update.route_counts() == {"int8": 1, "fp32": 0}
+    (kd, km), (pd, pm) = out["cuda"], out["cpu"]
+    assert kd.dtype == torch.bfloat16
+    assert torch.equal(kd.cpu(), pd) and float(km) == float(pm) > 0
+
+
+@pytest.mark.parametrize("target,kw", [
+    ("packed", {}), ("packed", {"mode": "unpack"}), ("unpacked", {}),
+    ("imc", {}), ("multibit", {"cell_bits": 4}), ("hierarchical", {})])
+def test_sharded_across_the_card_and_the_cpu(dev, target, kw):
+    """A mesh of two distinct devices, (card, cpu): the artifact is copied
+    to the CPU once (one replica), each shard runs on its own device (the
+    card's kernels, the CPU's plain versions), the outputs gather on the
+    card and equal the unwrapped artifact's. Dyadic features keep the
+    fp32 encode exact on both devices."""
+    from repro_torch.deploy import ShardedArtifact
+    m, ds = _small_model(dev)
+    dep = m.deploy(target=target, **kw)
+    cpu = torch.device("cpu")
+    sh = ShardedArtifact(dep, mesh=(dev, cpu))
+    reps = sh._replicas.of(dep, set(sh.mesh))
+    assert list(reps) == [cpu] and len(sh._replicas) == 1
+    rep = reps[cpu]
+    assert rep.device.type == "cpu" and rep is not dep
+    x_all = torch.round(ds.test_x * 256) / 256
+    ofs = 0
+    for rows in (1, 7, 33, 100):
+        x = x_all[ofs:ofs + rows]
+        ofs += rows
+        kernels.reset_launches()
+        got = sh.predict(x)
+        assert got.device == x.device
+        assert torch.equal(got, dep.predict(x))
+        assert torch.equal(sh.predict_features(x), dep.predict_features(x))
+        if target == "hierarchical":
+            for a, b in zip(sh.predict_topk(x, 5), dep.predict_topk(x, 5)):
+                assert a.device == x.device and torch.equal(a, b)
+    assert sum(kernels.launches().values()) > 0
+    # A swap copies the new artifact to the CPU once and shares the cache.
+    new = sh.refresh(m)
+    assert new._replicas is sh._replicas and len(sh._replicas) == 2
+    assert torch.equal(new.predict(x), dep.predict(x))
+
+
+def test_fit_sharded_across_the_card_and_the_cpu(dev):
+    """fit_sharded over (card, cpu) under exact conditions equals the
+    one-shard fit on the card: the card's shard delta is a qail_update
+    launch, the CPU's the plain row-order bfloat16 version, and the
+    replicas of fp / binary move between the two devices every batch."""
+    from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
+    from repro_torch.data import load_dataset
+    ds = load_dataset("mnist", train_per_class=40, test_per_class=10,
+                      device=dev)
+    x = torch.round(ds.train_x * 16) / 16
+    enc = EncoderConfig(kind="projection", features=ds.features, dim=128)
+    amc = MemhdConfig(dim=128, columns=32, classes=ds.classes, epochs=3,
+                      kmeans_iters=5, batch_size=128, lr=0.0625,
+                      update_with="binary")
+    m = MemhdModel.create(0, enc, amc, device=dev)
+    nb = -(-x.shape[0] // 128)
+    fits = {}
+    for mesh in ((dev,), (dev, torch.device("cpu"))):
+        kernels.reset_launches()
+        fits[len(mesh)] = m.fit_sharded(1, x, ds.train_y, mesh=mesh)
+        assert kernels.launches()["qail_update"] == nb * 3
+        assert qail_update.route_counts()["fp32"] == 0
+    (m1, h1), (m2, h2) = fits[1], fits[2]
+    for key in ("fp", "binary"):
+        assert m2.am_state[key].device == m1.am_state[key].device
+        assert torch.equal(m1.am_state[key], m2.am_state[key])
+    assert h1["curve"] == h2["curve"]
+
+
+def test_fit_sharded_two_shards_on_one_card(dev):
+    from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
+    from repro_torch.data import load_dataset
+    ds = load_dataset("mnist", train_per_class=40, test_per_class=10,
+                      device=dev)
+    x = torch.round(ds.train_x * 16) / 16
+    enc = EncoderConfig(kind="projection", features=ds.features, dim=128)
+    amc = MemhdConfig(dim=128, columns=32, classes=ds.classes, epochs=3,
+                      kmeans_iters=5, batch_size=128, lr=0.0625,
+                      update_with="binary")
+    m = MemhdModel.create(0, enc, amc, device=dev)
+    fits = {}
+    for mesh in ((dev,), (dev, dev)):
+        kernels.reset_launches()
+        fits[len(mesh)] = m.fit_sharded(1, x, ds.train_y, mesh=mesh)
+        nb = -(-x.shape[0] // 128)
+        assert kernels.launches()["qail_update"] == len(mesh) * nb * 3
+        assert qail_update.route_counts()["fp32"] == 0
+    (m1, h1), (m2, h2) = fits[1], fits[2]
+    for key in ("fp", "binary"):
+        assert torch.equal(m1.am_state[key], m2.am_state[key])
+    assert h1["curve"] == h2["curve"]

@@ -276,7 +276,7 @@ def test_decode_softcap_and_quant_cache_raise():
     x = torch.zeros((1, 1, cfg.d_model))
     with pytest.raises(NotImplementedError, match="softcap"):
         L.gqa_decode(p, spec, x, cache)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         L.gqa_decode(p, cfg.blocks[0].attn, x, cache, seq_parallel=True)
     with pytest.raises(NotImplementedError, match="kv_cache_quant"):
         L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu", quant=True)

@@ -229,16 +229,17 @@ def test_empty_stream_reports_nulls(pair):
 
 
 def test_not_ported_targets_raise(pair):
-    # Multi-device serving is not ported; the imc, multibit and
-    # hierarchical targets and top-k serving are (held against the
-    # reference in tests/test_torch_imcsim.py and
-    # tests/test_torch_hierarchical.py).
+    # Sharded serving is a wrapper (deploy.ShardedArtifact, held against
+    # the reference in tests/test_torch_sharded.py), not a deploy target;
+    # the imc, multibit and hierarchical targets and top-k serving are
+    # ported (tests/test_torch_imcsim.py, tests/test_torch_hierarchical.py).
     with pytest.raises(ValueError, match="unknown deploy target"):
         pair["tm"].deploy(target="sharded")
     with pytest.raises(ValueError, match="mode"):
         pair["tm"].deploy(target="packed", mode="xor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--smoke", "--device", "cpu", "--devices", "2"])
+    rep = tserve.main(["--smoke", "--device", "cpu", "--devices", "2",
+                       "--requests", "4"])
+    assert (rep["devices"], rep["backend"]) == (2, "packed")
     rep = tserve.main(["--smoke", "--device", "cpu", "--requests", "4",
                        "--target", "hierarchical", "--topk", "4"])
     assert (rep["backend"], rep["topk"]) == ("hierarchical", 4)
