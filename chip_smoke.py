@@ -108,7 +108,28 @@ script exits non-zero without the final result line:
    plain path teacher-forced on the kernel path's 64 greedy steps gives
    the same logits step by step and the same greedy choices up to the
    first low-margin step, and every decode step == forward); the LM
-   serving CLI at mamba2-130m (``lm_cli``);
+   serving CLI at mamba2-130m (``lm_cli``); ``flash_decode`` also with
+   the decode softcap (``FD_SOFTCAP``, both dtypes, every case);
+   then the phase group ``lm_families``, random weights from seeds:
+   deepseek-v2-lite-16b at full width in float32 cut to 1 dense + 2 MoE
+   layers (``lm_deepseek_f32``: teacher-forced decode over S = 128 ==
+   forward at every position within LM_TOL; one MoE layer == each token
+   through its chosen experts at 512 tokens, dropless, and == the CPU at
+   1024, above the 4096-slot switch, with dropped slots), at full width
+   and depth (``lm_deepseek_serve``: in bfloat16 ``generate`` at B 4,
+   prompt 32, gen 32 timed, decode and forward profiles, ``T.forward`` at
+   B 2 x S 256 timed, peak memory; in float32 that forward's last
+   position == the prefill's last decode step within 2e-2 max|logits|);
+   deepseek-v3-671b at full width cut to 1 dense + 1 MoE layer plus the
+   MTP block (``lm_deepseek_v3``: 8 decode steps == forward at B 2 x S
+   64, peak memory); musicgen-medium and internvl2-2b at full width and
+   depth (``lm_modalities``: float32 decode kernel path == plain path,
+   48 x 16 and 24 x 16 ``flash_decode`` launches on the cuda tier, counts
+   zeroed just before and read just after; musicgen's decode == forward
+   at the last position; bfloat16 ms per step); qwen1.5-32b at full width
+   cut to 8 of 64 layers with the int8 KV cache (``lm_quant``: decode over
+   S = 256 == the bf16-cache decode within 5e-2 max|logits| at every step;
+   the caches' bytes);
 12. the ``kernels`` line: launches on the paths, device time, the plain
    version's time and the bound of each kernel at the paths' shapes
    (``qail_update`` also on random targets, where most rows miss, both on
@@ -125,7 +146,9 @@ script exits non-zero without the final result line:
    ``flash_decode``); the ``flash_decode`` row also carries the served
    shape's time and SDPA's there (B = 4, S = 320: ``ms_serve_shape``,
    ``library_ms_serve_shape``) and the float32 instance's time at the
-   row's shape (``ms_f32``); the ``am_search`` row (``ms`` on the ±1
+   row's shape (``ms_f32``), each also with the decode softcap
+   (``ms_softcap``, ``ms_serve_shape_softcap``, ``ms_f32_softcap``), and
+   the ``lm_families`` launches in ``launches_by_path``; the ``am_search`` row (``ms`` on the ±1
    queries, the int8 route, bound by the bytes) the fp32 route on dyadic
    queries (``ms_fp32_route``, ``bound_ms_fp32_route``) and ``routes``;
    the ``am_search_packed`` (popcount) row the time at each ``block_b``
@@ -314,6 +337,42 @@ FD_ROW = dict(b=8, s=32768, h=25, kv=5, dh=64)
 FD_SERVE = dict(b=4, s=320, h=25, kv=5, dh=64)
 SSD_ROW = dict(b=8, q=256, h=50, n=16, p=64)
 SSD_SERVE_B = 2  # ... and at the forward's batch (lm_forward: B 2)
+# The decode softcap of flash_decode's softcap cases (Gemma 2's value).
+FD_SOFTCAP = 30.0
+# The remaining LM families (phase group ``lm_families``), random weights
+# from seeds. deepseek-v2-lite-16b in float32 cut to the smoke depth (1
+# dense + 2 MoE layers): decode == forward over S at B 2, one MoE layer
+# against a plain per-expert loop at T tokens under the dropless limit
+# (T * k <= 4096) and against the CPU above it.
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_F32_DEPTH = (1, 2)
+DS_F32_S = 128
+DS_MOE_TOKENS = (512, 1024)       # T * 6 = 3072 (dropless), 6144 (cap 120)
+# ... then at full depth: generate and T.forward timed in bfloat16, and in
+# float32 T.forward held against the prefill's last decode step at the
+# reference's own (float32) bound.
+DS_SERVE = (4, 32, 32)            # B, prompt, gen
+DS_FORWARD = (2, 256)             # B, S: 3072 routed slots, dropless
+SERVE_TOL = 2e-2                  # tests/test_models.py:139
+# deepseek-v3-671b at full width cut to 1 dense + 1 MoE layer (+ the MTP
+# block's params): decode steps == forward at B 2.
+V3_ARCH = "deepseek-v3-671b"
+V3_DEPTH = (1, 1)
+V3_STEPS = 8
+V3_FORWARD = (2, 64)
+# musicgen-medium and internvl2-2b at full width and depth: decode steps
+# (float32 kernel path == plain path; bfloat16 timed) at B 2; musicgen's
+# 64 conditioning tokens, internvl2's 256 patches ahead of 32 text tokens.
+MODALITY_B = 2
+MODALITY_STEPS = 16
+VLM_TEXT = 32
+# qwen1.5-32b at full width, 8 of 64 layers, with the int8 KV cache:
+# teacher-forced decode against the bf16-cache decode of the same params
+# (tests/test_kv_quant.py:48's bound).
+QUANT_ARCH = "qwen1.5-32b"
+QUANT_LAYERS = 8
+QUANT_DECODE = (2, 256)           # B, S
+QUANT_TOL = 5e-2
 # The Table I baselines at the paper's width (SearcHD's N as published),
 # and the random-init fit's epochs at the main point (cut from 100).
 BASELINE_KINDS = ("basic", "quanthd", "lehdc", "searchd")
@@ -482,6 +541,7 @@ class Smoke:
                         "am_shortlist_served": 0.0,
                         "flash_decode": 0.0, "ssd_chunk": 0.0}
         self.path_launches = {}  # kernel -> launches on its own path
+        self.families_launches = {}  # flash_decode's lm_families launches
         self.batches_seen = {}   # kernel -> {B: CUDA dispatches}
 
     # -- helpers ---------------------------------------------------------------
@@ -2490,17 +2550,18 @@ class Smoke:
                 v = self.t(rng.normal(size=(b, s, kv, dh)).astype("float32"))
                 ln = self.t(np.asarray([s, 0, min(1, s), min(s, s // 2 + 3)],
                                        np.int32))
-                for dtype in (torch.float32, torch.bfloat16):
+                for dtype, cap in itertools.product(
+                        (torch.float32, torch.bfloat16), (None, FD_SOFTCAP)):
                     qd, kd, vd = (a.to(dtype) for a in (q, k, v))
-                    got = fd.flash_decode(qd, kd, vd, ln)
-                    want = ref.flash_decode(qd, kd, vd, ln)
+                    got = fd.flash_decode(qd, kd, vd, ln, softcap=cap)
+                    want = ref.flash_decode(qd, kd, vd, ln, cap)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs()
                     tol = (3e-5 + 3e-5 * want.float().abs()
                            if dtype == torch.float32
                            else bf16_ulp(want) + 3e-5)
                     check(bool((err <= tol).all()),
-                          ("flash_decode", h, kv, dh, s, str(dtype),
+                          ("flash_decode", h, kv, dh, s, str(dtype), cap,
                            err.max().item()))
                     check(not got[1].any(), "cache_len 0 must yield 0")
                     cases += 1
@@ -2532,6 +2593,7 @@ class Smoke:
         self.ssd_equal(sc.ssd_chunk(*sl), ref.ssd_chunk(*sl), "strided rows")
         log({"phase": "lm_kernels_vs_plain", "ok": True, "cases": cases + 2,
              "flash_decode_heads": FD_HEADS, "flash_decode_s": FD_S,
+             "flash_decode_softcaps": [None, FD_SOFTCAP],
              "ssd_geoms": SSD_GEOMS, "ssd_q": SSD_Q,
              "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -2765,6 +2827,448 @@ class Smoke:
         log({"phase": "lm_cli", "args": args,
              "seconds": round(time.perf_counter() - t0, 3), **rep})
 
+    # -- phase group lm_families -------------------------------------------
+    def lm_model(self, arch, depth=None, dtype="bfloat16", seed=10, **kw):
+        """(cfg, params, init seconds): ``arch`` at full width from a
+        seed, each block group cut to ``depth`` layers when given, in
+        ``dtype`` (params drawn in it leaf by leaf)."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, blocks=tuple(
+                dataclasses.replace(b, repeat=n)
+                for b, n in zip(cfg.blocks, depth)))
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  activation_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = T.init_params(generator(seed, self.dev), cfg,
+                               device=self.dev)
+        torch.cuda.synchronize()
+        return cfg, params, time.perf_counter() - t0
+
+    def model_log(self, cfg, full, init_s):
+        torch = self.torch
+        return {"arch": full, "d_model": cfg.d_model,
+                "layers": cfg.n_layers,
+                "full_layers": self.full_cfg(full).n_layers,
+                "param_count": cfg.param_count(), "dtype": cfg.param_dtype,
+                "init_seconds": round(init_s, 3),
+                "device_bytes": torch.cuda.memory_allocated()}
+
+    def free(self):
+        import gc
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def tf_decode(self, cfg, params, steps, use_kernel=True, max_len=None):
+        """decode_step over ``steps`` (a list of batches) from fresh caches:
+        the (B, steps, ...) logits."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        b = next(iter(steps[0].values())).shape[0]
+        caches = T.init_cache(cfg, b, max_len or len(steps), device=self.dev)
+        out = []
+        for sb in steps:
+            lg, caches = T.decode_step(params, cfg, sb, caches,
+                                       use_kernel=use_kernel)
+            out.append(lg)
+        return torch.stack(out, 1)
+
+    def token_steps(self, cfg, b, s, seed):
+        torch = self.torch
+        from repro_torch import generator
+        toks = torch.randint(0, cfg.vocab_size, (b, s), device=self.dev,
+                             generator=generator(seed, self.dev),
+                             dtype=torch.int32)
+        return toks, [{"tokens": toks[:, i:i + 1]} for i in range(s)]
+
+    def moe_inputs(self, shape, seed):
+        """MoE layer inputs on a 2^-4 grid in [-2, 2]: normal draws plus a
+        normal vector shared by every token, which gives each expert a
+        router-logit offset of its own, so the load is skewed and the
+        busiest experts overflow the capacity-factor bound."""
+        np = self.np
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=shape) + rng.normal(size=shape[-1:])
+        return self.t(np.clip(np.round(x * 16) / 16, -2, 2)
+                      .astype("float32"))
+
+    def lm_deepseek_f32(self):
+        """deepseek-v2-lite-16b at full width in float32, cut to 1 dense +
+        2 MoE layers: teacher-forced decode_step (the absorbed MLA over the
+        latent cache) == forward (the materialized MLA) at every position
+        within LM_TOL; one MoE layer == each token through its chosen
+        experts, expert by expert, at T tokens under the dropless limit;
+        above it (capacity-dropping) == the same routine on the CPU."""
+        torch = self.torch
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        t0 = time.perf_counter()
+        cfg, params, init_s = self.lm_model(DS_ARCH, DS_F32_DEPTH,
+                                            "float32", seed=10)
+        b, s = 2, DS_F32_S
+        toks, steps = self.token_steps(cfg, b, s, 11)
+        with torch.inference_mode():
+            fwd, aux = T.forward(params, cfg, {"tokens": toks})
+            dec = self.tf_decode(cfg, params, steps)
+            err = (dec - fwd).abs().amax(dim=(0, 2))
+            scale = fwd.abs().max().item()
+            check(err.max().item() <= LM_TOL * scale,
+                  ("deepseek f32 decode != forward", err.max().item(),
+                   scale))
+            check(aux["expert_counts_g1"].sum().item()
+                  == 2 * b * s * cfg.blocks[1].ffn.top_k, aux.keys())
+            spec = cfg.blocks[1].ffn
+            lp = T._layer(params["groups"][1], 0)["ffn"]
+            moe = {}
+            for tokens in DS_MOE_TOKENS:
+                x = self.moe_inputs((1, tokens, cfg.d_model), [12, tokens])
+                y, maux = L.moe_ffn(lp, spec, x)
+                cap = L.moe_capacity(tokens, spec)
+                counts = maux["expert_counts"]
+                dropped = int(torch.clamp_min(counts - cap, 0).sum())
+                if tokens * spec.top_k <= 4096:
+                    want = self.moe_per_token(lp, spec, x)
+                    where = "per-expert loop"
+                    check(dropped == 0, ("dropless", dropped))
+                else:
+                    cpu = {k: v.cpu() for k, v in lp.items()}
+                    want, caux = L.moe_ffn(cpu, spec, x.cpu())
+                    want = want.to(self.dev)
+                    where = "cpu"
+                    check(torch.equal(caux["expert_counts"],
+                                      counts.cpu()), "expert counts")
+                    check(dropped > 0, ("capacity regime drops", dropped))
+                e_moe = (y - want).abs().max().item()
+                s_moe = want.abs().max().item()
+                check(e_moe <= LM_TOL * s_moe,
+                      ("moe", tokens, where, e_moe, s_moe))
+                moe[tokens] = {"against": where, "capacity": cap,
+                               "dropped_slots": dropped,
+                               "max_abs": e_moe, "scale": s_moe}
+        log({"phase": "lm_deepseek_f32",
+             **self.model_log(cfg, DS_ARCH, init_s),
+             "depth_cut": {"dense": DS_F32_DEPTH[0], "moe": DS_F32_DEPTH[1],
+                           "from": [b.repeat for b in
+                                    self.full_cfg(DS_ARCH).blocks]},
+             "B": b, "S": s, "decode_vs_forward_max_abs": err.max().item(),
+             "forward_logit_scale": scale, "tolerance": LM_TOL * scale,
+             "moe_layer": moe,
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del params, fwd, dec, lp
+        self.free()
+
+    @staticmethod
+    def full_cfg(arch):
+        from repro_torch.configs import get_config
+        return get_config(arch)
+
+    def moe_per_token(self, lp, spec, x):
+        """The MoE layer written plainly: each token's top-k experts (the
+        router's float32 softmax, ties to the lower expert), their
+        normalized weights, each expert run on the tokens that chose it,
+        the shared experts added; no sort, no capacity."""
+        torch = self.torch
+        import torch.nn.functional as F
+        d = x.shape[-1]
+        xt = x.reshape(-1, d)
+        scores = torch.softmax(xt.float() @ lp["router"], dim=-1)
+        vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+        w = vals[:, :spec.top_k]
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        top = idx[:, :spec.top_k]
+        contrib = torch.zeros((xt.shape[0], spec.top_k, d), device=x.device,
+                              dtype=x.dtype)
+        for e in range(spec.n_experts):
+            tok, slot = (top == e).nonzero(as_tuple=True)
+            if tok.numel():
+                h = (F.silu(xt[tok] @ lp["w_gate"][e])
+                     * (xt[tok] @ lp["w_up"][e]))
+                contrib[tok, slot] = (h @ lp["w_down"][e]) * w[tok, slot,
+                                                                None]
+        y = contrib.sum(1)
+        if spec.n_shared:
+            y = y + (F.silu(xt @ lp["ws_gate"]) * (xt @ lp["ws_up"])
+                     ) @ lp["ws_down"]
+        return y.reshape(x.shape)
+
+    def lm_deepseek_serve(self):
+        """deepseek-v2-lite-16b at full width and depth. In bfloat16 (params
+        drawn in bf16 leaf by leaf): generate at B 4, prompt 32, gen 32
+        (timed after a warm-up), decode and forward under the profiler,
+        T.forward at B 2 x S 256 (dropless) timed. Then in float32 (62.8
+        GB; the bf16 params freed first): T.forward at B 2 x S 256, whose
+        last position == the prefill's last decode step within SERVE_TOL *
+        max|logits|, the reference's float32 bound. In bfloat16 the two
+        part at this depth for the reference too: the expert weights' std
+        1/sqrt(E) makes routed outputs dominate the residual, and bf16
+        rounding flips expert choices that compound over 26 MoE layers
+        (the reference's own bf16 decode vs forward at the smoke width:
+        0.020, 0.059, 0.61 of max|logit| at 2, 8, 26 MoE layers)."""
+        torch = self.torch
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as T
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = self.lm_model(DS_ARCH, seed=13)
+        init_bytes = torch.cuda.memory_allocated()
+        b, plen, gen = DS_SERVE
+        prompts, _ = self.token_steps(cfg, b, plen, 14)
+        serve.generate(cfg, params, prompts[:, :4], 2)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = serve.generate(cfg, params, prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        steps = plen + gen - 1
+        check(out.shape == (b, plen + gen)
+              and bool((out[:, plen:] < cfg.vocab_size).all()), "tokens")
+        fb, fs = DS_FORWARD
+        toks, fsteps = self.token_steps(cfg, fb, fs, 15)
+        with torch.inference_mode():
+            self.profile("lm_deepseek_decode_profile", lambda: self.tf_decode(
+                cfg, params, [{"tokens": out[:, i:i + 1]}
+                              for i in range(4)]), B=b, steps=4)
+            fwd, _ = T.forward(params, cfg, {"tokens": toks})  # warm-up
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fwd, aux = T.forward(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t2
+            check(bool(torch.isfinite(fwd).all()), "finite bf16 logits")
+            self.profile("lm_deepseek_forward_profile",
+                         lambda: T.forward(params, cfg, {"tokens": toks}),
+                         B=fb, S=fs)
+        peak16 = torch.cuda.max_memory_allocated()
+        del params, fwd, aux
+        self.free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg32, p32, init32_s = self.lm_model(DS_ARCH, dtype="float32",
+                                             seed=13)
+        with torch.inference_mode():
+            fwd, _ = T.forward(p32, cfg32, {"tokens": toks})
+            dec = self.tf_decode(cfg32, p32, fsteps)
+            last = fwd[:, -1]
+            err = (dec[:, -1] - last).abs().max().item()
+            scale = last.abs().max().item()
+            check(err < SERVE_TOL * scale,
+                  ("deepseek f32 decode != forward", err, scale))
+        log({"phase": "lm_deepseek_serve",
+             **self.model_log(cfg, DS_ARCH, init_s),
+             "param_bytes": init_bytes, "B": b, "prompt": plen, "gen": gen,
+             "wall_s_bf16": round(wall, 4),
+             "tok_per_s_bf16": round(b * (plen + gen) / wall, 1),
+             "ms_per_decode_step_bf16": round(wall * 1e3 / steps, 3),
+             "forward_bf16": {"B": fb, "S": fs, "seconds": round(fwd_s, 4),
+                              "tok_per_s": round(fb * fs / fwd_s, 1),
+                              "routed_slots":
+                                  fb * fs * cfg.blocks[1].ffn.top_k},
+             "peak_bytes_bf16": peak16,
+             "f32": {"init_seconds": round(init32_s, 3),
+                     "param_bytes": sum(v.numel() * v.element_size()
+                                        for v in self.leaves(p32)),
+                     "decode_vs_forward_last_max_abs": err,
+                     "forward_logit_scale": scale,
+                     "tolerance": SERVE_TOL * scale,
+                     "peak_bytes": torch.cuda.max_memory_allocated()},
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del p32, fwd, dec
+        self.free()
+
+    def lm_deepseek_v3(self):
+        """deepseek-v3-671b at full width (q-LoRA MLA, 128 heads, 256
+        experts, sigmoid router with bias), cut to 1 dense + 1 MoE layer
+        plus the MTP block's params, bfloat16: V3_STEPS decode steps ==
+        T.forward at B 2 x S 64 at those positions within SERVE_TOL."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = self.lm_model(V3_ARCH, V3_DEPTH, seed=16)
+        init_peak = torch.cuda.max_memory_allocated()
+        fb, fs = V3_FORWARD
+        toks, steps = self.token_steps(cfg, fb, fs, 17)
+        with torch.inference_mode():
+            t1 = time.perf_counter()
+            dec = self.tf_decode(cfg, params, steps[:V3_STEPS])
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            fwd, aux = T.forward(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t2
+            ref = fwd[:, :V3_STEPS].float()
+            err = (dec.float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            check(bool(torch.isfinite(fwd).all()), "finite logits")
+            check(err < SERVE_TOL * scale,
+                  ("deepseek-v3 decode != forward", err, scale))
+            check("expert_counts_g1" in aux and "lb_loss" not in aux,
+                  sorted(aux))
+        log({"phase": "lm_deepseek_v3",
+             **self.model_log(cfg, V3_ARCH, init_s),
+             "depth_cut": {"dense": V3_DEPTH[0], "moe": V3_DEPTH[1],
+                           "mtp_block": True,
+                           "from": [b.repeat for b in
+                                    self.full_cfg(V3_ARCH).blocks]},
+             "param_bytes": sum(v.numel() * v.element_size()
+                                for v in self.leaves(params)),
+             "init_peak_bytes": init_peak,
+             "decode_steps": V3_STEPS, "ms_per_decode_step":
+                 round(dec_s * 1e3 / V3_STEPS, 3),
+             "forward": {"B": fb, "S": fs, "seconds": round(fwd_s, 4)},
+             "decode_vs_forward_max_abs": err, "forward_logit_scale": scale,
+             "tolerance": SERVE_TOL * scale,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del params, fwd, dec, aux
+        self.free()
+
+    def leaves(self, tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from self.leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from self.leaves(v)
+        else:
+            yield tree
+
+    def lm_modalities(self):
+        """musicgen-medium (frame embeds, 64 conditioning tokens, 4
+        codebooks) and internvl2-2b (256 patches ahead of the text) at full
+        width and depth: float32 decode steps on the kernel path (counts
+        zeroed just before and read just after: layers x steps
+        flash_decode launches, all on the cuda tier) == the plain path
+        within LM_TOL; musicgen's last decode step == forward's last
+        position (LM_TOL); internvl2's forward over patches + text; then
+        bfloat16 decode steps timed."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.models import transformer as T
+        for arch in ("musicgen-medium", "internvl2-2b"):
+            t0 = time.perf_counter()
+            cfg, p32, init_s = self.lm_model(arch, dtype="float32", seed=18)
+            b, n = MODALITY_B, MODALITY_STEPS
+            gen = generator(19, self.dev)
+            if cfg.frontend == "audio_frames":
+                frames = torch.randn((b, n, cfg.d_model), generator=gen,
+                                     device=self.dev)
+                cond = torch.randn((b, cfg.n_cond_tokens, cfg.d_model),
+                                   generator=gen, device=self.dev)
+                batch = {"frame_embeds": frames, "cond_embeds": cond}
+                steps = [{"frame_embeds": frames[:, i:i + 1],
+                          "cond_embeds": cond} for i in range(n)]
+            else:
+                toks, steps = self.token_steps(cfg, b, VLM_TEXT, 20)
+                steps = steps[:n]
+                batch = {"tokens": toks, "patch_feats": torch.randn(
+                    (b, cfg.n_patches, T.VIT_DIM), generator=gen,
+                    device=self.dev)}
+            with torch.inference_mode():
+                dk, launches, tiers = self.path_counts(
+                    lambda: self.tf_decode(cfg, p32, steps))
+                want = cfg.n_layers * n
+                check(launches["flash_decode"] == want,
+                      (arch, "flash_decode launches",
+                       launches["flash_decode"], want))
+                check(tiers == {"flash_decode": {"cuda": want}}, tiers)
+                dp = self.tf_decode(cfg, p32, steps, use_kernel=False)
+                err = (dk - dp).abs().max().item()
+                scale = dp.abs().max().item()
+                check(err <= LM_TOL * scale, (arch, "f32 decode kernel vs "
+                                              "plain", err, scale))
+                fwd, _ = T.forward(p32, cfg, batch)
+                check(bool(torch.isfinite(fwd).all()), (arch, "forward"))
+                extra = {"forward_shape": list(fwd.shape)}
+                if cfg.frontend == "audio_frames":
+                    fe = (dk[:, -1] - fwd[:, -1]).abs().max().item()
+                    fsc = fwd[:, -1].abs().max().item()
+                    check(fe <= LM_TOL * fsc,
+                          (arch, "decode != forward", fe, fsc))
+                    extra.update(decode_vs_forward_last_max_abs=fe,
+                                 forward_last_scale=fsc)
+                p16 = map_tree(lambda v: v.to(torch.bfloat16), p32)
+                del p32
+                self.free()
+                c16 = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                          activation_dtype="bfloat16")
+                s16 = [{k: v.to(torch.bfloat16) if v.is_floating_point()
+                        else v for k, v in sb.items()} for sb in steps]
+                self.tf_decode(c16, p16, s16[:2])  # warm-up
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, l16, _ = self.path_counts(
+                    lambda: self.tf_decode(c16, p16, s16))
+                ms16 = (time.perf_counter() - t1) * 1e3 / n
+            self.families_launches[arch] = (launches["flash_decode"]
+                                            + l16["flash_decode"])
+            log({"phase": "lm_modalities", **self.model_log(cfg, arch,
+                                                            init_s),
+                 "B": b, "decode_steps": n,
+                 "launches": {"flash_decode": launches["flash_decode"]},
+                 "dispatch_tiers": tiers,
+                 "f32_kernel_vs_plain_max_abs": err, "f32_scale": scale,
+                 "tolerance": LM_TOL * scale,
+                 "ms_per_decode_step_bf16": round(ms16, 3),
+                 "launches_bf16": {"flash_decode": l16["flash_decode"]},
+                 **extra, "seconds": round(time.perf_counter() - t0, 3)})
+            del p16, dk, dp, fwd
+            self.free()
+
+    def lm_quant(self):
+        """qwen1.5-32b at full width cut to QUANT_LAYERS layers, bfloat16,
+        with the int8 KV cache: teacher-forced decode over S == the
+        bf16-cache decode of the same params within QUANT_TOL *
+        max|logits| at every step; the caches' bytes."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        t0 = time.perf_counter()
+        cfg, params, init_s = self.lm_model(QUANT_ARCH, (QUANT_LAYERS,),
+                                            seed=21)
+        cfgq = dataclasses.replace(cfg, kv_cache_quant=True)
+        b, s = QUANT_DECODE
+        _, steps = self.token_steps(cfg, b, s, 22)
+        with torch.inference_mode():
+            t1 = time.perf_counter()
+            dq = self.tf_decode(cfgq, params, steps)
+            torch.cuda.synchronize()
+            q_s = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            df = self.tf_decode(cfg, params, steps)
+            torch.cuda.synchronize()
+            f_s = time.perf_counter() - t2
+            err = (dq.float() - df.float()).abs().amax(dim=(0, 2))
+            scale = df.float().abs().amax(dim=(0, 2))
+            bad = (err > QUANT_TOL * scale).nonzero().flatten().tolist()
+            check(not bad, ("int8 cache decode vs bf16 cache", bad[:5]))
+
+        def cache_bytes(c):
+            return sum(v.numel() * v.element_size() for g in c
+                       for layer in g for v in layer["attn"].values())
+        qb = cache_bytes(T.init_cache(cfgq, b, s, device=self.dev))
+        fb = cache_bytes(T.init_cache(cfg, b, s, device=self.dev))
+        log({"phase": "lm_quant", **self.model_log(cfg, QUANT_ARCH, init_s),
+             "depth_cut": {"layers": QUANT_LAYERS,
+                           "from": self.full_cfg(QUANT_ARCH).n_layers},
+             "B": b, "S": s,
+             "max_rel_err": (err / scale).max().item(),
+             "tolerance_rel": QUANT_TOL,
+             "ms_per_decode_step_int8_cache": round(q_s * 1e3 / s, 3),
+             "ms_per_decode_step_bf16_cache": round(f_s * 1e3 / s, 3),
+             "cache_bytes_int8": qb, "cache_bytes_bf16": fb,
+             "cache_ratio": round(fb / qb, 4),
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del params, dq, df
+        self.free()
+
     def lm_kernel_cases(self):
         """The kernels line's rows of the LM kernels: (cases, library)."""
         np, torch = self.np, self.torch
@@ -2803,18 +3307,28 @@ class Smoke:
         # SDPA there) and the float32 (SIMT) instance at the row's shape.
         serve = fd_operands(FD_SERVE, bf)
         f32 = fd_operands(fr, torch.float32)
+        # And the softcap instances beside them (the row's ms stays the
+        # uncapped kernel).
         self.fd_extra = {
             "ms_serve_shape": lambda: fd.flash_decode(*serve),
             "library_ms_serve_shape": sdpa_of(*serve[:3]),
-            "ms_f32": lambda: fd.flash_decode(*f32)}
-        for name, (q, k, v, ln) in (("serve_shape", serve), ("f32", f32)):
-            err = (fd.flash_decode(q, k, v, ln).float()
-                   - ref.flash_decode(q, k, v, ln).float()).abs()
-            want = ref.flash_decode(q, k, v, ln).float()
+            "ms_f32": lambda: fd.flash_decode(*f32),
+            "ms_softcap": lambda: fd.flash_decode(
+                fq, fk, fv, flen, softcap=FD_SOFTCAP),
+            "ms_serve_shape_softcap": lambda: fd.flash_decode(
+                *serve, softcap=FD_SOFTCAP),
+            "ms_f32_softcap": lambda: fd.flash_decode(
+                *f32, softcap=FD_SOFTCAP)}
+        for (name, (q, k, v, ln)), cap in itertools.product(
+                (("serve_shape", serve), ("f32", f32),
+                 ("row_shape", (fq, fk, fv, flen))), (None, FD_SOFTCAP)):
+            err = (fd.flash_decode(q, k, v, ln, softcap=cap).float()
+                   - ref.flash_decode(q, k, v, ln, cap).float()).abs()
+            want = ref.flash_decode(q, k, v, ln, cap).float()
             tol = (3e-5 + 3e-5 * want.abs() if q.dtype == torch.float32
                    else bf16_ulp(want) + 3e-5)
             check(bool((err <= tol).all()),
-                  ("flash_decode", name, err.max().item()))
+                  ("flash_decode", name, cap, err.max().item()))
         self.max_err["flash_decode"] = (
             fd.flash_decode(fq, fk, fv, flen).float()
             - ref.flash_decode(fq, fk, fv, flen).float()).abs().max().item()
@@ -3304,6 +3818,10 @@ class Smoke:
         row = out[[r["name"] for r in out].index("flash_decode")]
         row.update({k: time_device_ms(fn) for k, fn in self.fd_extra.items()})
         row["shape_serve"] = FD_SERVE
+        row["softcap"] = FD_SOFTCAP
+        if self.families_launches:
+            row.setdefault("launches_by_path", {})["lm_families"] = (
+                self.families_launches)
         rows = {r["name"]: r for r in out}
         # Launches on this slice's paths, beside each row's own path.
         for name, path, counts in (
@@ -3420,13 +3938,15 @@ def main():
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
                          "hier,baselines,online,autotune,sharded,"
-                         "fit_sharded,lm,robustness,cli,trainer,repro "
+                         "fit_sharded,lm,lm_families,robustness,cli,"
+                         "trainer,repro "
                          "(development runs; train, fidelity, hier, "
                          "baselines, online and fit_sharded need main, "
                          "autotune needs main and train, sharded main, "
                          "fidelity and hier; the kernels line needs "
                          "kernels, main, train, fidelity, hier, baselines, "
-                         "online, autotune, sharded, fit_sharded and lm)")
+                         "online, autotune, sharded, fit_sharded, lm "
+                         "and lm_families)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -3444,7 +3964,7 @@ def main():
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
                "baselines", "online", "autotune", "sharded", "fit_sharded",
-               "lm", "robustness", "cli", "trainer", "repro"]
+               "lm", "lm_families", "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -3490,6 +4010,17 @@ def main():
         smoke.lm_cli()
         log({"phase": "lm_group",
              "seconds": round(time.perf_counter() - t_lm, 3)})
+    if "lm_families" in phases:
+        t_lm = time.perf_counter()
+        log({"phase": "lm_families_start",
+             "device_bytes": torch.cuda.memory_allocated()})
+        smoke.lm_deepseek_f32()
+        smoke.lm_deepseek_serve()
+        smoke.lm_deepseek_v3()
+        smoke.lm_modalities()
+        smoke.lm_quant()
+        log({"phase": "lm_families_group",
+             "seconds": round(time.perf_counter() - t_lm, 3)})
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
@@ -3500,7 +4031,8 @@ def main():
         smoke.reproducibility()
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
                                  "hier", "baselines", "online", "autotune",
-                                 "sharded", "fit_sharded", "lm")):
+                                 "sharded", "fit_sharded", "lm",
+                                 "lm_families")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -137,9 +137,12 @@ def lm_params_from_numpy(params, cfg, *, device=None) -> dict:
 
     The tree keeps its structure: dicts stay dicts, the ``groups`` list
     stays a list of dicts whose leaves are stacked along the group's
-    ``repeat`` axis. Dtypes are kept: a bfloat16 leaf (numpy's
-    ``ml_dtypes.bfloat16``) becomes a ``torch.bfloat16`` tensor bit for
-    bit. ``cfg`` is the port's ``ModelConfig`` (``repro_torch.configs``).
+    ``repeat`` axis (MLA, MoE with its router and ``router_bias``,
+    ``xattn``), beside ``codebook_heads``, ``patch_proj`` and the ``mtp``
+    block where the config has them. Dtypes are kept: a bfloat16 leaf
+    (numpy's ``ml_dtypes.bfloat16``) becomes a ``torch.bfloat16`` tensor
+    bit for bit, and the float32 routers stay float32. ``cfg`` is the
+    port's ``ModelConfig`` (``repro_torch.configs``).
     """
     from repro_torch.models import transformer as T
     device = resolve_device(device)
@@ -147,6 +150,10 @@ def lm_params_from_numpy(params, cfg, *, device=None) -> dict:
     if len(params["groups"]) != len(cfg.blocks):
         raise ValueError(f"{len(params['groups'])} param groups for "
                          f"{len(cfg.blocks)} block groups")
+    if bool(cfg.mtp_depth) != ("mtp" in params):
+        raise ValueError(f"mtp_depth {cfg.mtp_depth} but the params "
+                         f"{'have' if 'mtp' in params else 'lack'} an "
+                         f"mtp block")
     out = _lm_tree(params, device)
     for b, g in zip(cfg.blocks, out["groups"]):
         if g["ln1"].shape[0] != b.repeat:

@@ -10,6 +10,12 @@
 //   part_acc  (B, KV, n_splits, G, Dh)  float32 scratch: acc per split
 //   out       (B, H, Dh)        q's dtype: acc / max(l, 1e-20); a row
 //                               with lens 0 yields 0
+//   softcap   float             > 0: the scaled scores s become
+//                               softcap * tanh(s / softcap) before the
+//                               running max; 0: no cap. A template flag
+//                               (CAP) of both pass-1 kernels, so the
+//                               uncapped instances are the kernels
+//                               without the cap, on the same launch plan.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_decode.py: flash_decode
 // (a (B, H, S/128) Pallas grid, S innermost, carrying the online-softmax
@@ -89,13 +95,13 @@ size_t simt_smem_bytes(int G, int Dh) {
 // Shared memory (floats): q_s [G][Dh], acc_s [G][Dh], k_s [TILE][Dh + 1]
 // (padded rows: conflict-free dots), v_s [TILE][Dh], p_s [G][TILE], and
 // m_s, l_s, c_s [G] (running max, running sum, this tile's correction).
-template <bool VEC>
+template <bool VEC, bool CAP>
 __global__ void __launch_bounds__(SIMT_TPB)
 flash_decode_simt(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ lens,
                   float* __restrict__ part_ml, float* __restrict__ part_acc,
-                  int S, int H, int KV, int Dh, int n_splits,
-                  int split_len) {
+                  int S, int H, int KV, int Dh, int n_splits, int split_len,
+                  float cap) {
   constexpr int TILE = SIMT_TILE, TPB = SIMT_TPB;
   asm volatile("griddepcontrol.launch_dependents;\n" ::);  // pass 2 may launch
   extern __shared__ float smem[];
@@ -165,6 +171,7 @@ flash_decode_simt(const float* __restrict__ q, const float* __restrict__ k,
         float dot = 0.f;
         for (int d = 0; d < Dh; ++d) dot = fmaf(kr[d], qr[d], dot);
         s = dot * scale;
+        if (CAP) s = cap * tanhf(s / cap);
       }
       p_s[i] = s;
     }
@@ -295,14 +302,14 @@ constexpr int mma_min_blocks() {
   return DHP <= 64 ? 4 : DHP <= 128 ? 2 : 1;
 }
 
-template <int DHP, bool ASYNC>
+template <int DHP, bool ASYNC, bool CAP>
 __global__ void __launch_bounds__(MMA_TPB, mma_min_blocks<DHP>())
 flash_decode_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ lens, float* __restrict__ part_ml,
                  float* __restrict__ part_acc, int S, int H, int KV, int Dh,
-                 int n_splits, int split_len) {
+                 int n_splits, int split_len, float cap) {
   constexpr int TSZ = KT * DHP;     // bf16 per K or V tile
   constexpr int KSTEPS = DHP / 16;  // k-steps of QK^T over the head dim
   constexpr int DTILES = DHP / 8;   // n-tiles of P @ V over the head dim
@@ -422,7 +429,9 @@ flash_decode_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kbase + 8 * n + 2 * tig + (e & 1);
-        s[n][e] = key < nk ? s[n][e] * scale : -INFINITY;
+        float x = s[n][e] * scale;
+        if (CAP) x = cap * tanhf(x / cap);
+        s[n][e] = key < nk ? x : -INFINITY;
         mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
       }
     float corr[2], m_safe[2], ps[2] = {0.f, 0.f};
@@ -559,12 +568,12 @@ flash_decode_merge(const float* __restrict__ part_ml,
   }
 }
 
-template <int DHP, bool ASYNC>
+template <int DHP, bool ASYNC, bool CAP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* lens, void* part_ml, void* part_acc,
                        int B, int S, int H, int KV, int Dh, int n_splits,
-                       int split_len, cudaStream_t st) {
-  auto kern = flash_decode_mma<DHP, ASYNC>;
+                       int split_len, float cap, cudaStream_t st) {
+  auto kern = flash_decode_mma<DHP, ASYNC, CAP>;
   const size_t smem = mma_smem_bytes(Dh);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -577,16 +586,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const int*>(lens),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc), S, H, KV,
-      Dh, n_splits, split_len);
+      Dh, n_splits, split_len, cap);
   return cudaGetLastError();
 }
 
-template <bool VEC>
+template <bool VEC, bool CAP>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         const void* lens, void* part_ml, void* part_acc,
                         int B, int S, int H, int KV, int Dh, int n_splits,
-                        int split_len, cudaStream_t st) {
-  auto kern = flash_decode_simt<VEC>;
+                        int split_len, float cap, cudaStream_t st) {
+  auto kern = flash_decode_simt<VEC, CAP>;
   const size_t smem = simt_smem_bytes(H / KV, Dh);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -597,27 +606,62 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(lens),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc), S, H, KV,
-      Dh, n_splits, split_len);
+      Dh, n_splits, split_len, cap);
   return cudaGetLastError();
 }
+
+#define FD_ARGS                                                             \
+  q, k, v, lens, part_ml, part_acc, B, S, H, KV, Dh, n_splits, split_len, \
+      cap, st
+
+// Pass 1 of one dtype and load width: the instance with the cap or
+// without it.
+template <bool CAP>
+cudaError_t launch_pass1(const void* q, const void* k, const void* v,
+                         const void* lens, void* part_ml, void* part_acc,
+                         int B, int S, int H, int KV, int Dh, int n_splits,
+                         int split_len, float cap, int dtype, bool vec,
+                         cudaStream_t st) {
+  if (dtype == 0)
+    return vec ? launch_simt<true, CAP>(FD_ARGS)
+               : launch_simt<false, CAP>(FD_ARGS);
+  switch (mma_dhp(Dh)) {
+    case 32:
+      return vec ? launch_mma<32, true, CAP>(FD_ARGS)
+                 : launch_mma<32, false, CAP>(FD_ARGS);
+    case 64:
+      return vec ? launch_mma<64, true, CAP>(FD_ARGS)
+                 : launch_mma<64, false, CAP>(FD_ARGS);
+    case 128:
+      return vec ? launch_mma<128, true, CAP>(FD_ARGS)
+                 : launch_mma<128, false, CAP>(FD_ARGS);
+    default:
+      return vec ? launch_mma<256, true, CAP>(FD_ARGS)
+                 : launch_mma<256, false, CAP>(FD_ARGS);
+  }
+}
+
+#undef FD_ARGS
 
 }  // namespace
 
 // Splits of split_len keys (a multiple of the dtype's tile: 32 keys for
-// float32, 64 for bfloat16), n_splits * split_len >= S. Returns the
-// cudaError_t of the launches (0 on success).
+// float32, 64 for bfloat16), n_splits * split_len >= S; softcap 0 (no
+// cap) or positive. Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lens,
                                    void* part_ml, void* part_acc, void* out,
                                    int B, int S, int H, int KV, int Dh,
                                    int n_splits, int split_len, int dtype,
-                                   void* stream) {
+                                   float softcap, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   const int tile = dtype == 0 ? SIMT_TILE : KT;
   if (KV <= 0 || H % KV || Dh <= 0 || Dh > 256 || S <= 0 || n_splits <= 0 ||
       split_len <= 0 || split_len % tile ||
       (long long)n_splits * split_len < S || B > 65535 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) ||
+      !(softcap >= 0.f && softcap < INFINITY))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const long long grid_y =
@@ -630,32 +674,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   // 16-byte copies need 16-byte rows and 16-byte aligned bases.
   const bool vec = (Dh * esize) % 16 == 0 &&
                    ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  cudaError_t e;
-#define FD_ARGS \
-  q, k, v, lens, part_ml, part_acc, B, S, H, KV, Dh, n_splits, split_len, st
-  if (dtype == 0) {
-    e = vec ? launch_simt<true>(FD_ARGS) : launch_simt<false>(FD_ARGS);
-  } else {
-    switch (mma_dhp(Dh)) {
-      case 32:
-        e = vec ? launch_mma<32, true>(FD_ARGS)
-                : launch_mma<32, false>(FD_ARGS);
-        break;
-      case 64:
-        e = vec ? launch_mma<64, true>(FD_ARGS)
-                : launch_mma<64, false>(FD_ARGS);
-        break;
-      case 128:
-        e = vec ? launch_mma<128, true>(FD_ARGS)
-                : launch_mma<128, false>(FD_ARGS);
-        break;
-      default:
-        e = vec ? launch_mma<256, true>(FD_ARGS)
-                : launch_mma<256, false>(FD_ARGS);
-        break;
-    }
-  }
-#undef FD_ARGS
+  cudaError_t e =
+      softcap > 0.f
+          ? launch_pass1<true>(q, k, v, lens, part_ml, part_acc, B, S, H, KV,
+                               Dh, n_splits, split_len, softcap, dtype, vec,
+                               st)
+          : launch_pass1<false>(q, k, v, lens, part_ml, part_acc, B, S, H,
+                                KV, Dh, n_splits, split_len, 0.f, dtype, vec,
+                                st);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H, B);

@@ -6,7 +6,10 @@ decode step's attention for one query position over a length-masked
 (B, S, KV, Dh) cache, online softmax (m, l, acc) in float32, query head
 h reading KV head h // (H // KV), keys at index >= ``cache_len[b]``
 masked, output ``acc / max(l, 1e-20)`` in q's dtype (a row with
-``cache_len`` 0 yields 0). Each block takes one (batch row, KV head) and
+``cache_len`` 0 yields 0). ``softcap`` caps the scaled scores at
+cap * tanh(s / cap) before the running max (Gemma's logit softcap); the
+kernels take it as a template flag, so ``None`` runs the uncapped
+instances with the same launch plan. Each block takes one (batch row, KV head) and
 one split of S for all the query heads of that KV head, so a K/V tile is
 read once per group; a second pass merges the splits' partials.
 bfloat16 runs on the tensor cores (``mma.sync``, K and V streamed as bf16
@@ -89,14 +92,15 @@ def split_plan(b: int, kv: int, s: int, sms: int, *, dtype: torch.dtype,
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cache_len: torch.Tensor,
-                 ) -> torch.Tensor:
+                 v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                 softcap: float | None = None) -> torch.Tensor:
     """Attention of one query position over the cache.
 
     Args:
       q: (B, H, Dh) float32 or bfloat16.
       k_cache/v_cache: (B, S, KV, Dh), q's dtype; H % KV == 0; any S.
       cache_len: (B,) int32 valid entries per row.
+      softcap: None, or a positive cap on the scaled scores.
 
     Returns: (B, H, Dh) in q's dtype.
     """
@@ -114,8 +118,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if len({q.device, k_cache.device, v_cache.device,
             cache_len.device}) != 1:
         raise ValueError("flash_decode: operands on different devices")
+    if softcap is not None and not 0 < softcap < float("inf"):
+        raise ValueError(f"softcap must be positive, got {softcap}")
     if q.device.type == "cpu":
-        return ref.flash_decode(q, k_cache, v_cache, cache_len)
+        return ref.flash_decode(q, k_cache, v_cache, cache_len, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     if q.dtype not in DTYPES:
@@ -148,7 +154,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), b, s, h, kv, dh, n_splits, split_len,
-            DTYPES[q.dtype], _build.stream_of(q))
+            DTYPES[q.dtype], float(softcap or 0.0), _build.stream_of(q))
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
     return out

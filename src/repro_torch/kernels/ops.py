@@ -594,19 +594,22 @@ def predict_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                 softcap: float | None = None,
                  use_kernel: bool | None = True) -> torch.Tensor:
     """One-token GQA attention over a length-masked KV cache (the decode
     step's attention). q: (B, H, Dh); k_cache/v_cache: (B, S, KV, Dh),
-    not head-repeated; cache_len: (B,) valid keys per row. Returns
-    (B, H, Dh) in q's dtype; float32 softmax and P @ V."""
+    not head-repeated; cache_len: (B,) valid keys per row; ``softcap``
+    caps the scaled scores (cap * tanh(s / cap)). Returns (B, H, Dh) in
+    q's dtype; float32 softmax and P @ V."""
     tier = _tier(q, use_kernel)
     _count("flash_decode", tier, B=q.shape[0], H=q.shape[1],
            KV=k_cache.shape[2], S=k_cache.shape[1], Dh=q.shape[2])
     if tier == "torch-ref":
-        return ref.flash_decode(q, k_cache, v_cache, cache_len)
+        return ref.flash_decode(q, k_cache, v_cache, cache_len, softcap)
     return _flash_decode(q.contiguous(), k_cache.contiguous(),
                          v_cache.contiguous(),
-                         cache_len.to(torch.int32).contiguous())
+                         cache_len.to(torch.int32).contiguous(),
+                         softcap=softcap)
 
 
 def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -389,14 +389,16 @@ def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor, *,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor,
-                 ) -> torch.Tensor:
+                 softcap: float | None = None) -> torch.Tensor:
     """One-token GQA attention over a length-masked KV cache, all in
     float32: the function of the TPU kernel ``flash_decode``.
 
     q: (B, H, Dh); k_cache/v_cache: (B, S, KV, Dh), H % KV == 0 (query
     head h reads KV head h // (H // KV)); cache_len: (B,) keys at index
     >= cache_len[b] are masked. A row with cache_len 0 yields 0 (the
-    kernel's ``m_safe`` / ``corr`` guards). P @ V runs in float32 on the
+    kernel's ``m_safe`` / ``corr`` guards). ``softcap``: the scaled
+    scores s become softcap * tanh(s / softcap) before the mask (the
+    reference's ``attention_decode``). P @ V runs in float32 on the
     unrounded probabilities. Returns (B, H, Dh) in q's dtype.
     """
     b, h, dh = q.shape
@@ -406,6 +408,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.float().reshape(b, kv, h // kv, dh)
     sc = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) \
         * (1.0 / dh ** 0.5)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
     valid = (torch.arange(s, device=q.device)[None, :]
              < cache_len.reshape(-1, 1).to(q.device))
     sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))

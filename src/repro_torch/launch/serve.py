@@ -1,15 +1,18 @@
 """Batched LM serving driver: prefill + decode with KV/state caches.
 
 Port of ``repro.launch.serve``: a batch of requests is prefilled token by
-token into per-layer caches (attention ring buffers, SSM states) and then
-decoded with greedy or temperature sampling. Every decode step runs each
-attention layer's one-token attention through the ``flash_decode``
-kernel; ``T.forward`` (prompt scoring) runs the SSD chunks through
-``ssd_chunk``.
+token into per-layer caches (GQA ring buffers or int8 rows, MLA latents,
+SSM states) and then decoded with greedy or temperature sampling. Every
+decode step runs each GQA layer's one-token attention through the
+``flash_decode`` kernel; ``T.forward`` (prompt scoring) runs the SSD
+chunks through ``ssd_chunk``. The CLI serves the token-id archs; the
+modality archs (audio frames, vision patches) exit, as in the reference.
 
 Usage (default device the GPU; ``--device cpu`` for the plain path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --smoke --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --batch 4 --prompt-len 32 --gen 32
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
 """Transformer / SSM layers of the LM stack, as functions over dicts of
 tensors.
 
-Port of the part of ``repro.models.layers`` that the hybrid and SSM
-stacks reach (hymba-1.5b, mamba2-130m, and the dense GQA configs):
-RMSNorm, RoPE, GQA attention (chunked online-softmax ``attention_full``,
-sliding-window ``attention_local``, and the decode step through the
-``flash_decode`` kernel), the dense FFN, and Mamba-2 SSD (the chunked
-``ssd_forward`` through the ``ssd_chunk`` kernel, the O(1) decode step).
+Port of the serving half of ``repro.models.layers``: RMSNorm, RoPE, GQA
+attention (chunked online-softmax ``attention_full``, sliding-window
+``attention_local``, the decode step through the ``flash_decode`` kernel
+with the logit softcap, and the int8 KV cache's decode), MLA (the
+materialized prefill and the absorbed decode over the latent cache),
+cross-attention, the dense FFN, the top-k MoE FFN (local sort-based
+dispatch), and Mamba-2 SSD (the chunked ``ssd_forward`` through the
+``ssd_chunk`` kernel, the O(1) decode step). MLA, MoE, cross-attention
+and the int8 cache are plain torch, as they are plain ``jnp`` in the
+reference.
 
 Each ``init_*`` draws from an explicit ``torch.Generator`` with the
 reference's shapes, dtypes and distributions and returns the params only
@@ -14,8 +18,9 @@ reference's shapes, dtypes and distributions and returns the params only
 has no use for; its ``shard_act`` annotations are no-ops here and are
 dropped). ``use_kernel=False`` runs the kernels' plain versions.
 
-Not ported yet, each raising ``NotImplementedError``: MLA, MoE,
-cross-attention, the int8 KV cache and the sequence-parallel decode.
+Not ported yet, each raising ``NotImplementedError``: the
+sequence-parallel decode and the expert-parallel MoE (the sharding
+slice).
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from repro_torch.models.config import AttnSpec, FfnSpec, SsmSpec
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = float("-inf")
+# A leaf of more elements is drawn in float32 slices of its leading axis.
+DRAW_ELEMS = 1 << 26
 
 
 def deferred(what: str, item: str = "queue 1 item 17") -> None:
@@ -52,11 +59,28 @@ def _zeros(shape, dtype, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def normal(gen: torch.Generator, shape, std: float, dtype,
+           device) -> torch.Tensor:
+    """N(0, std^2) in ``dtype``. A leaf of more than ``DRAW_ELEMS``
+    elements is drawn slice by slice of its leading axis, so a float32
+    copy of a large bfloat16 leaf is never whole."""
+    n = math.prod(shape)
+    if n <= DRAW_ELEMS:
+        return (torch.randn(shape, generator=gen, device=device)
+                * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_ELEMS // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        blk = out[i:i + rows]
+        blk.copy_(torch.randn(blk.shape, generator=gen, device=device)
+                  * std)
+    return out
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, device,
                 in_axis: int = 0) -> torch.Tensor:
-    std = 1.0 / math.sqrt(shape[in_axis])
-    return (torch.randn(shape, generator=gen, device=device)
-            * std).to(dtype)
+    return normal(gen, shape, 1.0 / math.sqrt(shape[in_axis]), dtype,
+                  device)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -94,8 +118,6 @@ def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 def init_gqa(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype,
              device) -> Params:
-    if spec.kind != "gqa":
-        deferred("MLA attention")
     h, kv, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     p = {"wq": _dense_init(gen, (d_model, h, dh), dtype, device),
          "wk": _dense_init(gen, (d_model, kv, dh), dtype, device),
@@ -220,8 +242,6 @@ def attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """Prefill GQA attention over hidden states x: (B, S, D)."""
-    if spec.kind != "gqa":
-        deferred("MLA attention")
     q, k, v = _qkv(p, spec, x, positions)
     groups = spec.n_heads // spec.n_kv_heads
     k = _repeat_kv(k, groups)
@@ -245,12 +265,11 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     written into the cache tensors in place (the reference returns new
     arrays); slots [0, valid) are always the filled ones and attention
     does not depend on the keys' order, so the ring needs no unrolling.
-    The attention is ``ops.flash_decode`` over the un-repeated KV heads.
+    The attention is ``ops.flash_decode`` over the un-repeated KV heads,
+    with the layer's logit softcap.
     """
     if seq_parallel:
-        deferred("seq_parallel_decode")
-    if spec.logit_softcap is not None:
-        deferred("logit_softcap in decode (flash_decode has no softcap)")
+        deferred("seq_parallel_decode", "queue 1 item 17c")
     pos = cache["len"]  # (B,) absolute position of the new token
     q, k, v = _project(p, spec, x)
     q, k = _rope_qk(q, k, pos[:, None], spec.rope_theta)
@@ -262,6 +281,7 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     k_cache.index_put_(idx, k[:, 0])
     v_cache.index_put_(idx, v[:, 0])
     out = ops.flash_decode(q[:, 0], k_cache, v_cache, valid,
+                           softcap=spec.logit_softcap,
                            use_kernel=use_kernel)
     y = (out.flatten(1) @ p["wo"].flatten(0, 1))[:, None]
     return y, {"k": k_cache, "v": v_cache, "len": pos + 1}
@@ -269,13 +289,198 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
 
 def init_gqa_cache(spec: AttnSpec, batch: int, max_len: int, dtype,
                    device, quant: bool = False) -> Dict[str, torch.Tensor]:
-    if quant:
-        deferred("kv_cache_quant (the int8 KV cache)")
     s = min(max_len, spec.window) if spec.window is not None else max_len
     shape = (batch, s, spec.n_kv_heads, spec.head_dim)
+    if quant:
+        # int8 rows + per-(batch, pos, kv-head) float16 scales: ~1.03
+        # bytes an element against 2 for bf16.
+        return {"k_q": _zeros(shape, torch.int8, device),
+                "v_q": _zeros(shape, torch.int8, device),
+                "k_s": _zeros(shape[:3], torch.float16, device),
+                "v_s": _zeros(shape[:3], torch.float16, device),
+                "len": _zeros((batch,), torch.int32, device)}
     return {"k": _zeros(shape, dtype, device),
             "v": _zeros(shape, dtype, device),
             "len": _zeros((batch,), torch.int32, device)}
+
+
+def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head) symmetric int8 quantization over head_dim."""
+    scale = x.abs().amax(dim=-1) / 127.0 + 1e-8  # (..., H)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def gqa_decode_quant(p: Params, spec: AttnSpec, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor],
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against an int8 KV cache (``init_gqa_cache(quant=
+    True)``), written in place like ``gqa_decode``'s.
+
+    Exact-algebra dequant, in float32: scores = (q . k_int8) * k_scale
+    (the per-row scale factors out of the head_dim dot), and the value
+    product applies v_scale to the attention probabilities before the
+    int8 P @ V; no dequantized cache is formed. Query heads are grouped
+    by their KV head instead of repeating the cache.
+    """
+    b = x.shape[0]
+    pos = cache["len"]
+    q, k, v = _project(p, spec, x)
+    q, k = _rope_qk(q, k, pos[:, None], spec.rope_theta)
+    s_cache = cache["k_q"].shape[1]
+    slot = pos % s_cache if spec.window is not None else pos
+    idx = (torch.arange(b, device=x.device), slot.long())
+    for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+        rows, scale = _quant_rows(new)
+        cache[name + "_q"].index_put_(idx, rows)
+        cache[name + "_s"].index_put_(idx, scale)
+
+    kv, dh = spec.n_kv_heads, spec.head_dim
+    qg = q[:, 0].float().reshape(b, kv, spec.n_heads // kv, dh)
+    k_s = cache["k_s"].float().transpose(1, 2)[:, :, None, :]  # (B,KV,1,S)
+    v_s = cache["v_s"].float().transpose(1, 2)[:, :, None, :]
+    s = torch.einsum("bkgd,bskd->bkgs", qg, cache["k_q"].float()) * k_s
+    s = _softcap(s * (1.0 / math.sqrt(dh)), spec.logit_softcap)
+    valid = torch.clamp_max(pos + 1, s_cache)
+    mask = torch.arange(s_cache, device=x.device)[None, :] < valid[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    pw = torch.softmax(s, dim=-1) * v_s
+    out = torch.einsum("bkgs,bskd->bkgd", pw, cache["v_q"].float())
+    y = (out.reshape(b, -1).to(x.dtype) @ p["wo"].flatten(0, 1))[:, None]
+    return y, {**cache, "len": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek V2/V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype,
+             device) -> Params:
+    h = spec.n_heads
+    qk = spec.qk_nope_dim + spec.qk_rope_dim
+    p: Params = {}
+    if spec.q_lora_rank:
+        p["wq_a"] = _dense_init(gen, (d_model, spec.q_lora_rank), dtype,
+                                device)
+        p["q_norm"] = _zeros((spec.q_lora_rank,), dtype, device)
+        p["wq_b"] = _dense_init(gen, (spec.q_lora_rank, h, qk), dtype,
+                                device)
+    else:
+        p["wq"] = _dense_init(gen, (d_model, h, qk), dtype, device)
+    # Joint compressed KV + decoupled rope key.
+    p["wkv_a"] = _dense_init(
+        gen, (d_model, spec.kv_lora_rank + spec.qk_rope_dim), dtype, device)
+    p["kv_norm"] = _zeros((spec.kv_lora_rank,), dtype, device)
+    p["wk_b"] = _dense_init(gen, (spec.kv_lora_rank, h, spec.qk_nope_dim),
+                            dtype, device)
+    p["wv_b"] = _dense_init(gen, (spec.kv_lora_rank, h, spec.v_head_dim),
+                            dtype, device)
+    p["wo"] = _dense_init(gen, (h, spec.v_head_dim, d_model), dtype, device)
+    return p
+
+
+def _mla_q(p: Params, spec: AttnSpec, x: torch.Tensor,
+           positions: torch.Tensor, eps: float,
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope))."""
+    if spec.q_lora_rank:
+        q = _heads(rms_norm(x @ p["wq_a"], p["q_norm"], eps), p["wq_b"])
+    else:
+        q = _heads(x, p["wq"])
+    q_nope = q[..., :spec.qk_nope_dim]
+    q_rope = rope(q[..., spec.qk_nope_dim:], positions, spec.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_kv(p: Params, spec: AttnSpec, x: torch.Tensor,
+            positions: torch.Tensor, eps: float,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The latent (c_kv (B,S,lora), k_rope (B,S,1,rope)) of x."""
+    kv = x @ p["wkv_a"]
+    c_kv = rms_norm(kv[..., :spec.kv_lora_rank], p["kv_norm"], eps)
+    k_rope = rope(kv[..., spec.kv_lora_rank:][:, :, None, :], positions,
+                  spec.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
+                positions: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Prefill MLA: per-head K/V materialized from the latent; the V head
+    dim differs from the QK one."""
+    q_nope, q_rope = _mla_q(p, spec, x, positions, eps)
+    c_kv, k_rope = _mla_kv(p, spec, x, positions, eps)
+    k_nope = _heads(c_kv, p["wk_b"])
+    v = _heads(c_kv, p["wv_b"])
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1],
+                                         spec.qk_rope_dim)], dim=-1)
+    out = attention_full(torch.cat([q_nope, q_rope], dim=-1), k, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], eps: float = 1e-5,
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-form MLA decode against the latent cache, written in place.
+
+    cache["ckv"]: (B, S, kv_lora); cache["krope"]: (B, S, rope). Scores =
+    q_nope W_UK^T c_kv + q_rope k_rope (W_UK absorbed into the query), and
+    W_UV is applied after the probabilities: the per-token cache is
+    kv_lora + rope values.
+    """
+    b = x.shape[0]
+    pos = cache["len"]
+    q_nope, q_rope = _mla_q(p, spec, x, pos[:, None], eps)
+    c_new, kr_new = _mla_kv(p, spec, x, pos[:, None], eps)
+    idx = (torch.arange(b, device=x.device), pos.long())
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv.index_put_(idx, c_new[:, 0])
+    krope.index_put_(idx, kr_new[:, 0, 0])
+
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    scale = 1.0 / math.sqrt(spec.qk_nope_dim + spec.qk_rope_dim)
+    s = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+         + torch.einsum("bshk,btk->bhst", q_rope, krope)) * scale
+    valid = (torch.arange(ckv.shape[1], device=x.device)[None, :]
+             <= pos[:, None])
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    pw = torch.softmax(s.float(), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", pw, ckv)
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"])
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, {"ckv": ckv, "krope": krope, "len": pos + 1}
+
+
+def init_mla_cache(spec: AttnSpec, batch: int, max_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    return {"ckv": _zeros((batch, max_len, spec.kv_lora_rank), dtype,
+                          device),
+            "krope": _zeros((batch, max_len, spec.qk_rope_dim), dtype,
+                            device),
+            "len": _zeros((batch,), torch.int32, device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (musicgen conditioning)
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(gen: torch.Generator, d_model: int, spec: AttnSpec,
+                    dtype, device) -> Params:
+    h, dh = spec.n_heads, spec.head_dim
+    return {"wq": _dense_init(gen, (d_model, h, dh), dtype, device),
+            "wk": _dense_init(gen, (d_model, h, dh), dtype, device),
+            "wv": _dense_init(gen, (d_model, h, dh), dtype, device),
+            "wo": _dense_init(gen, (h, dh, d_model), dtype, device)}
+
+
+def cross_attn_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
+                       cond: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) attends over cond: (B, T, D); no mask, no RoPE."""
+    q, k, v = _heads(x, p["wq"]), _heads(cond, p["wk"]), _heads(cond,
+                                                              p["wv"])
+    s = torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(spec.head_dim)
+    pw = torch.softmax(s.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", pw, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +504,6 @@ def _act(name: str, gate: torch.Tensor,
 
 def init_dense_ffn(gen: torch.Generator, d_model: int, spec: FfnSpec,
                    dtype, device) -> Params:
-    if spec.kind != "dense":
-        deferred("MoE FFN")
     p = {"w_in": _dense_init(gen, (d_model, spec.d_ff), dtype, device),
          "w_out": _dense_init(gen, (spec.d_ff, d_model), dtype, device)}
     if spec.activation.endswith("_glu"):
@@ -312,6 +515,135 @@ def dense_ffn(p: Params, spec: FfnSpec, x: torch.Tensor) -> torch.Tensor:
     gate = x @ p["w_in"]
     up = x @ p["w_up"] if "w_up" in p else None
     return _act(spec.activation, gate, up) @ p["w_out"]
+
+
+def init_moe_ffn(gen: torch.Generator, d_model: int, spec: FfnSpec, dtype,
+                 device) -> Params:
+    """Routed experts (stacked on a leading E axis), the float32 router
+    (and the sigmoid router's float32 selection bias), shared experts."""
+    e, f = spec.n_experts, spec.d_ff_expert
+    p: Params = {
+        "router": _dense_init(gen, (d_model, e), torch.float32, device),
+        # The reference's draw: std 1 / sqrt(E) (its fan-in axis is 0).
+        "w_gate": _dense_init(gen, (e, d_model, f), dtype, device),
+        "w_up": _dense_init(gen, (e, d_model, f), dtype, device),
+        "w_down": _dense_init(gen, (e, f, d_model), dtype, device),
+    }
+    if spec.router == "sigmoid":
+        p["router_bias"] = _zeros((e,), torch.float32, device)
+    if spec.n_shared:
+        fs = spec.n_shared * f
+        p["ws_gate"] = _dense_init(gen, (d_model, fs), dtype, device)
+        p["ws_up"] = _dense_init(gen, (d_model, fs), dtype, device)
+        p["ws_down"] = _dense_init(gen, (fs, d_model), dtype, device)
+    return p
+
+
+def top_k_stable(x: torch.Tensor, k: int,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest, ties to the
+    lower index (a stable descending sort; ``torch.topk`` does not order
+    ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(logits: torch.Tensor, spec: FfnSpec,
+           router_bias: Optional[torch.Tensor],
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(scores, top_w, top_i) for either router: the sigmoid router
+    chooses on scores + bias and weights by the scores."""
+    if spec.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores + router_bias if router_bias is not None else scores
+        top_i = top_k_stable(sel, spec.top_k)[1]
+        top_w = torch.gather(scores, 1, top_i)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+        top_w, top_i = top_k_stable(scores, spec.top_k)
+    top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
+    return scores, top_w, top_i
+
+
+def moe_ffn(p: Params, spec: FfnSpec, x: torch.Tensor, *, rules=None,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Top-k MoE. x: (B, S, D) -> (y, aux). Only the reference's local
+    (single-device) dispatch is ported; sharding ``rules`` raise.
+
+    aux carries the load-balance loss and per-expert slot counts (softmax
+    router) or the counts only (sigmoid router, for DeepSeek-V3's
+    aux-free bias update).
+    """
+    if rules is not None:
+        deferred("the expert-parallel MoE (_moe_ffn_sharded)",
+                 "queue 1 item 17c")
+    return _moe_ffn_local(p, spec, x)
+
+
+def moe_capacity(t: int, spec: FfnSpec) -> int:
+    """Slots per expert: every token (dropless) while t * k <= 4096 (decode
+    steps, short prompts), else the capacity-factor bound."""
+    if t * spec.top_k <= 4096:
+        return t
+    return max(1, math.ceil(t * spec.top_k / spec.n_experts
+                            * spec.capacity_factor))
+
+
+def _moe_ffn_local(p: Params, spec: FfnSpec, x: torch.Tensor,
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sort-based top-k dispatch with the reference's semantics.
+
+    The (T * k) slots are sorted by expert (stably: token-major order
+    within an expert), each expert keeps its first ``moe_capacity`` slots
+    and the rest go to a sink row and are dropped, and the experts run as
+    one batched product over the (E, cap, D) buffer. Each token's k slot
+    outputs are gathered back through the inverse of the sort and summed
+    in slot order: no scatter-add, so the sum is the same on every run.
+    """
+    b, s, d = x.shape
+    e, k = spec.n_experts, spec.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    scores, top_w, top_i = _route(xt.float() @ p["router"], spec,
+                                  p.get("router_bias"))
+
+    cap = moe_capacity(t, spec)
+    flat_e = top_i.reshape(-1)                                  # (T*k,)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(e, device=x.device))
+    pos_in_seg = (torch.arange(t * k, device=x.device)
+                  - seg_start[sorted_e])
+    keep = pos_in_seg < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_seg, e * cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = xt[order // k]
+    buf = buf[:e * cap].reshape(e, cap, d)
+
+    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    y_flat = torch.bmm(h, p["w_down"]).reshape(e * cap, d)
+
+    y_slots = torch.where(keep[:, None],
+                          y_flat[torch.clamp_max(dest, e * cap - 1)], 0.0)
+    w_slots = top_w.reshape(-1)[order][:, None].to(y_slots.dtype)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=x.device)
+    contrib = (y_slots * w_slots)[inv].reshape(t, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+
+    if spec.n_shared:
+        sh = F.silu(xt @ p["ws_gate"]) * (xt @ p["ws_up"])
+        y = y + sh @ p["ws_down"]
+
+    counts = torch.bincount(flat_e, minlength=e).float()
+    aux = {"expert_counts": counts}
+    if spec.router != "sigmoid":
+        # Switch-style load-balance loss.
+        aux["lb_loss"] = e * torch.sum(counts / (t * k) * scores.mean(0))
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

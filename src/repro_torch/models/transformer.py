@@ -1,10 +1,13 @@
-"""Model assembly: embeddings -> block groups -> head.
+"""Model assembly: embeddings -> block groups -> head(s).
 
-Port of ``repro.models.transformer`` for token-id models (``frontend=
-"none"``) whose layers are GQA attention, Mamba-2 SSD or both in
-parallel (hymba), with dense FFNs. Parameters are nested dicts of
-tensors; a group's layers are stacked along a leading ``repeat`` axis as
-in the reference, so the reference's params cross one to one
+Port of ``repro.models.transformer``'s serving surface for all ten
+registered architectures: token-id models and the two modality
+frontends (``audio_frames``: precomputed frame embeddings, cross-attended
+conditioning and codebook heads; ``vision_patches``: projected patch
+features ahead of the text), with GQA, MLA, Mamba-2 SSD or hybrid
+mixers, dense or MoE FFNs, and the int8 KV cache. Parameters are nested
+dicts of tensors; a group's layers are stacked along a leading ``repeat``
+axis as in the reference, so the reference's params cross one to one
 (``convert.lm_params_from_numpy``). Layers run in a Python loop over
 that axis.
 
@@ -14,8 +17,9 @@ Public surface:
   init_cache(cfg, batch, max_len, device=)   -> decode caches
   decode_step(params, cfg, batch, caches)    -> logits, caches
 
-``use_kernel=False`` runs the kernels' plain versions. ``loss_fn`` and
-the multi-token prediction head wait for the training slice.
+``use_kernel=False`` runs the kernels' plain versions. The multi-token
+prediction (MTP) block's params are drawn and carried; its loss comes
+with ``loss_fn`` in the training slice.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 
 Params = Dict[str, Any]
 
+VIT_DIM = 1024  # stub ViT feature width of the vision_patches frontend
+
 
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
@@ -37,25 +43,10 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg.frontend != "none":
-        L.deferred(f"the {cfg.frontend} frontend")
-    if cfg.n_codebooks > 1:
-        L.deferred("codebook heads")
-    if cfg.mtp_depth:
-        L.deferred("multi-token prediction (MTP)")
-    if cfg.kv_cache_quant:
-        L.deferred("kv_cache_quant (the int8 KV cache)")
     if cfg.seq_parallel_decode:
-        L.deferred("seq_parallel_decode")
+        L.deferred("seq_parallel_decode", "queue 1 item 17c")
     if cfg.param_dtype != cfg.activation_dtype:
         L.deferred("mixed param/activation dtypes")
-    for b in cfg.blocks:
-        if b.mixer in ("attn", "hybrid") and b.attn.kind == "mla":
-            L.deferred("MLA attention")
-        if b.ffn.kind == "moe":
-            L.deferred("MoE FFN")
-        if b.cross_attn:
-            L.deferred("cross-attention")
 
 
 def _has_ffn(b: BlockSpec) -> bool:
@@ -69,10 +60,19 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _put(group, i: int, layer) -> None:
+    """Copy one layer's tree into row ``i`` of the stacked group."""
+    if isinstance(group, dict):
+        for k in group:
+            _put(group[k], i, layer[k])
+    else:
+        group[i].copy_(layer)
 
 
 # ---------------------------------------------------------------------------
@@ -87,32 +87,63 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, b: BlockSpec,
     if _has_ffn(b):
         p["ln2"] = L._zeros((d,), dt, device)
     if b.mixer in ("attn", "hybrid"):
-        p["attn"] = L.init_gqa(gen, d, b.attn, dt, device)
+        init = L.init_gqa if b.attn.kind == "gqa" else L.init_mla
+        p["attn"] = init(gen, d, b.attn, dt, device)
     if b.mixer in ("ssm", "hybrid"):
         p["ssm"] = L.init_ssm(gen, d, b.ssm, dt, device)
-    if _has_ffn(b):
+    if b.cross_attn:
+        p["ln_x"] = L._zeros((d,), dt, device)
+        p["xattn"] = L.init_cross_attn(gen, d, b.attn, dt, device)
+    if b.ffn.kind == "moe":
+        p["ffn"] = L.init_moe_ffn(gen, d, b.ffn, dt, device)
+    elif _has_ffn(b):
         p["ffn"] = L.init_dense_ffn(gen, d, b.ffn, dt, device)
     return p
+
+
+def _init_group(gen: torch.Generator, cfg: ModelConfig, b: BlockSpec,
+                device) -> Params:
+    """A group's params stacked along ``repeat``, drawn layer by layer
+    into the stacked tensors: one layer's draw is the only transient."""
+    first = _init_layer(gen, cfg, b, device)
+    group = _map(lambda t: t.new_empty((b.repeat, *t.shape)), first)
+    _put(group, 0, first)
+    del first
+    for i in range(1, b.repeat):
+        _put(group, i, _init_layer(gen, cfg, b, device))
+    return group
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                 device=None) -> Params:
     """Random params with the reference's shapes, dtypes and
     distributions, drawn from ``generator`` (which must live on
-    ``device``; default the GPU). The draws are not ``jax.random``'s."""
+    ``device``; default the GPU). The draws are not ``jax.random``'s. A
+    large leaf is drawn in float32 slices (``layers.normal``), so a
+    bfloat16 model never has a float32 copy resident."""
     device = resolve_device(device)
     check_supported(cfg)
     dt = _dtype(cfg.param_dtype)
-    emb_std = 1.0 / math.sqrt(cfg.d_model)
-    shape = (cfg.padded_vocab, cfg.d_model)
-    p: Params = {"embed": (torch.randn(shape, generator=generator,
-                                       device=device) * emb_std).to(dt)}
+    d = cfg.d_model
+    emb_std = 1.0 / math.sqrt(d)
+    shape = (cfg.padded_vocab, d)
+    p: Params = {"embed": L.normal(generator, shape, emb_std, dt, device)}
     if not cfg.tie_embeddings:
-        p["unembed"] = (torch.randn(shape, generator=generator,
-                                    device=device) * emb_std).to(dt)
-    p["groups"] = [_stack([_init_layer(generator, cfg, b, device)
-                           for _ in range(b.repeat)]) for b in cfg.blocks]
-    p["ln_f"] = L._zeros((cfg.d_model,), dt, device)
+        p["unembed"] = L.normal(generator, shape, emb_std, dt, device)
+    if cfg.n_codebooks > 1:
+        p["codebook_heads"] = L.normal(
+            generator, (cfg.n_codebooks - 1, *shape), emb_std, dt, device)
+    if cfg.frontend == "vision_patches":
+        p["patch_proj"] = L._dense_init(generator, (VIT_DIM, d), dt, device)
+    p["groups"] = [_init_group(generator, cfg, b, device)
+                   for b in cfg.blocks]
+    p["ln_f"] = L._zeros((d,), dt, device)
+    if cfg.mtp_depth:
+        p["mtp"] = {"block": _init_layer(generator, cfg, cfg.blocks[-1],
+                                         device),
+                    "proj": L._dense_init(generator, (2 * d, d), dt,
+                                          device),
+                    "ln": L._zeros((d,), dt, device)}
     return p
 
 
@@ -120,52 +151,119 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _mix(b: BlockSpec, lp: Params, attn, ssm) -> torch.Tensor:
+    """The mixer output: attention, SSD, or hymba's mean of both."""
+    mix = attn(lp["attn"]) if b.mixer in ("attn", "hybrid") else None
+    if b.mixer in ("ssm", "hybrid"):
+        ss = ssm(lp["ssm"])
+        mix = ss if mix is None else 0.5 * (mix + ss)  # hymba fusion
+    return mix
+
+
+def _xattn_ffn(cfg: ModelConfig, b: BlockSpec, lp: Params,
+               x: torch.Tensor, cond: Optional[torch.Tensor],
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The cross-attention and FFN residuals after the mixer's."""
+    aux: Dict[str, torch.Tensor] = {}
+    if b.cross_attn and cond is not None:
+        hx = L.rms_norm(x, lp["ln_x"], cfg.rms_eps)
+        x = x + L.cross_attn_forward(lp["xattn"], b.attn, hx, cond)
+    if "ffn" in lp:
+        h2 = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+        if b.ffn.kind == "dense":
+            y = L.dense_ffn(lp["ffn"], b.ffn, h2)
+        else:
+            y, aux = L.moe_ffn(lp["ffn"], b.ffn, h2)
+        x = x + y
+    return x, aux
+
+
 def _layer_forward(cfg: ModelConfig, b: BlockSpec, lp: Params,
                    x: torch.Tensor, positions: torch.Tensor,
-                   use_kernel: bool) -> torch.Tensor:
+                   cond: Optional[torch.Tensor], use_kernel: bool,
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
-    mix = None
-    if b.mixer in ("attn", "hybrid"):
-        mix = L.gqa_forward(lp["attn"], b.attn, h, positions)
-    if b.mixer in ("ssm", "hybrid"):
-        ss = L.ssd_forward(lp["ssm"], b.ssm, cfg.d_model, h,
-                           use_kernel=use_kernel)
-        mix = ss if mix is None else 0.5 * (mix + ss)  # hymba fusion
-    x = x + mix
-    if "ffn" in lp:
-        x = x + L.dense_ffn(lp["ffn"], b.ffn,
-                            L.rms_norm(x, lp["ln2"], cfg.rms_eps))
-    return x
+
+    def attn(p):
+        if b.attn.kind == "gqa":
+            return L.gqa_forward(p, b.attn, h, positions)
+        return L.mla_forward(p, b.attn, h, positions, cfg.rms_eps)
+
+    x = x + _mix(b, lp, attn, lambda p: L.ssd_forward(
+        p, b.ssm, cfg.d_model, h, use_kernel=use_kernel))
+    return _xattn_ffn(cfg, b, lp, x, cond)
+
+
+def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """An ``audio_frames`` batch's (frame embeddings, conditioning or
+    None) in the activation dtype."""
+    dt = _dtype(cfg.activation_dtype)
+    cond = batch.get("cond_embeds")
+    return (batch["frame_embeds"].to(dt),
+            cond.to(dt) if cond is not None else None)
 
 
 def embed_inputs(params: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor],
-                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Any]]:
-    """Returns (hidden, positions, cond); cond is None (no frontends)."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+    """Returns (hidden, positions, cond). ``audio_frames`` reads
+    batch["frame_embeds"] (B, S, D) and the optional conditioning
+    batch["cond_embeds"] (B, T, D); ``vision_patches`` prepends
+    batch["patch_feats"] (B, P, VIT_DIM) @ patch_proj to the token
+    embeddings."""
     check_supported(cfg)
-    x = params["embed"][batch["tokens"]].to(_dtype(cfg.activation_dtype))
+    dt = _dtype(cfg.activation_dtype)
+    cond = None
+    if cfg.frontend == "audio_frames":
+        x, cond = _frames(cfg, batch)
+    else:
+        x = params["embed"][batch["tokens"]].to(dt)
+        if cfg.frontend == "vision_patches":
+            patches = batch["patch_feats"].to(dt) @ params["patch_proj"]
+            x = torch.cat([patches.to(dt), x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    return x, positions, None
+    return x, positions, cond
 
 
 def _head(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits, or (B, S, n_codebooks, V) with codebook heads."""
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,vd->bsv", h, w.to(h.dtype))
+    logits = torch.einsum("bsd,vd->bsv", h, w.to(h.dtype))
+    if cfg.n_codebooks > 1:
+        extra = torch.einsum("bsd,cvd->bscv", h,
+                             params["codebook_heads"].to(h.dtype))
+        logits = torch.cat([logits[:, :, None, :], extra], dim=2)
+    return logits
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, use_kernel: bool = True,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward over batch["tokens"] (B, S). Returns
-    (logits (B, S, padded vocab), {"final_hidden": (B, S, D)})."""
-    x, positions, _ = embed_inputs(params, cfg, batch)
-    for b, gp in zip(cfg.blocks, params["groups"]):
+    """Full-sequence forward over ``embed_inputs``' batch. Returns (logits
+    (B, S, V) or (B, S, n_codebooks, V), aux): aux holds "final_hidden"
+    (B, S, D) and, with MoE layers, "lb_loss" (summed over every softmax
+    MoE layer) and "expert_counts_g{gi}" (each MoE group's per-expert
+    slot counts, summed over its layers)."""
+    x, positions, cond = embed_inputs(params, cfg, batch)
+    aux_total: Dict[str, Any] = {}
+    for gi, (b, gp) in enumerate(zip(cfg.blocks, params["groups"])):
+        group_aux: Dict[str, torch.Tensor] = {}
         for i in range(b.repeat):
-            x = _layer_forward(cfg, b, _layer(gp, i), x, positions,
-                               use_kernel)
+            x, aux = _layer_forward(cfg, b, _layer(gp, i), x, positions,
+                                    cond, use_kernel)
+            for k, v in aux.items():
+                group_aux[k] = group_aux[k] + v if k in group_aux else v
+        for k, v in group_aux.items():
+            if k == "expert_counts":
+                aux_total[f"expert_counts_g{gi}"] = v
+            else:
+                aux_total[k] = aux_total.get(k, 0.0) + v
     h = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    return _head(params, cfg, h), {"final_hidden": h}
+    aux_total["final_hidden"] = h
+    return _head(params, cfg, h), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -179,8 +277,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     a group's caches for its scan; the port's layer loop takes them one
     by one and never copies them.
 
-    Windowed attention layers allocate ring buffers of min(window, S);
-    global layers allocate the full horizon; SSM layers are O(1).
+    Windowed GQA layers allocate ring buffers of min(window, S); global
+    ones the full horizon, int8 with ``cfg.kv_cache_quant``; MLA layers
+    the latent (ckv, krope) cache; SSM layers are O(1).
     """
     device = resolve_device(device)
     check_supported(cfg)
@@ -191,8 +290,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         for _ in range(b.repeat):
             entry: Dict[str, Any] = {}
             if b.mixer in ("attn", "hybrid"):
-                entry["attn"] = L.init_gqa_cache(b.attn, batch, max_len, dt,
-                                                 device)
+                if b.attn.kind == "gqa":
+                    entry["attn"] = L.init_gqa_cache(
+                        b.attn, batch, max_len, dt, device,
+                        quant=cfg.kv_cache_quant)
+                else:
+                    entry["attn"] = L.init_mla_cache(b.attn, batch, max_len,
+                                                     dt, device)
             if b.mixer in ("ssm", "hybrid"):
                 entry["ssm"] = L.init_ssm_cache(b.ssm, cfg.d_model, batch,
                                                 dt, device)
@@ -202,23 +306,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _layer_decode(cfg: ModelConfig, b: BlockSpec, lp: Params,
-                  x: torch.Tensor, cache: Dict[str, Any], use_kernel: bool,
+                  x: torch.Tensor, cache: Dict[str, Any],
+                  cond: Optional[torch.Tensor], use_kernel: bool,
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     new_cache: Dict[str, Any] = {}
     h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
-    mix = None
-    if b.mixer in ("attn", "hybrid"):
-        mix, new_cache["attn"] = L.gqa_decode(
-            lp["attn"], b.attn, h, cache["attn"], use_kernel=use_kernel,
-            seq_parallel=cfg.seq_parallel_decode)
-    if b.mixer in ("ssm", "hybrid"):
-        ss, new_cache["ssm"] = L.ssd_decode(lp["ssm"], b.ssm, cfg.d_model,
-                                            h, cache["ssm"])
-        mix = ss if mix is None else 0.5 * (mix + ss)
-    x = x + mix
-    if "ffn" in lp:
-        x = x + L.dense_ffn(lp["ffn"], b.ffn,
-                            L.rms_norm(x, lp["ln2"], cfg.rms_eps))
+
+    def attn(p):
+        if b.attn.kind == "mla":
+            y, new_cache["attn"] = L.mla_decode(p, b.attn, h, cache["attn"],
+                                                cfg.rms_eps)
+        elif cfg.kv_cache_quant:
+            y, new_cache["attn"] = L.gqa_decode_quant(p, b.attn, h,
+                                                      cache["attn"])
+        else:
+            y, new_cache["attn"] = L.gqa_decode(
+                p, b.attn, h, cache["attn"], use_kernel=use_kernel,
+                seq_parallel=cfg.seq_parallel_decode)
+        return y
+
+    def ssm(p):
+        y, new_cache["ssm"] = L.ssd_decode(p, b.ssm, cfg.d_model, h,
+                                           cache["ssm"])
+        return y
+
+    x = x + _mix(b, lp, attn, ssm)
+    x, _ = _xattn_ffn(cfg, b, lp, x, cond)
     return x, new_cache
 
 
@@ -227,16 +340,24 @@ def decode_step(params: Params, cfg: ModelConfig,
                 use_kernel: bool = True) -> Tuple[torch.Tensor, list]:
     """One decode step for the whole stack.
 
-    batch: {"tokens": (B, 1)}; caches: ``init_cache``'s, with "len"
+    batch: {"tokens": (B, 1)}, or for ``audio_frames`` {"frame_embeds":
+    (B, 1, D), "cond_embeds": (B, T, D) (optional; cross-attention K/V
+    are recomputed from it every step, as in the reference)}; a vision
+    model decodes text tokens. caches: ``init_cache``'s, with "len"
     advanced past any prefill. The caches are updated in place (the
-    reference returns new ones) and returned. Returns (logits (B, V),
-    caches).
+    reference returns new ones) and returned. Returns (logits (B, V) or
+    (B, n_codebooks, V), caches).
     """
     check_supported(cfg)
-    x = params["embed"][batch["tokens"]].to(_dtype(cfg.activation_dtype))
+    if cfg.frontend == "audio_frames":
+        x, cond = _frames(cfg, batch)
+    else:
+        x = params["embed"][batch["tokens"]].to(
+            _dtype(cfg.activation_dtype))
+        cond = None
     for b, gp, gc in zip(cfg.blocks, params["groups"], caches):
         for i in range(b.repeat):
-            x, gc[i] = _layer_decode(cfg, b, _layer(gp, i), x, gc[i],
+            x, gc[i] = _layer_decode(cfg, b, _layer(gp, i), x, gc[i], cond,
                                      use_kernel)
     h = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
     return _head(params, cfg, h)[:, 0], caches

@@ -1305,6 +1305,56 @@ def test_flash_decode_tile_and_stage_edges(dev, s, dh, dtype):
         assert not got[1].any()
 
 
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 64, 65, 320, 4097])
+@pytest.mark.parametrize("dh", [20, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_softcap_tile_and_stage_edges(dev, s, dh, dtype):
+    """The softcap instances of both routes over the same grid, at a cap
+    that bites (2.0 on scores of a few units), against the plain version
+    with the same cap; the cap changes the result."""
+    dt = getattr(torch, dtype)
+    for g in (1, 5, 6, 16, 32):
+        rng = np.random.default_rng([24, s, dh, g])
+        q, k, v, lens = flash_decode_case(rng, 4, s, 2 * g, 2, dh, dt, dev)
+        q = q * 3
+        got = flash_decode.flash_decode(q, k, v, lens, softcap=2.0)
+        assert_flash_decode(got, ref.flash_decode(q, k, v, lens, 2.0), dt)
+        assert not got[1].any()
+        if s > 16:
+            assert not torch.equal(got, flash_decode.flash_decode(q, k, v,
+                                                                  lens))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_softcap_none_launches_the_uncapped_kernel(dev, dtype):
+    """softcap=None runs the pass-1 instance without the cap (CAP =
+    false) on the plan it always had; a cap runs the CAP = true instance
+    of the same route on the same plan (the plan takes no cap)."""
+    from torch.profiler import ProfilerActivity, profile
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(25)
+    q, k, v, lens = flash_decode_case(rng, 4, 1000, 10, 2, 64, dt, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = flash_decode.split_plan(4, 2, 1000, sms, dtype=dt, groups=5,
+                                   dh=64)
+    names = {}
+    for cap in (None, 30.0):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_decode.flash_decode(q, k, v, lens, softcap=cap)
+            torch.cuda.synchronize()
+        names[cap] = sorted({e.key for e in prof.key_averages()
+                             if "flash_decode_" in e.key
+                             and "merge" not in e.key})
+    kern = ("flash_decode_simt<true, " if dt == torch.float32
+            else "flash_decode_mma<64, true, ")
+    assert len(names[None]) == 1 and kern + "false>" in names[None][0]
+    assert len(names[30.0]) == 1 and kern + "true>" in names[30.0][0]
+    assert plan == flash_decode.split_plan(4, 2, 1000, sms, dtype=dt,
+                                           groups=5, dh=64)
+    with pytest.raises(ValueError, match="positive"):
+        flash_decode.flash_decode(q, k, v, lens, softcap=0.0)
+
+
 @pytest.mark.parametrize("dh", [20, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_misaligned_cache_views(dev, dh, dtype):
@@ -1474,6 +1524,89 @@ def test_lm_path_launches_its_kernels(dev):
     assert tiers["flash_decode"] == {"cuda": 33}
     assert (logits - plain).abs().max() <= 1e-4 * plain.abs().max()
     assert out.shape == (2, 12) and out.device.type == "cuda"
+
+
+def moe_case(arch, b, s, capacity_factor):
+    """A DeepSeek smoke MoE layer (the port's own draw) with its router on
+    a 2^-10 grid and inputs on a 2^-4 grid in [-2, 2]: every router logit
+    is exact in float32 on either device, so both route alike."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    cfg = get_smoke_config(arch)
+    spec = dataclasses.replace(cfg.blocks[1].ffn,
+                               capacity_factor=capacity_factor)
+    p = L.init_moe_ffn(torch.Generator().manual_seed(26), cfg.d_model,
+                       spec, torch.float32, "cpu")
+    p["router"] = torch.round(p["router"] * 1024) / 1024
+    if "router_bias" in p:
+        p["router_bias"] = (torch.arange(spec.n_experts) % 3 - 1) / 16.0
+    rng = np.random.default_rng([27, b, s])
+    x = torch.as_tensor(np.clip(np.round(rng.normal(
+        size=(b, s, cfg.d_model)) * 16) / 16, -2, 2).astype(np.float32))
+    return spec, p, x
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("b,s,capacity_factor", [(2, 48, 1.25),
+                                                 (2, 1100, 0.5)])
+def test_moe_ffn_on_the_card_equals_the_cpu_and_is_deterministic(
+        dev, arch, b, s, capacity_factor):
+    """Dropless and capacity-dropping dispatch on the card: the CPU's
+    result within 1e-4 * max|y| (the same routing, float sums in another
+    order), the same per-expert counts, and two runs bit-identical (the
+    combine gathers and sums in slot order: no float atomics)."""
+    from repro_torch.models import layers as L
+    spec, p, x = moe_case(arch, b, s, capacity_factor)
+    want, want_aux = L.moe_ffn(p, spec, x)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    got, aux = L.moe_ffn(pd, spec, x.to(dev))
+    again, _ = L.moe_ffn(pd, spec, x.to(dev))
+    assert torch.equal(got, again)
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(aux["expert_counts"].cpu(), want_aux["expert_counts"])
+
+
+def test_lm_families_launch_flash_decode(dev):
+    """musicgen's and internvl2's smoke decode and deepseek-v2-lite's on
+    the card: every GQA self-attention decode step one flash_decode
+    launch on the cuda tier (MLA and cross-attention launch none), and
+    the kernel path equals the plain one."""
+    from repro_torch import generator
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    for arch in ("musicgen-medium", "internvl2-2b", "deepseek-v2-lite-16b"):
+        cfg = get_smoke_config(arch)
+        params = T.init_params(generator(0, dev), cfg, device=dev)
+        gen = generator(1, dev)
+        if cfg.frontend == "audio_frames":
+            cond = torch.randn((2, cfg.n_cond_tokens, cfg.d_model),
+                               generator=gen, device=dev)
+            steps = [{"frame_embeds": torch.randn(
+                (2, 1, cfg.d_model), generator=gen, device=dev),
+                "cond_embeds": cond} for _ in range(6)]
+        else:
+            steps = [{"tokens": torch.randint(
+                0, cfg.vocab_size, (2, 1), generator=gen, device=dev,
+                dtype=torch.int32)} for _ in range(6)]
+        out = {}
+        for use_kernel in (True, False):
+            kernels.reset_launches()
+            ops.reset_dispatch()
+            with torch.inference_mode():
+                caches = T.init_cache(cfg, 2, 6, device=dev)
+                out[use_kernel] = [T.decode_step(
+                    params, cfg, sb, caches, use_kernel=use_kernel)[0]
+                    for sb in steps]
+            torch.cuda.synchronize()
+            n_gqa = sum(b.repeat for b in cfg.blocks
+                        if b.attn.kind == "gqa")
+            if use_kernel:
+                assert kernels.launches()["flash_decode"] == n_gqa * 6
+                assert ops.dispatch_breakdown().get("flash_decode", {}) == (
+                    {"cuda": n_gqa * 6} if n_gqa else {})
+        for a, w in zip(out[True], out[False]):
+            assert (a - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 def test_lm_wrappers_reject_bad_operands_and_a_failed_build_raises(

@@ -40,9 +40,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.config import (  # noqa: E402
-    BlockSpec, FfnSpec, ModelConfig,
-)
+from repro_torch.models.config import ModelConfig  # noqa: E402
 
 MODEL_TOL = 1e-4
 
@@ -232,24 +230,7 @@ def test_gqa_forward_matches_the_reference(window):
 
 # -- what is not ported yet ---------------------------------------------------
 
-def _moe_cfg():
-    base = configs.get_smoke_config("hymba-1.5b")
-    moe = FfnSpec(kind="moe", n_experts=4, d_ff_expert=32)
-    return dataclasses.replace(base, blocks=(dataclasses.replace(
-        base.blocks[0], ffn=moe),))
-
-
 DEFERRED = {
-    "mla": lambda: configs.get_smoke_config("deepseek-v2-lite-16b"),
-    "moe": _moe_cfg,
-    "cross_attn": lambda: dataclasses.replace(
-        configs.get_smoke_config("hymba-1.5b"), blocks=(BlockSpec(
-            repeat=1, mixer="attn", cross_attn=True,
-            attn=configs.get_smoke_config("hymba-1.5b").blocks[0].attn),)),
-    "audio": lambda: configs.get_smoke_config("musicgen-medium"),
-    "vision": lambda: configs.get_smoke_config("internvl2-2b"),
-    "kv_quant": lambda: configs.get_smoke_config("hymba-1.5b",
-                                                 kv_cache_quant=True),
     "seq_parallel": lambda: configs.get_smoke_config(
         "hymba-1.5b", seq_parallel_decode=True),
 }
@@ -268,18 +249,23 @@ def test_deferred_parts_raise(what):
 
 
 def test_decode_softcap_and_quant_cache_raise():
+    """The sequence-parallel decode still raises; the decode softcap and
+    the int8 cache now run (held against the reference in
+    tests/test_torch_lm_mla_moe.py and tests/test_torch_lm_families.py)."""
     cfg = configs.get_smoke_config("hymba-1.5b")
     spec = dataclasses.replace(cfg.blocks[0].attn, logit_softcap=30.0)
     gen = torch.Generator().manual_seed(0)
     p = L.init_gqa(gen, cfg.d_model, spec, torch.float32, "cpu")
     cache = L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu")
-    x = torch.zeros((1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        L.gqa_decode(p, spec, x, cache)
+    x = torch.ones((1, 1, cfg.d_model))
     with pytest.raises(NotImplementedError, match="item 17"):
         L.gqa_decode(p, cfg.blocks[0].attn, x, cache, seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="kv_cache_quant"):
-        L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu", quant=True)
+    y, cache = L.gqa_decode(p, spec, x, cache)
+    assert torch.isfinite(y).all() and cache["len"].tolist() == [1]
+    qcache = L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu", quant=True)
+    assert qcache["k_q"].dtype == torch.int8
+    yq, qcache = L.gqa_decode_quant(p, spec, x, qcache)
+    assert torch.isfinite(yq).all() and qcache["len"].tolist() == [1]
     # The prefill path keeps the softcap (plain attention, no kernel).
     out = L.gqa_forward(p, spec, torch.ones((1, 4, cfg.d_model)),
                         torch.arange(4))
