@@ -148,7 +148,8 @@ script exits non-zero without the final result line:
    ``library_ms_serve_shape``) and the float32 instance's time at the
    row's shape (``ms_f32``), each also with the decode softcap
    (``ms_softcap``, ``ms_serve_shape_softcap``, ``ms_f32_softcap``), and
-   the ``lm_families`` launches in ``launches_by_path``; the ``am_search`` row (``ms`` on the ±1
+   the ``lm_families`` launches in ``launches_by_path`` (the
+   ``ssd_chunk`` row the ``lm_train`` path's); the ``am_search`` row (``ms`` on the ±1
    queries, the int8 route, bound by the bytes) the fp32 route on dyadic
    queries (``ms_fp32_route``, ``bound_ms_fp32_route``) and ``routes``;
    the ``am_search_packed`` (popcount) row the time at each ``block_b``
@@ -239,7 +240,27 @@ script exits non-zero without the final result line:
    10 epochs, each shard delta one ``qail_update`` launch on its int8
    route (shards x batches x epochs); at the paper's lr, 20 epochs (cut
    from 100), its binary AM agrees with ``fit(use_kernel=True)``'s on >=
-   95 % of cells and its accuracy within 0.05.
+   95 % of cells and its accuracy within 0.05;
+18. LM training (phase group ``lm_train``, after ``lm_families``):
+   ``repro_torch.launch.train.run`` on mamba2-130m at full width and
+   depth (bf16, chunk 256, remat) at the trainer's defaults (seq 256,
+   batch 8) for 6 steps (``lm_train``: per-step loss, ms and tokens/s
+   from the run's events, every loss finite, every SSD chunk on the
+   ``ssd_chunk`` kernel, counts zeroed just before and read just after,
+   the params of the last checkpoint moved from the seed's); at that
+   width and batch the step-0 gradient norm (finite), the float32 kernel
+   route's loss and gradient against the plain route's (``TRAIN_GRAD_TOL``
+   x max|leaf| a leaf; the worst leaf logged) and one bf16 train step
+   timed and under ``torch.profiler`` (``lm_train_grads``,
+   ``lm_train_profile``); hymba-1.5b at full width and depth, 2 steps,
+   attention and SSM both trained (``lm_train_hymba``); deepseek-v2-lite
+   at full width cut to 1 dense MLA + 1 MoE layer, 2 steps, ``lb_loss``
+   finite and > 0, the routed experts' gradients non-zero
+   (``lm_train_deepseek``); deepseek-v3's smoke config, one step from a
+   zero state: the router bias moved by exactly +-0.001 and the MTP loss
+   in the metrics (``lm_train_v3``); the LM trainer CLI at the smoke
+   config killed at step 12, resumed from step 10, within 1e-5 of a
+   clean run's last loss (``lm_train_resume``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -394,6 +415,27 @@ SHARDS = 2
 SHARDED_DIRECT_REQUESTS = 32
 SHARDED_EPOCHS = 20
 SHARDED_AGREE, SHARDED_ACC_GAP = 0.95, 0.05
+# LM training (phase ``lm_train``): mamba2-130m at full width and depth
+# (bf16, chunk 256, remat on) through the trainer at its defaults (seq
+# 256, batch 8) for TRAIN_STEPS steps; its float32 gradient on the kernel
+# route against the plain route at the same width and batch, each leaf
+# within TRAIN_GRAD_TOL x max|leaf|: ssd_chunk's stated float32 error is
+# 1e-4 + 1e-4|y| a chunk, and LM_TOL gives the 24 layers that carry it
+# the margin the float32 forward's logits are held to. hymba-1.5b at
+# full width and depth and deepseek-v2-lite cut to one dense MLA layer
+# and one MoE layer (16B params with AdamW state exceed 80 GB) take
+# TRAIN_FAMILY_STEPS steps; deepseek-v3's smoke config one (one
+# full-width v3 MoE layer is 11B params); the crash / resume at the
+# smoke config as tests/test_train_loop.py runs it.
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_STEPS = 6
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_FAMILY_STEPS = 2
+TRAIN_DS_DEPTH = (1, 1)
+TRAIN_RESUME = ["--smoke", "--steps", "20", "--seq-len", "64",
+                "--global-batch", "2", "--ckpt-every", "5",
+                "--log-every", "100"]
+RESUME_TOL = 1e-5                 # tests/test_train_loop.py:63
 
 
 def check(cond, what) -> None:
@@ -3269,6 +3311,341 @@ class Smoke:
         del params, dq, df
         self.free()
 
+    # -- phase group lm_train ------------------------------------------------
+    def lm_batch(self, cfg, seq_len, batch, position=0):
+        """The LM pipeline's batch ``position`` (seed 0) on the card."""
+        from repro_torch.data.lm import LmDataConfig, PipelineState
+        from repro_torch.data.lm import next_batch
+        st = PipelineState(0)
+        dcfg = LmDataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                            global_batch=batch)
+        for _ in range(position + 1):
+            b, st = next_batch(dcfg, st)
+        return {k: self.t(v) for k, v in b.items()}
+
+    def paths(self, tree, prefix=""):
+        """The leaf paths of a param tree, in ``tree_leaves`` order."""
+        if isinstance(tree, dict):
+            return [p for k in tree for p in self.paths(tree[k],
+                                                        f"{prefix}/{k}")]
+        if isinstance(tree, list):
+            return [p for i, v in enumerate(tree)
+                    for p in self.paths(v, f"{prefix}/{i}")]
+        return [prefix.lstrip("/")]
+
+    def moved(self, before, after):
+        """The share of each leaf's elements that training changed (the
+        trees walked by key: a restored tree has its keys sorted)."""
+        from repro_torch.optim.adamw import tree_leaves, tree_map
+        shares = tree_map(lambda a, b: (a != b).float().mean().item(),
+                          before, after)
+        return dict(zip(self.paths(before), tree_leaves(shares)))
+
+    def lm_train_mamba2(self):
+        """``repro_torch.launch.train.run`` on mamba2-130m at full width
+        and depth: TRAIN_STEPS steps, finite losses, every SSD chunk on
+        the kernel (launches counted over the run, the remat recompute
+        included), the params moved (the last checkpoint against the
+        seed's init)."""
+        import math
+        torch = self.torch
+        from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+        from repro_torch.configs import get_config
+        from repro_torch.distributed.steps import init_train_state
+        from repro_torch.launch import train
+        from repro_torch.optim import AdamWConfig
+        mcfg = get_config(TRAIN_ARCH)
+        build = os.path.join(HERE, "build")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            cfg = train.TrainRunConfig(arch=TRAIN_ARCH, smoke=False,
+                                       steps=TRAIN_STEPS, log_every=1,
+                                       ckpt_dir=tmp, device="cuda")
+            check((cfg.seq_len, cfg.global_batch) == (256, 8),
+                  "the trainer's defaults are seq 256, batch 8")
+            t0 = time.perf_counter()
+            out, launches, tiers = self.path_counts(lambda: train.run(cfg))
+            secs = time.perf_counter() - t0
+            with open(os.path.join(tmp, "events.jsonl")) as f:
+                events = [json.loads(ln) for ln in f]
+            p0, o0 = init_train_state(cfg.seed, mcfg, AdamWConfig(lr=cfg.lr),
+                                      device=self.dev)
+            step, tree, _ = CheckpointManager(CheckpointConfig(tmp)).restore(
+                {"params": p0, "opt": o0})
+        steps = [e for e in events if e["event"] == "step"]
+        check(len(steps) == TRAIN_STEPS
+              and all(math.isfinite(e["loss"]) for e in steps), steps)
+        chunks = -(-cfg.seq_len // mcfg.blocks[0].ssm.chunk)
+        want = TRAIN_STEPS * mcfg.n_layers * chunks * (2 if mcfg.remat
+                                                       else 1)
+        check(launches["ssd_chunk"] == want > 0,
+              ("ssd_chunk launches on the train path", launches, want))
+        check(tiers == {"ssd_chunk": {"cuda": want}}, tiers)
+        check(step == TRAIN_STEPS and out["steps_run"] == TRAIN_STEPS,
+              (step, out))
+        moved = self.moved(p0, tree["params"])
+        check(moved["embed"] > 0 and moved["groups/0/ssm/w_in"] > 0
+              and moved["groups/0/ssm/w_out"] > 0, moved)
+        self.train_launches_lm = launches["ssd_chunk"]
+        timed = steps[1:]  # step 1 carries the first call's set-up
+        log({"phase": "lm_train", "arch": TRAIN_ARCH,
+             "param_count": mcfg.param_count(), "layers": mcfg.n_layers,
+             "d_model": mcfg.d_model, "vocab": mcfg.vocab_size,
+             "dtype": mcfg.param_dtype, "chunk": mcfg.blocks[0].ssm.chunk,
+             "remat": mcfg.remat, "seq_len": cfg.seq_len,
+             "global_batch": cfg.global_batch, "steps": TRAIN_STEPS,
+             "per_step": [{"step": e["step"], "loss": e["loss"],
+                           "ms": round(e["dur_s"] * 1e3, 2),
+                           "tokens_per_s": e["tokens_per_sec"]}
+                          for e in steps],
+             "ms_per_step_after_first": round(statistics.mean(
+                 e["dur_s"] for e in timed) * 1e3, 2),
+             "tokens_per_s_after_first": round(statistics.mean(
+                 e["tokens_per_sec"] for e in timed), 1),
+             "checkpoint_s": [e["dur_s"] for e in events
+                              if e["event"] == "checkpoint"],
+             "launches": {"ssd_chunk": launches["ssd_chunk"]},
+             "dispatch_tiers": tiers,
+             "moved_share": {k: round(v, 4) for k, v in moved.items()},
+             "first_loss": out["first_loss"], "last_loss": out["last_loss"],
+             "run_seconds": round(secs, 3)})
+        del p0, o0, tree
+        self.free()
+
+    def lm_train_grads(self):
+        """At the trainer's width and batch 0: the step-0 gradient's global
+        norm (bf16, as the trainer starts), and in float32 the kernel
+        route's loss and gradient against the plain route's; then one
+        bf16 train step under torch.profiler."""
+        import dataclasses
+        import math
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.configs import get_config
+        from repro_torch.distributed.steps import (
+            init_train_state, loss_and_grads, make_train_step,
+        )
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import AdamWConfig, ScheduleConfig
+        from repro_torch.optim import make_schedule
+        from repro_torch.optim.adamw import _global_norm, tree_leaves
+        cfg = get_config(TRAIN_ARCH)
+        batch = self.lm_batch(cfg, 256, 8)
+        p16, o16 = init_train_state(0, cfg, AdamWConfig(), device=self.dev)
+        loss16, _, g16 = loss_and_grads(p16, cfg, batch)
+        gnorm = _global_norm(g16).item()
+        check(math.isfinite(gnorm) and math.isfinite(loss16.item()),
+              ("step-0 grad norm", gnorm, loss16.item()))
+        del g16
+        step_fn = make_train_step(cfg, AdamWConfig(), make_schedule(
+            ScheduleConfig(warmup_steps=20, total_steps=TRAIN_STEPS)))
+        step_fn(p16, o16, batch, 1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _, m = step_fn(p16, o16, batch, 1)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        self.profile("lm_train_profile",
+                     lambda: step_fn(p16, o16, batch, 1), arch=TRAIN_ARCH,
+                     B=8, S=256, dtype="bfloat16")
+        del p16, o16, new
+        self.free()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        p32 = T.init_params(generator(0, self.dev), cfg32, device=self.dev)
+        lk, _, gk = loss_and_grads(p32, cfg32, batch)
+        lp, _, gp = loss_and_grads(p32, cfg32, batch, use_kernel=False)
+        check(abs(lk.item() - lp.item()) <= LM_TOL * abs(lp.item()),
+              ("f32 loss kernel vs plain", lk.item(), lp.item()))
+        worst, where = 0.0, None
+        for i, (a, b) in enumerate(zip(tree_leaves(gk), tree_leaves(gp))):
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                   ).item()
+            check(rel <= TRAIN_GRAD_TOL, ("f32 grad leaf", i, rel))
+            if rel >= worst:
+                worst, where = rel, i
+        names = self.paths(p32)
+        # The plain route above is a comparison, not a path: clear its
+        # dispatches so that later phases' reports count their own.
+        from repro_torch.kernels import ops
+        self.note_batches()
+        ops.reset_dispatch()
+        log({"phase": "lm_train_grads", "arch": TRAIN_ARCH, "B": 8, "S": 256,
+             "step0_grad_norm_bf16": gnorm, "step0_loss_bf16": loss16.item(),
+             "bf16_step_ms": round(step_s * 1e3, 3),
+             "bf16_step_tokens_per_s": round(8 * 256 / step_s, 1),
+             "f32_loss_kernel": lk.item(), "f32_loss_plain": lp.item(),
+             "f32_grad_worst_leaf": names[where],
+             "f32_grad_worst_rel": worst,
+             "tolerance_rel": TRAIN_GRAD_TOL,
+             "f32_grad_norm": _global_norm(gk).item()})
+        del p32, gk, gp
+        self.free()
+
+    def lm_train_family(self, arch, depth, seed):
+        """TRAIN_FAMILY_STEPS train steps at full width (bfloat16, the
+        trainer's schedule and batch): finite losses; the step-0 gradient
+        for the checks of the caller. Returns (cfg, params before, params
+        after, metrics of each step, step-0 grads)."""
+        import math
+        from repro_torch.distributed.steps import (
+            loss_and_grads, make_train_step,
+        )
+        from repro_torch.optim import AdamWConfig, ScheduleConfig
+        from repro_torch.optim import adamw_init, make_schedule
+        cfg, params, init_s = self.lm_model(arch, depth, seed=seed)
+        batch = self.lm_batch(cfg, 256, 8)
+        _, m0, grads = loss_and_grads(params, cfg, batch)
+        step_fn = make_train_step(cfg, AdamWConfig(), make_schedule(
+            ScheduleConfig(warmup_steps=20, total_steps=100)))
+        p, opt, metrics = params, adamw_init(params, AdamWConfig()), []
+        t0 = time.perf_counter()
+        for i in range(TRAIN_FAMILY_STEPS):
+            p, opt, m = step_fn(p, opt, self.lm_batch(cfg, 256, 8, i), i)
+            metrics.append({k: float(v) for k, v in m.items()})
+        self.torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(all(math.isfinite(m["loss"]) for m in metrics), metrics)
+        return cfg, params, p, metrics, m0, grads, init_s, secs
+
+    def lm_train_hymba(self):
+        cfg, before, after, metrics, _, grads, init_s, secs = \
+            self.lm_train_family("hymba-1.5b", None, 20)
+        moved = self.moved(before, after)
+        g = grads["groups"][0]
+        check(g["attn"]["wq"].abs().max().item() > 0
+              and g["ssm"]["w_in"].abs().max().item() > 0,
+              "hymba: attention and SSM gradients")
+        check(moved["groups/0/attn/wq"] > 0 and moved["groups/0/ssm/w_in"] > 0,
+              ("hymba: attention and SSM trained", moved))
+        log({"phase": "lm_train_hymba", **self.model_log(cfg, "hymba-1.5b",
+                                                         init_s),
+             "B": 8, "S": 256, "steps": metrics,
+             "seconds_steps": round(secs, 3),
+             "moved_share": {k: round(v, 4) for k, v in moved.items()
+                             if k.endswith(("attn/wq", "ssm/w_in", "embed"))},
+             "peak_bytes": self.torch.cuda.max_memory_allocated()})
+        del before, after, grads
+        self.free()
+
+    def lm_train_deepseek(self):
+        import math
+        cfg, before, after, metrics, m0, grads, init_s, secs = \
+            self.lm_train_family(DS_ARCH, TRAIN_DS_DEPTH, 21)
+        routed = {k: grads["groups"][1]["ffn"][k].abs().max().item()
+                  for k in ("w_gate", "w_up", "w_down")}
+        check(all(v > 0 for v in routed.values()), routed)
+        lb = [m["lb_loss"] for m in metrics]
+        check(all(math.isfinite(v) and v > 0 for v in lb), lb)
+        moved = self.moved(before, after)
+        check(moved["groups/1/ffn/w_gate"] > 0, moved)
+        log({"phase": "lm_train_deepseek",
+             **self.model_log(cfg, DS_ARCH, init_s),
+             "depth_cut": {"dense": TRAIN_DS_DEPTH[0],
+                           "moe": TRAIN_DS_DEPTH[1],
+                           "from": [b.repeat for b in
+                                    self.full_cfg(DS_ARCH).blocks]},
+             "B": 8, "S": 256, "steps": metrics,
+             "step0_lb_loss": float(m0["lb_loss"]),
+             "routed_grad_max": routed, "seconds_steps": round(secs, 3),
+             "peak_bytes": self.torch.cuda.max_memory_allocated()})
+        del before, after, grads
+        self.free()
+
+    def lm_train_v3(self):
+        """deepseek-v3's smoke config, one step from a zero AdamW state at
+        step 0 (lr 0): only the aux-free update moves the router bias, by
+        exactly +-0.001 (0 where a count is the mean); the MTP loss is in
+        the metrics."""
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.distributed.steps import (
+            BIAS_UPDATE_RATE, loss_and_grads, make_train_step,
+        )
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import AdamWConfig, ScheduleConfig
+        from repro_torch.optim import adamw_init, make_schedule
+        cfg = get_smoke_config(V3_ARCH)
+        params = T.init_params(generator(22, self.dev), cfg, device=self.dev)
+        batch = self.lm_batch(cfg, 64, 2)
+        _, m0, _ = loss_and_grads(params, cfg, batch)
+        counts = m0["expert_counts_g1"]
+        step_fn = make_train_step(cfg, AdamWConfig(), make_schedule(
+            ScheduleConfig(warmup_steps=20, total_steps=100)))
+        new, _, m = step_fn(params, adamw_init(params, AdamWConfig()),
+                            batch, 0)
+        bias = new["groups"][1]["ffn"]["router_bias"]
+        delta = bias - params["groups"][1]["ffn"]["router_bias"]
+        want = BIAS_UPDATE_RATE * torch.sign(counts.mean() - counts)
+        check(torch.equal(delta, want.expand_as(delta)),
+              ("router_bias delta", delta.tolist(), counts.tolist()))
+        check(bool((delta.abs() == BIAS_UPDATE_RATE).any()), delta.tolist())
+        check("mtp_loss" in m and float(m["mtp_loss"]) > 0, sorted(m))
+        log({"phase": "lm_train_v3", "arch": cfg.name,
+             "router_bias_delta": delta[0].tolist(),
+             "expert_counts": counts.tolist(),
+             "metrics": {k: float(v) for k, v in m.items()}})
+
+    def lm_train_resume(self):
+        """The LM trainer CLI on the card at the smoke config: killed at
+        step 12, resumed (from step 10), and run clean; the last losses
+        within RESUME_TOL. On a miss, the output names the step of the
+        first per-step divergence between two identical gradient
+        evaluations, where a non-deterministic CUDA op shows."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        build = os.path.join(HERE, "build")
+        os.makedirs(build, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            def run(name, *extra):
+                cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                       "--arch", TRAIN_ARCH, *TRAIN_RESUME, "--device",
+                       "cuda", "--ckpt-dir", os.path.join(tmp, name), *extra]
+                return subprocess.run(cmd, env=env, capture_output=True,
+                                      text=True, timeout=300)
+
+            def result(p):
+                check(p.returncode == 0, p.stderr[-2000:])
+                return json.loads(p.stdout[p.stdout.index("{"):])
+
+            crash = run("crash", "--fail-at-step", "12")
+            check(crash.returncode == 42, ("crash exit", crash.returncode,
+                                           crash.stderr[-2000:]))
+            resumed = result(run("crash"))
+            clean = result(run("clean"))
+        check(resumed["resumed_from"] == 10, resumed)
+        gap = abs(resumed["last_loss"] - clean["last_loss"])
+        if gap >= RESUME_TOL:
+            check(False, ("resumed vs clean last loss", gap,
+                          self.nondeterministic_leaves()))
+        log({"phase": "lm_train_resume", "arch": TRAIN_ARCH,
+             "args": TRAIN_RESUME, "crash_exit": 42,
+             "resumed_from": resumed["resumed_from"],
+             "last_loss_resumed": resumed["last_loss"],
+             "last_loss_clean": clean["last_loss"], "gap": gap,
+             "tolerance": RESUME_TOL, "device": clean["device"],
+             "seconds_three_runs": round(time.perf_counter() - t0, 3)})
+
+    def nondeterministic_leaves(self):
+        """The gradient leaves that differ between two evaluations of one
+        loss on the same smoke params and batch (the ops under them are
+        the non-deterministic ones)."""
+        import torch
+        from repro_torch import generator
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.distributed.steps import loss_and_grads
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.adamw import tree_leaves
+        cfg = get_smoke_config(TRAIN_ARCH)
+        p = T.init_params(generator(0, self.dev), cfg, device=self.dev)
+        batch = self.lm_batch(cfg, 64, 2)
+        names = self.paths(p)
+        a = tree_leaves(loss_and_grads(p, cfg, batch)[2])
+        b = tree_leaves(loss_and_grads(p, cfg, batch)[2])
+        return {n: (x - y).abs().max().item()
+                for n, x, y in zip(names, a, b) if not torch.equal(x, y)}
+
     def lm_kernel_cases(self):
         """The kernels line's rows of the LM kernels: (cases, library)."""
         np, torch = self.np, self.torch
@@ -3823,6 +4200,8 @@ class Smoke:
             row.setdefault("launches_by_path", {})["lm_families"] = (
                 self.families_launches)
         rows = {r["name"]: r for r in out}
+        rows["ssd_chunk"].setdefault("launches_by_path", {})[
+            "lm_train"] = self.train_launches_lm
         # Launches on this slice's paths, beside each row's own path.
         for name, path, counts in (
                 ("binary_mvm", "baselines", self.baseline_launches),
@@ -3938,15 +4317,15 @@ def main():
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
                          "hier,baselines,online,autotune,sharded,"
-                         "fit_sharded,lm,lm_families,robustness,cli,"
-                         "trainer,repro "
+                         "fit_sharded,lm,lm_families,lm_train,robustness,"
+                         "cli,trainer,repro "
                          "(development runs; train, fidelity, hier, "
                          "baselines, online and fit_sharded need main, "
                          "autotune needs main and train, sharded main, "
                          "fidelity and hier; the kernels line needs "
                          "kernels, main, train, fidelity, hier, baselines, "
-                         "online, autotune, sharded, fit_sharded, lm "
-                         "and lm_families)")
+                         "online, autotune, sharded, fit_sharded, lm, "
+                         "lm_families and lm_train)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -3964,7 +4343,8 @@ def main():
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
                "baselines", "online", "autotune", "sharded", "fit_sharded",
-               "lm", "lm_families", "robustness", "cli", "trainer", "repro"]
+               "lm", "lm_families", "lm_train", "robustness", "cli",
+               "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -4021,6 +4401,17 @@ def main():
         smoke.lm_quant()
         log({"phase": "lm_families_group",
              "seconds": round(time.perf_counter() - t_lm, 3)})
+    if "lm_train" in phases:
+        t_lm = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        smoke.lm_train_mamba2()
+        smoke.lm_train_grads()
+        smoke.lm_train_hymba()
+        smoke.lm_train_deepseek()
+        smoke.lm_train_v3()
+        smoke.lm_train_resume()
+        log({"phase": "lm_train_group",
+             "seconds": round(time.perf_counter() - t_lm, 3)})
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
@@ -4032,7 +4423,7 @@ def main():
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
                                  "hier", "baselines", "online", "autotune",
                                  "sharded", "fit_sharded", "lm",
-                                 "lm_families")):
+                                 "lm_families", "lm_train")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -17,7 +17,9 @@ A tree is nested dicts (keys sorted), lists, tuples and dataclasses (by
 field order) over tensor, numpy or scalar leaves; leaves are keyed by
 their path ("0/fp", "1", ...) — the key layout of the reference's
 pytree paths. Leaves are saved as numpy ``.npy`` files; ``restore``
-loads them onto the device and dtype of the template's leaves.
+loads them onto the device and dtype of the template's leaves. numpy has
+no bfloat16: a bfloat16 tensor is saved as its int16 bit pattern, with
+"bfloat16" as its dtype in the manifest, and restored bit for bit.
 """
 from __future__ import annotations
 
@@ -70,17 +72,24 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the array to save, the dtype to record in the manifest)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        if leaf.dtype == torch.bfloat16:
+            return leaf.detach().view(torch.int16).cpu().numpy(), "bfloat16"
+        leaf = leaf.detach().cpu().numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def _like(arr: np.ndarray, template):
+def _like(arr: np.ndarray, dtype: str, template):
     """A loaded array in the template leaf's kind, device and dtype."""
     if isinstance(template, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=template.device, dtype=template.dtype)
+        # ascontiguousarray makes a 0-d array 1-d: keep the shape.
+        t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+        if dtype == "bfloat16":
+            t = t.view(torch.bfloat16)
+        return t.to(device=template.device, dtype=template.dtype)
     return arr
 
 
@@ -129,13 +138,13 @@ class CheckpointManager:
 
         files = {}
         for key, leaf in _flatten(tree):
-            arr = _to_numpy(leaf)
+            arr, dtype = _to_numpy(leaf)
             fn = hashlib.md5(key.encode()).hexdigest()[:16] + ".npy"
             np.save(os.path.join(tmp, fn), arr, allow_pickle=False)
             files[key] = {
                 "file": fn,
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": dtype,
                 "sha256": _sha256(os.path.join(tmp, fn)),
             }
 
@@ -216,7 +225,7 @@ class CheckpointManager:
                     break
                 arr = np.load(os.path.join(d, meta["file"]),
                               allow_pickle=False)
-                out.append(_like(arr, like))
+                out.append(_like(arr, meta["dtype"], like))
             else:
                 tree = _unflatten(tree_like, iter(out))
                 log.info("restored checkpoint step=%d from %s", s, d)

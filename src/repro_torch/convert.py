@@ -25,6 +25,8 @@ never sees a jax object:
         dataclasses.asdict(baseline_cfg), device="cpu")
     lm_params = lm_params_from_numpy(
         jax.tree.map(np.asarray, params), cfg, device="cpu")
+    opt_state = adamw_state_from_numpy(
+        jax.tree.map(np.asarray, opt_state), lm_params)
 """
 from __future__ import annotations
 
@@ -172,3 +174,24 @@ def _lm_tree(tree, device):
         return torch.tensor(a.view(np.int16), device=device).view(
             torch.bfloat16)
     return torch.tensor(a, device=device)
+
+
+def adamw_state_from_numpy(state, params_like) -> dict:
+    """The port's AdamW state from the reference's (``adamw_init`` /
+    ``adamw_update`` output with numpy leaves): {"m", "v", "step"}, where
+    ``m`` and ``v`` follow the param tree and an int8 ``v`` leaf is a
+    (q, scale) tuple. Leaves land on the device of the matching leaf of
+    ``params_like`` (the port's params) with their own dtypes (a bfloat16
+    moment bit for bit); ``step`` on the first leaf's device."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    def on(p, a):
+        if isinstance(a, tuple):
+            return tuple(_lm_tree(x, p.device) for x in a)
+        return _lm_tree(a, p.device)
+
+    device = tree_leaves(params_like)[0].device
+    return {"m": tree_map(on, params_like, state["m"]),
+            "v": tree_map(on, params_like, state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

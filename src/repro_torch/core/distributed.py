@@ -242,11 +242,11 @@ def dryrun_inference(mesh, **kwargs):
     and reads roofline terms from the HLO; the port has no HLO tools."""
     raise NotImplementedError(
         "dryrun_inference needs the HLO cost tools, which are not ported "
-        "yet (ROADMAP queue 1, item 17)")
+        "yet (ROADMAP queue 1, item 17c)")
 
 
 def dryrun_epoch(mesh, **kwargs):
     """See ``dryrun_inference``."""
     raise NotImplementedError(
         "dryrun_epoch needs the HLO cost tools, which are not ported yet "
-        "(ROADMAP queue 1, item 17)")
+        "(ROADMAP queue 1, item 17c)")

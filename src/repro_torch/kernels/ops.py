@@ -96,7 +96,7 @@ from repro_torch.kernels.qail_update import (
     BLOCK_B_CHOICES as QAIL_BLOCK_B_CHOICES,
 )
 from repro_torch.kernels.qail_update import qail_update as _qail_update
-from repro_torch.kernels.ssd_chunk import ssd_chunk as _ssd_chunk
+from repro_torch.kernels.ssd_chunk import SsdChunk as _SsdChunk
 from repro_torch.obs import metrics as _obs_metrics
 
 _DISPATCH = _obs_metrics.counter(
@@ -618,7 +618,11 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Mamba-2 SSD chunk for every (batch, head): x (B, Q, H, P),
     b/c (B, Q, H, N), dt/da (B, Q, H), state (B, H, N, P) entering the
-    chunk. Returns (y in x's dtype, the float32 state leaving it)."""
+    chunk. Returns (y in x's dtype, the float32 state leaving it).
+
+    Both tiers are differentiable: the plain one under autograd, the
+    kernel through ``ssd_chunk.SsdChunk`` (kernel forward, the plain
+    version's VJP), in and out of grad mode alike."""
     tier = _tier(x, use_kernel)
     _count("ssd_chunk", tier, B=x.shape[0], Q=x.shape[1], H=x.shape[2],
            N=b.shape[3], P=x.shape[3])
@@ -626,4 +630,4 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return ref.ssd_chunk(x, b, c, dt, da, state)
     rows = [t if t.shape[0] == 0 or t[0].is_contiguous() else t.contiguous()
             for t in (x, b, c, dt.float(), da.float())]
-    return _ssd_chunk(*rows, state.float().contiguous())
+    return _SsdChunk.apply(*rows, state.float().contiguous())

@@ -439,8 +439,11 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     b32, c32 = b.float(), c.float()
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                  device=x.device))[None, :, :, None]
-    decay = torch.where(mask, torch.exp(cum[:, :, None, :]
-                                        - cum[:, None, :, :]), 0.0)
+    # The exponent is masked before the exp (the reference masks after
+    # it): the same values, but above the diagonal cum_i - cum_j grows
+    # with Q and overflows, and where's gradient 0 * inf would be NaN.
+    decay = torch.exp(torch.where(mask, cum[:, :, None, :]
+                                  - cum[:, None, :, :], float("-inf")))
     cb = torch.einsum("bqhn,bkhn->bqkh", c32, b32)
     y_intra = torch.einsum("bqkh,bkhp->bqhp", cb * decay, xdt)
     y_inter = torch.einsum("bqhn,bhnp->bqhp",

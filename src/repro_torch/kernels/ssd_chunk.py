@@ -18,6 +18,12 @@ a plan other than its own: every (batch row, head) gets one block per
 A CPU tensor goes through the plain version (``ref.ssd_chunk``); a CUDA
 tensor through the kernel or raises. ``ssd_chunk.launches`` counts
 kernel launches.
+
+``SsdChunk`` is the differentiable route: its forward is ``ssd_chunk``
+(the kernel on a CUDA tensor), its backward recomputes the chunk through
+``ref.ssd_chunk`` under autograd and returns that VJP for every input.
+The reference differentiates its chunk body as plain jnp (remat'd), and
+its Pallas kernel has no VJP, so there is no backward kernel to port.
 """
 from __future__ import annotations
 
@@ -163,3 +169,26 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 
 ssd_chunk.launches = 0
+
+
+class SsdChunk(torch.autograd.Function):
+    """``ssd_chunk`` with a gradient: the forward launches the kernel
+    (counted by ``ssd_chunk.launches``), the backward is the VJP of the
+    plain version, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, da, state):
+        ctx.save_for_backward(x, b, c, dt, da, state)
+        return ssd_chunk(x, b, c, dt, da, state)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            outs = ref.ssd_chunk(*inputs)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wanted, (gy, gs),
+                                             allow_unused=True))
+        return tuple(next(grads) if n else None for n in need)

@@ -1,24 +1,34 @@
 """Fault-tolerant training entry point (port of ``repro.launch.train``).
 
-Runs the paper's QAIL trainer (``--arch memhd``) with a fault-tolerant
-production substrate:
+Runs a training loop with the reference's production substrate:
 
-  * deterministic data, encoder and clustering init (seeded);
+  * deterministic, checkpointable data (the LM pipeline's position rides
+    in the checkpoint manifest);
   * atomic checkpoints + auto-resume from the newest *valid* one;
   * a per-step wall-clock watchdog: the deadline writes an emergency
     checkpoint and exits non-zero so a cluster manager can reschedule;
   * optional failure injection (``--fail-at-step``, exit 42) that the
-    tests use to prove bit-exact resume.
+    tests use to prove resume.
 
-One "step" is one QAIL epoch (``qail.qail_epoch_scan``; the per-epoch
-miss rate is the one host sync), the checkpointed state is a
-``MemhdTrainState``, and the run returns ``am_digest`` (sha256 of the
-binary AM), identical with and without a mid-run crash. Every epoch,
-checkpoint, resume and watchdog fire is one line of ``events.jsonl``
-next to the checkpoints. The LM archs of the reference's trainer are not
-ported (ROADMAP queue 1, item 17).
+Two trainer families run under the same driver:
 
-Usage (on the GPU; ``--device cpu`` for the plain path on the CPU):
+  * the LM archs of ``repro_torch.configs`` (per-step AdamW training
+    through ``distributed.steps.make_train_step``: ``loss_fn``, autograd,
+    AdamW; the SSM layers through the ``ssd_chunk`` kernel on the GPU),
+    and
+  * ``--arch memhd``, the paper's QAIL trainer: one "step" is one QAIL
+    epoch (``qail.qail_epoch_scan``; the per-epoch miss rate is the one
+    host sync), the checkpointed state is a ``MemhdTrainState``, and the
+    run returns ``am_digest`` (sha256 of the binary AM), identical with
+    and without a mid-run crash.
+
+Every step or epoch, checkpoint, resume and watchdog fire is one line of
+``events.jsonl`` next to the checkpoints.
+
+Usage (on the GPU; ``--device cpu`` for the plain path on the CPU;
+``--no-smoke`` for the published config at full width and depth):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+      --no-smoke --steps 50 --ckpt-dir /tmp/run1
   PYTHONPATH=src python -m repro_torch.launch.train --arch memhd \\
       --smoke --steps 10 --ckpt-dir /tmp/memhd_run
 """
@@ -29,6 +39,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import math
 import os
 import signal
 import tempfile
@@ -41,15 +52,18 @@ log = logging.getLogger("train")
 
 @dataclasses.dataclass
 class TrainRunConfig:
-    """The reference's run config without its LM-only fields (seq_len,
-    global_batch, lr, warmup), which come with the LM trainers."""
+    """The reference's run config, plus the device to run on."""
 
     arch: str = "memhd"
     smoke: bool = True
     steps: int = 100
+    seq_len: int = 256
+    global_batch: int = 8
     ckpt_dir: str = ""  # empty: repro_torch_ckpt in the temp directory
     ckpt_every: int = 20
     keep: int = 3
+    lr: float = 3e-4
+    warmup: int = 20
     log_every: int = 10
     step_deadline_s: float = 300.0
     fail_at_step: int = -1  # fault-injection for tests
@@ -223,16 +237,131 @@ def run_memhd(cfg: TrainRunConfig) -> dict:
     }
 
 
-# Trainers this entry point runs. The LM archs are not ported.
+def run_lm(cfg: TrainRunConfig) -> dict:
+    """AdamW training of an LM arch with checkpoints, watchdog and
+    auto-resume. Params come from ``cfg.seed``; the data stream's
+    position is checkpointed, so a resumed run sees the batches an
+    uninterrupted run would."""
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.lm import LmDataConfig, PipelineState, next_batch
+    from repro_torch.distributed.steps import (
+        init_train_state, make_train_step,
+    )
+    from repro_torch.optim import AdamWConfig, ScheduleConfig, make_schedule
+
+    device = resolve_device(cfg.device)
+    mcfg = (get_smoke_config(cfg.arch) if cfg.smoke
+            else get_config(cfg.arch))
+    if mcfg.frontend != "none":
+        raise SystemExit(
+            f"{cfg.arch} needs modality inputs; use examples/ drivers")
+
+    opt_cfg = AdamWConfig(lr=cfg.lr)
+    sched = make_schedule(ScheduleConfig(
+        warmup_steps=cfg.warmup, total_steps=cfg.steps))
+    dcfg = LmDataConfig(vocab_size=mcfg.vocab_size, seq_len=cfg.seq_len,
+                        global_batch=cfg.global_batch)
+
+    params, opt_state = init_train_state(cfg.seed, mcfg, opt_cfg,
+                                         device=device)
+    pipe = PipelineState(seed=cfg.seed)
+    start_step = 0
+
+    ckpt_dir = _ckpt_dir(cfg)
+    ckpt = CheckpointManager(CheckpointConfig(ckpt_dir, keep=cfg.keep))
+    events = obs.EventLog(os.path.join(ckpt_dir, "events.jsonl"))
+
+    def timed_save(step, tree, extra):
+        t0 = time.perf_counter()
+        ckpt.save(step, tree, extra=extra)
+        events.emit("checkpoint", step=step,
+                    dur_s=round(time.perf_counter() - t0, 4),
+                    emergency=bool(extra.get("emergency", False)))
+
+    restored_step, tree, extra = ckpt.restore(
+        {"params": params, "opt": opt_state})
+    if restored_step is not None:
+        params, opt_state = tree["params"], tree["opt"]
+        pipe = PipelineState.from_json(extra["pipeline"])
+        start_step = restored_step
+        log.info("resumed from step %d", start_step)
+        events.emit("resume", step=start_step)
+
+    step_fn = make_train_step(mcfg, opt_cfg, sched)
+
+    # Emergency-checkpoint source: the last completed step's params,
+    # state and stream position (the step returns new trees, so these
+    # stay whole while a step is in flight).
+    last = {"step": start_step, "params": params, "opt": opt_state,
+            "pipe": pipe}
+
+    def emergency_ckpt():
+        log.error("watchdog fired: writing emergency checkpoint")
+        events.emit("watchdog", step=last["step"],
+                    deadline_s=cfg.step_deadline_s)
+        timed_save(last["step"], {"params": last["params"],
+                                  "opt": last["opt"]},
+                   extra={"pipeline": last["pipe"].to_json(),
+                          "emergency": True})
+
+    losses = []
+    t_start = time.time()
+    for step in range(start_step, cfg.steps):
+        t_step = time.perf_counter()
+        batch_np, pipe = next_batch(dcfg, pipe)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in batch_np.items()}
+        with StepWatchdog(cfg.step_deadline_s, emergency_ckpt):
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 step)
+            loss = float(metrics["loss"])  # the one host sync a step
+        losses.append(loss)
+        last.update(step=step + 1, params=params, opt=opt_state, pipe=pipe)
+        if not math.isfinite(loss):
+            events.emit("diverged", step=step, loss=loss)
+            raise FloatingPointError(f"loss diverged at step {step}")
+        if (step + 1) % cfg.log_every == 0:
+            dt_step = time.perf_counter() - t_step
+            log.info("step %d loss %.4f (%.2f s/step)", step + 1, loss,
+                     (time.time() - t_start) / (step + 1 - start_step))
+            events.emit("step", step=step + 1, loss=round(loss, 6),
+                        dur_s=round(dt_step, 4),
+                        tokens_per_sec=round(
+                            cfg.global_batch * cfg.seq_len / dt_step, 1)
+                        if dt_step else None)
+        if (step + 1) % cfg.ckpt_every == 0 or step + 1 == cfg.steps:
+            timed_save(step + 1, {"params": params, "opt": opt_state},
+                       extra={"pipeline": pipe.to_json()})
+        if cfg.fail_at_step == step + 1:
+            log.error("injected failure at step %d", step + 1)
+            events.emit("injected_failure", step=step + 1)
+            os._exit(42)  # simulate a hard node death
+
+    events.emit("run_end", steps_run=len(losses),
+                resumed_from=start_step,
+                wall_s=round(time.time() - t_start, 3))
+    events.close()
+    return {
+        "first_loss": losses[0] if losses else None,
+        "last_loss": losses[-1] if losses else None,
+        "steps_run": len(losses),
+        "resumed_from": start_step,
+        "device": str(device),
+    }
+
+
+# Non-LM trainers that run under the same fault-tolerant driver.
 TRAINERS = {"memhd": run_memhd}
 
 
 def run(cfg: TrainRunConfig) -> dict:
     if cfg.arch in TRAINERS:
         return TRAINERS[cfg.arch](cfg)
-    raise NotImplementedError(
-        f"--arch {cfg.arch}: the LM trainers are not ported yet "
-        "(ROADMAP queue 1, item 17); the port trains --arch memhd")
+    return run_lm(cfg)
 
 
 def main(argv=None) -> dict:
@@ -240,7 +369,8 @@ def main(argv=None) -> dict:
     for f in dataclasses.fields(TrainRunConfig):
         name = "--" + f.name.replace("_", "-")
         if f.type == "bool" or isinstance(f.default, bool):
-            ap.add_argument(name, action="store_true", default=f.default)
+            ap.add_argument(name, action=argparse.BooleanOptionalAction,
+                            default=f.default)
         else:
             ap.add_argument(name, type=type(f.default), default=f.default)
     args = ap.parse_args(argv)

@@ -1,7 +1,7 @@
 """Transformer / SSM layers of the LM stack, as functions over dicts of
 tensors.
 
-Port of the serving half of ``repro.models.layers``: RMSNorm, RoPE, GQA
+Port of ``repro.models.layers`` on one device: RMSNorm, RoPE, GQA
 attention (chunked online-softmax ``attention_full``, sliding-window
 ``attention_local``, the decode step through the ``flash_decode`` kernel
 with the logit softcap, and the int8 KV cache's decode), MLA (the
@@ -10,7 +10,10 @@ cross-attention, the dense FFN, the top-k MoE FFN (local sort-based
 dispatch), and Mamba-2 SSD (the chunked ``ssd_forward`` through the
 ``ssd_chunk`` kernel, the O(1) decode step). MLA, MoE, cross-attention
 and the int8 cache are plain torch, as they are plain ``jnp`` in the
-reference.
+reference. The forward paths are differentiable under autograd, the SSD
+chunk's kernel route through ``kernels.ssd_chunk.SsdChunk`` (the kernel
+forward, the plain version's VJP), which is what the LM train step
+differentiates.
 
 Each ``init_*`` draws from an explicit ``torch.Generator`` with the
 reference's shapes, dtypes and distributions and returns the params only
@@ -39,7 +42,7 @@ NEG_INF = float("-inf")
 DRAW_ELEMS = 1 << 26
 
 
-def deferred(what: str, item: str = "queue 1 item 17") -> None:
+def deferred(what: str, item: str = "queue 1 item 17c") -> None:
     """Raise for a part of the LM stack the port does not have yet."""
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 

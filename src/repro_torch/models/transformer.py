@@ -1,7 +1,7 @@
-"""Model assembly: embeddings -> block groups -> head(s).
+"""Model assembly: embeddings -> block groups -> head(s), and the loss.
 
-Port of ``repro.models.transformer``'s serving surface for all ten
-registered architectures: token-id models and the two modality
+Port of ``repro.models.transformer`` for all ten registered
+architectures: token-id models and the two modality
 frontends (``audio_frames``: precomputed frame embeddings, cross-attended
 conditioning and codebook heads; ``vision_patches``: projected patch
 features ahead of the text), with GQA, MLA, Mamba-2 SSD or hybrid
@@ -9,17 +9,20 @@ mixers, dense or MoE FFNs, and the int8 KV cache. Parameters are nested
 dicts of tensors; a group's layers are stacked along a leading ``repeat``
 axis as in the reference, so the reference's params cross one to one
 (``convert.lm_params_from_numpy``). Layers run in a Python loop over
-that axis.
+that axis (``unbind``: one view per layer, whose gradients autograd
+stacks back in one pass). With ``cfg.remat`` and grad mode on, each
+layer runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body): the backward recomputes the
+layer's activations instead of keeping them; the numbers are the same.
 
 Public surface:
   init_params(generator, cfg, device=)       -> params
   forward(params, cfg, batch)                -> logits, aux
+  loss_fn(params, cfg, batch)                -> loss, metrics
   init_cache(cfg, batch, max_len, device=)   -> decode caches
   decode_step(params, cfg, batch, caches)    -> logits, caches
 
-``use_kernel=False`` runs the kernels' plain versions. The multi-token
-prediction (MTP) block's params are drawn and carried; its loss comes
-with ``loss_fn`` in the training slice.
+``use_kernel=False`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -46,7 +50,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.seq_parallel_decode:
         L.deferred("seq_parallel_decode", "queue 1 item 17c")
     if cfg.param_dtype != cfg.activation_dtype:
-        L.deferred("mixed param/activation dtypes")
+        L.deferred("mixed param/activation dtypes",
+                   "queue 1 item 17a, a kept difference")
 
 
 def _has_ffn(b: BlockSpec) -> bool:
@@ -58,6 +63,16 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a group's stacked tree, as views from one
+    ``unbind`` a leaf (its backward stacks the layers' gradients once;
+    ``tree[i]`` per layer would add a full-size gradient a layer)."""
+    if isinstance(tree, dict):
+        cols = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _map(fn, tree):
@@ -248,12 +263,18 @@ def forward(params: Params, cfg: ModelConfig,
     MoE layer) and "expert_counts_g{gi}" (each MoE group's per-expert
     slot counts, summed over its layers)."""
     x, positions, cond = embed_inputs(params, cfg, batch)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total: Dict[str, Any] = {}
     for gi, (b, gp) in enumerate(zip(cfg.blocks, params["groups"])):
         group_aux: Dict[str, torch.Tensor] = {}
-        for i in range(b.repeat):
-            x, aux = _layer_forward(cfg, b, _layer(gp, i), x, positions,
-                                    cond, use_kernel)
+        for lp in _unstack(gp, b.repeat):
+            if remat:
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    _layer_forward, cfg, b, lp, x, positions, cond,
+                    use_kernel, use_reentrant=False)
+            else:
+                x, aux = _layer_forward(cfg, b, lp, x, positions, cond,
+                                        use_kernel)
             for k, v in aux.items():
                 group_aux[k] = group_aux[k] + v if k in group_aux else v
         for k, v in group_aux.items():
@@ -264,6 +285,68 @@ def forward(params: Params, cfg: ModelConfig,
     h = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
     aux_total["final_hidden"] = h
     return _head(params, cfg, h), aux_total
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean token cross-entropy in float32 (over ``mask`` when given)."""
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], *, use_kernel: bool = True,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of a training batch: next-token cross-entropy
+    against batch["targets"] ((B, S), or (B, S, n_codebooks) with
+    codebook heads; a vision model's loss is over the text positions
+    only), plus 0.01 x the MoE load-balance loss and, with an MTP block,
+    0.3 x the cross-entropy of its t+2 prediction. metrics holds
+    "lm_loss", "lb_loss" and "mtp_loss" where they apply, each MoE
+    group's "expert_counts_g{gi}" and "loss"."""
+    logits, aux = forward(params, cfg, batch, use_kernel=use_kernel)
+    h = aux.pop("final_hidden")
+    if cfg.frontend == "vision_patches":
+        # Text-only loss; patch positions are context.
+        n_p = batch["patch_feats"].shape[1]
+        loss = _xent(logits[:, n_p:], batch["targets"], None)
+    else:
+        loss = _xent(logits, batch["targets"], None)
+
+    metrics = {"lm_loss": loss}
+    if "lb_loss" in aux:
+        lb = 0.01 * aux["lb_loss"]
+        loss = loss + lb
+        metrics["lb_loss"] = lb
+    for k, v in aux.items():
+        if k.startswith("expert_counts_g"):
+            metrics[k] = v
+
+    if cfg.mtp_depth and cfg.frontend == "none":
+        # DeepSeek-V3 MTP: predict t+2 from [h_i ; emb(t_{i+1})].
+        emb_next = params["embed"][batch["targets"]].to(h.dtype)
+        hin = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"]
+        positions = torch.arange(h.shape[1], device=h.device)[None, :] \
+            .expand(h.shape[0], -1)
+        hm, _ = _layer_forward(cfg, cfg.blocks[-1], params["mtp"]["block"],
+                               hin, positions, None, use_kernel)
+        hm = L.rms_norm(hm, params["mtp"]["ln"], cfg.rms_eps)
+        mtp_logits = _head(params, cfg, hm)[:, :-1]
+        mtp = 0.3 * _xent(mtp_logits, batch["targets"][:, 1:], None)
+        loss = loss + mtp
+        metrics["mtp_loss"] = mtp
+
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -258,7 +258,7 @@ def test_decode_softcap_and_quant_cache_raise():
     p = L.init_gqa(gen, cfg.d_model, spec, torch.float32, "cpu")
     cache = L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu")
     x = torch.ones((1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 17c"):
         L.gqa_decode(p, cfg.blocks[0].attn, x, cache, seq_parallel=True)
     y, cache = L.gqa_decode(p, spec, x, cache)
     assert torch.isfinite(y).all() and cache["len"].tolist() == [1]

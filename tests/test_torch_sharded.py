@@ -447,7 +447,7 @@ def test_make_inference_fn_matches_the_reference(pair):
     np.testing.assert_array_equal(n(got), np.asarray(want))
     np.testing.assert_array_equal(n(got), n(tm.predict(x)))
     for fn in (distributed.dryrun_inference, distributed.dryrun_epoch):
-        with pytest.raises(NotImplementedError, match="item 17"):
+        with pytest.raises(NotImplementedError, match="item 17c"):
             fn(cpu_mesh(1))
 
 
