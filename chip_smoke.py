@@ -260,7 +260,36 @@ script exits non-zero without the final result line:
    zero state: the router bias moved by exactly +-0.001 and the MTP loss
    in the metrics (``lm_train_v3``); the LM trainer CLI at the smoke
    config killed at step 12, resumed from step 10, within 1e-5 of a
-   clean run's last loss (``lm_train_resume``).
+   clean run's last loss (``lm_train_resume``);
+19. the sharded LM paths (phase group ``lm_sharded``, after
+   ``lm_train``) on meshes of the card twice: qwen1.5-32b at full width
+   cut to 8 of 64 layers decoding sequence-parallel over (data 1, model
+   2) through ``make_serve_step(cfg, rules)`` (``lm_seq_parallel``: each
+   run from its own cache filled from a seed, no prefill, the
+   sequence-parallel one built as per-member blocks under the rules; in
+   float32 at B 4, S 8,192, len 8,000, 8 steps every step's logits == the
+   unsharded decode within LM_TOL x max|logit|; in bfloat16 at S 32,768,
+   len 32,000 both timed a step and their difference reported; 2
+   ``flash_decode`` launches a layer a step, all cuda, counts zeroed just
+   before and read just after; the recorded collectives, three
+   all-reduces a layer); deepseek-v2-lite cut to 1 dense + 1 MoE layer in
+   float32 with the expert-parallel MoE over (data 1, model 2)
+   (``lm_expert_parallel``: the MoE layer at B 2 x S 256 == the local
+   path within LM_TOL x max with equal counts at cf = E; at the published
+   cf the dropped slots == the per-(source, expert) capacity rule's and
+   every token with none dropped == local; ``T.forward`` under the rules;
+   4 decode steps == the unsharded model's); mamba2-130m at full width,
+   3 int8 error-feedback pod steps over pod 2 at the trainer's batch
+   (``lm_pod_train``, steps 1 to 3, each checked from what the step itself
+   reduced: losses finite; the ring-reduced gradient within 5 % of
+   max|exact float32 mean| of every leaf and equal on both members; the
+   members' residuals and the AdamW update exact; every ``ssd_chunk``
+   launch cuda; each step's recorded wire bytes == the ring model's); the
+   MEMHD dry runs at their defaults on the
+   abstract (16, 16) mesh and ``repro_torch.launch.dryrun`` on
+   mamba2-130m x train_4k, a CPU subprocess started with the group
+   (``lm_dryrun``: their rooflines). The ``kernels`` line gives
+   ``flash_decode`` and ``ssd_chunk`` their ``lm_sharded`` launches.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -436,6 +465,31 @@ TRAIN_RESUME = ["--smoke", "--steps", "20", "--seq-len", "64",
                 "--global-batch", "2", "--ckpt-every", "5",
                 "--log-every", "100"]
 RESUME_TOL = 1e-5                 # tests/test_train_loop.py:63
+# The sharded LM paths (phase group ``lm_sharded``) on a mesh of the one
+# card twice, (data 1, model 2) or pod 2. The sequence-parallel decode:
+# qwen1.5-32b at full width cut to SP_LAYERS layers (lm_quant's cut), the
+# bf16 KV cache filled from a seed to ``len`` (no prefill); float32
+# against the unsharded decode_step (LM_TOL x max|logit|), then bfloat16
+# at the decode_32k context timed (its difference reported, not gated).
+SP_ARCH = "qwen1.5-32b"
+SP_LAYERS = 8
+SP_CHECK = (4, 8192, 8000, 8)      # B, S, len, steps (float32)
+SP_TIMED = (4, 32768, 32000, 8)    # ... bfloat16
+# The expert-parallel MoE: deepseek-v2-lite at full width cut to 1 dense +
+# 1 MoE layer (lm_train's cut), float32: the MoE layer at B x S tokens
+# against the local path at cf = E (nothing drops) and at the published
+# cf (the capacity rule's drops), T.forward and EP_DECODE decode steps
+# under the rules against the unsharded model.
+EP_ARCH = "deepseek-v2-lite-16b"
+EP_DEPTH = (1, 1)
+EP_FORWARD = (2, 256)              # B, S
+EP_DECODE = 4
+# The int8 error-feedback pod step: mamba2-130m at full width and depth,
+# bf16, the trainer's batch (seq 256, batch 8), pod 2, POD_STEPS steps
+# from step 1; each step's reduced gradient within POD_GRAD_TOL x max|exact
+# float32 mean| of every leaf (tests/test_distributed.py's ring bound).
+POD_STEPS = 3
+POD_GRAD_TOL = 0.05
 
 
 def check(cond, what) -> None:
@@ -584,6 +638,8 @@ class Smoke:
                         "flash_decode": 0.0, "ssd_chunk": 0.0}
         self.path_launches = {}  # kernel -> launches on its own path
         self.families_launches = {}  # flash_decode's lm_families launches
+        self.sp_launches = 0     # flash_decode's lm_sharded launches
+        self.pod_launches = 0    # ssd_chunk's lm_sharded launches
         self.batches_seen = {}   # kernel -> {B: CUDA dispatches}
 
     # -- helpers ---------------------------------------------------------------
@@ -2606,6 +2662,23 @@ class Smoke:
                           ("flash_decode", h, kv, dh, s, str(dtype), cap,
                            err.max().item()))
                     check(not got[1].any(), "cache_len 0 must yield 0")
+                    # The per-shard partial: the same output unrounded
+                    # (float32; rounded, bit for bit the output) and the
+                    # LSE.
+                    got2, lse = fd.flash_decode(qd, kd, vd, ln, softcap=cap,
+                                                return_lse=True)
+                    _, wlse = ref.flash_decode(qd, kd, vd, ln, cap,
+                                               return_lse=True)
+                    fin = torch.isfinite(wlse)
+                    lerr = (lse - wlse)[fin].abs()
+                    check(got2.dtype == torch.float32
+                          and torch.equal(got2.to(dtype), got)
+                          and torch.equal(fin, torch.isfinite(lse))
+                          and not fin[1].any()
+                          and bool((lerr <= 1e-4 + 1e-5 * wlse[fin].abs())
+                                   .all()),
+                          ("flash_decode lse", h, kv, dh, s, str(dtype), cap,
+                           lerr.max().item() if lerr.numel() else 0.0))
                     cases += 1
         geoms = []
         for geom, (h, n, p) in SSD_GEOMS.items():
@@ -3627,6 +3700,487 @@ class Smoke:
              "tolerance": RESUME_TOL, "device": clean["device"],
              "seconds_three_runs": round(time.perf_counter() - t0, 3)})
 
+    # -- phase group lm_sharded ------------------------------------------------
+    def one_card_rules(self, shape, axes, **kw):
+        from repro_torch.launch.mesh import make_rules, make_test_mesh
+        return make_rules(make_test_mesh(shape, axes, devices=self.dev), **kw)
+
+    def filled_caches(self, cfg, b, s, length, seed, rules=None):
+        """``T.init_cache`` (under ``rules`` when given: the
+        sequence-parallel decode's per-member blocks, allocated directly)
+        with every K / V entry drawn from a seed (N(0, 1) in the cache's
+        dtype, over the whole (B, S, KV, Dh) shape one layer at a time, so
+        the blocks hold what the whole cache holds) and ``len`` =
+        ``length``: a cache as a prefill of ``length`` tokens would leave
+        it, without the prefill."""
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        from repro_torch.models.sharding import use_rules
+        with use_rules(rules):
+            caches = T.init_cache(cfg, b, s, device=self.dev)
+        gen = generator(seed, self.dev)
+        for group in caches:
+            for layer in group:
+                c = layer["attn"]
+                for name in ("k", "v"):
+                    if not isinstance(c[name], list):
+                        c[name].copy_(torch.randn(
+                            c[name].shape, generator=gen, device=self.dev,
+                            dtype=c[name].dtype))
+                        continue
+                    blocks = c[name]
+                    full = torch.randn((b, s) + tuple(blocks[0].shape[2:]),
+                                       generator=gen, device=self.dev,
+                                       dtype=blocks[0].dtype)
+                    for (rows, keys), blk in zip(
+                            L.seq_blocks(rules.mesh, b, s), blocks):
+                        blk.copy_(full[rows, keys])
+                    del full
+                c["len"].fill_(length)
+        return caches
+
+    def timed_decode(self, step_fn, params, steps, caches):
+        """(logits (B, steps, V), ms of each step): ``step_fn`` over
+        ``steps``, each step timed to a synchronize."""
+        torch = self.torch
+        out, ms = [], []
+        for sb in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = step_fn(params, sb, caches)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+            out.append(lg)
+        return torch.stack(out, 1), ms
+
+    def lm_seq_parallel(self):
+        """qwen1.5-32b (SP_LAYERS of 64 layers, 40 heads, KV 40, head_dim
+        128) decoding sequence-parallel over (data 1, model 2) of the one
+        card: make_serve_step(cfg, rules) with ``seq_parallel_decode`` and
+        ``shard_seq``, each run from its own copy of a seeded cache. In
+        float32 at SP_CHECK every step's logits == the unsharded
+        decode_step within LM_TOL x max|logit|, every flash_decode launch
+        (2 a layer a step, one a "model" shard) on the cuda tier, the
+        inventory the reference's three all-reduces a layer; in bfloat16
+        at SP_TIMED both timed and their difference reported, beside the
+        unsharded decode's own difference between the kernel and the
+        plain flash_decode (the yardstick for bf16 drift). The
+        sequence-parallel run's cache is built under the rules (never
+        whole), after the unsharded run's cache is freed: each run's peak
+        bytes are its own."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch import kernels
+        from repro_torch.distributed.collectives import (
+            collective_bytes, record_collectives,
+        )
+        from repro_torch.distributed.steps import make_serve_step
+        from repro_torch.kernels import ops
+        from repro_torch.models import transformer as T
+        t0 = time.perf_counter()
+        rules = self.one_card_rules((1, 2), ("data", "model"),
+                                    shard_seq=True)
+        out = {}
+        for dtype, (b, s, length, n) in (("float32", SP_CHECK),
+                                         ("bfloat16", SP_TIMED)):
+            self.free()
+            torch.cuda.reset_peak_memory_stats()
+            cfg, params, init_s = self.lm_model(
+                SP_ARCH, (SP_LAYERS,), dtype=dtype, seed=40,
+                seq_parallel_decode=True)
+            plain_cfg = dataclasses.replace(cfg, seq_parallel_decode=False)
+            _, steps = self.token_steps(cfg, b, n, 41)
+            whole = self.filled_caches(plain_cfg, b, s, length, 42)
+            with torch.inference_mode():
+                want, ms_plain = self.timed_decode(
+                    make_serve_step(plain_cfg), params, steps, whole)
+            del whole
+            self.free()
+            peak_plain = torch.cuda.max_memory_allocated()
+            # The yardstick for the sharded run's difference: the same
+            # unsharded decode through the plain flash_decode (float32 P).
+            whole = self.filled_caches(plain_cfg, b, s, length, 42)
+            with torch.inference_mode():
+                plain_route, _ = self.timed_decode(
+                    lambda pp, sb, cc: T.decode_step(
+                        pp, plain_cfg, sb, cc, use_kernel=False),
+                    params, steps, whole)
+            del whole
+            self.free()
+            drift = (plain_route.float() - want.float()).abs().max().item()
+            del plain_route
+            torch.cuda.reset_peak_memory_stats()
+            sharded = self.filled_caches(cfg, b, s, length, 42, rules)
+            check(all(isinstance(layer["attn"]["k"], list)
+                      for group in sharded for layer in group),
+                  "the sequence-parallel caches are built as blocks")
+            with torch.inference_mode():
+                self.note_batches()
+                kernels.reset_launches()
+                ops.reset_dispatch()
+                with record_collectives() as coll:
+                    got, ms_sp = self.timed_decode(
+                        make_serve_step(cfg, rules), params, steps, sharded)
+                launches = kernels.launches()["flash_decode"]
+                tiers = ops.dispatch_breakdown().get("flash_decode")
+            err = (got.float() - want.float()).abs().amax(dim=(0, 2))
+            scale = want.float().abs().amax(dim=(0, 2))
+            finite = bool(torch.isfinite(got).all())
+            check(finite, ("seq-parallel logits finite", dtype))
+            if dtype == "float32":
+                bad = (err > LM_TOL * scale).nonzero().flatten().tolist()
+                check(not bad, ("seq-parallel decode vs unsharded", bad,
+                                err.max().item(), scale.max().item()))
+            want_launches = 2 * SP_LAYERS * n
+            check(launches == want_launches
+                  and tiers == {"cuda": want_launches},
+                  ("seq-parallel flash_decode launches", launches, tiers))
+            kinds = [op.kind for op in coll]
+            check(kinds == ["all-reduce"] * 3 * SP_LAYERS * n,
+                  ("seq-parallel collectives", kinds[:6], len(kinds)))
+            out[dtype] = {
+                "B": b, "S": s, "len": length, "steps": n,
+                "init_seconds": round(init_s, 3),
+                # Step 1 carries each path's first calls at these shapes.
+                "ms_per_step_unsharded": ms_plain,
+                "ms_per_step_seq_parallel": ms_sp,
+                "ms_after_first_unsharded": round(
+                    statistics.mean(ms_plain[1:]), 3),
+                "ms_after_first_seq_parallel": round(
+                    statistics.mean(ms_sp[1:]), 3),
+                "max_abs_logit_diff": err.max().item(),
+                "max_abs_logit_diff_plain_route_unsharded": drift,
+                "max_abs_logit": scale.max().item(),
+                "tolerance": (LM_TOL * scale.max().item()
+                              if dtype == "float32" else None),
+                "flash_decode_launches": launches,
+                "flash_decode_tiers": tiers,
+                "collectives_per_step": {
+                    "count": len(coll) // n,
+                    "wire_bytes": {k: v / n for k, v in
+                                   collective_bytes(coll).items()}},
+                "peak_bytes_unsharded": peak_plain,
+                "peak_bytes_seq_parallel": torch.cuda.max_memory_allocated()}
+            self.sp_launches = self.sp_launches + launches
+            del params, sharded, got, want
+            self.free()
+        log({"phase": "lm_seq_parallel", "arch": SP_ARCH,
+             "depth_cut": {"layers": SP_LAYERS,
+                           "from": self.full_cfg(SP_ARCH).n_layers},
+             "mesh": {"data": 1, "model": 2}, "runs": out,
+             "seconds": round(time.perf_counter() - t0, 3)})
+
+    def lm_expert_parallel(self):
+        """deepseek-v2-lite (1 dense + 1 MoE layer, full width, float32)
+        with the expert-parallel MoE over (data 1, model 2) of the card: the
+        MoE layer at EP_FORWARD tokens against the local path at cf = E
+        (LM_TOL x max, counts equal) and at the published cf (the dropped
+        slots == the per-(source, expert) capacity rule's, and every token
+        with none dropped == local within LM_TOL x max); T.forward under
+        the rules (finite, timed) and EP_DECODE decode steps under the rules
+        against the unsharded model at the published cf within LM_TOL x
+        max (no slot drops: decode's t_local is B / 2)."""
+        import dataclasses
+        import math
+        torch = self.torch
+        from repro_torch.distributed.collectives import record_collectives
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        from repro_torch.models.sharding import use_rules
+        t0 = time.perf_counter()
+        rules = self.one_card_rules((1, 2), ("data", "model"))
+        cfg, params, init_s = self.lm_model(EP_ARCH, EP_DEPTH,
+                                            dtype="float32", seed=43)
+        spec = cfg.blocks[1].ffn
+        lp = {k: v[0] for k, v in params["groups"][1]["ffn"].items()}
+        b, s = EP_FORWARD
+        x = self.moe_inputs((b, s, cfg.d_model), 44)
+        res = {}
+        kept = []
+        orig = L._dispatch
+
+        def spy(*a):
+            buf, route = orig(*a)
+            kept.append(int(route[1].sum()))
+            return buf, route
+        with torch.inference_mode():
+            for name, cf in (("cf_E", float(spec.n_experts)),
+                             ("published", spec.capacity_factor)):
+                sp = dataclasses.replace(spec, capacity_factor=cf)
+                want, aux0 = L._moe_ffn_local(lp, sp, x)
+                L.moe_ffn(lp, sp, x, rules=rules)  # first calls, untimed
+                kept.clear()
+                L._dispatch = spy
+                try:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    with record_collectives() as coll:
+                        got, aux = L.moe_ffn(lp, sp, x, rules=rules)
+                    torch.cuda.synchronize()
+                    ms_ep = (time.perf_counter() - t1) * 1e3
+                finally:
+                    L._dispatch = orig
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                L._moe_ffn_local(lp, sp, x)
+                torch.cuda.synchronize()
+                ms_local = (time.perf_counter() - t2) * 1e3
+                scale = want.abs().max().item()
+                diff = (got - want).abs().amax(dim=-1).flatten()
+                check(torch.equal(aux["expert_counts"],
+                                  aux0["expert_counts"]),
+                      ("expert counts", name))
+                # The capacity rule, member by member.
+                n, k, e = 2, spec.top_k, spec.n_experts
+                t_all = b * s
+                t_local = t_all // n
+                cap = math.ceil(t_local * k / e * cf)
+                xt = x.reshape(t_all, -1)
+                dropped, lost = 0, torch.zeros(t_all, dtype=torch.bool,
+                                               device=self.dev)
+                for j in range(n):
+                    xl = xt[j * t_local:(j + 1) * t_local]
+                    _, _, top_i = L._route(xl @ lp["router"], sp,
+                                           lp.get("router_bias"))
+                    flat = top_i.reshape(-1)
+                    order = torch.sort(flat, stable=True).indices
+                    srt = flat[order]
+                    start = torch.searchsorted(srt, torch.arange(
+                        e, device=self.dev))
+                    pos = torch.arange(flat.numel(), device=self.dev) \
+                        - start[srt]
+                    drop = torch.zeros_like(flat, dtype=torch.bool)
+                    drop[order] = pos >= cap
+                    dropped += int(drop.sum())
+                    lost[j * t_local:(j + 1) * t_local] = drop.reshape(
+                        t_local, k).any(-1)
+                got_dropped = n * t_local * k - sum(kept)
+                check(got_dropped == dropped,
+                      ("dropped slots vs the capacity rule", name,
+                       got_dropped, dropped))
+                ok = diff[~lost]
+                check(bool((ok <= LM_TOL * scale).all()),
+                      ("expert-parallel vs local", name, ok.max().item(),
+                       scale))
+                if name == "cf_E":
+                    check(dropped == 0, ("cf = E drops", dropped))
+                res[name] = {
+                    "capacity_factor": cf, "cap_per_source_expert": cap,
+                    "dropped_slots": got_dropped,
+                    "tokens_with_a_dropped_slot": int(lost.sum()),
+                    "max_abs_diff_kept_tokens": ok.max().item(),
+                    "max_abs_out": scale,
+                    "ms_expert_parallel": round(ms_ep, 3),
+                    "ms_local": round(ms_local, 3),
+                    "collectives": [op.kind for op in coll]}
+            # The model: forward and decode steps under the rules.
+            toks, steps = self.token_steps(cfg, b, s, 45)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            with use_rules(rules):
+                fwd, faux = T.forward(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t3
+            check(bool(torch.isfinite(fwd).all()), "EP forward finite")
+            dec_want = self.tf_decode(cfg, params, steps[:EP_DECODE])
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            with use_rules(rules):
+                dec = self.tf_decode(cfg, params, steps[:EP_DECODE])
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t4
+            derr = (dec - dec_want).abs().max().item()
+            dscale = dec_want.abs().max().item()
+            check(derr <= LM_TOL * dscale, ("EP decode vs unsharded", derr,
+                                            dscale))
+        log({"phase": "lm_expert_parallel",
+             **self.model_log(cfg, EP_ARCH, init_s),
+             "depth_cut": {"dense": EP_DEPTH[0], "moe": EP_DEPTH[1]},
+             "mesh": {"data": 1, "model": 2}, "moe_layer": res,
+             "forward": {"B": b, "S": s, "seconds": round(fwd_s, 4)},
+             "decode": {"steps": EP_DECODE, "max_abs_diff": derr,
+                        "max_abs_logit": dscale,
+                        "ms_per_step": round(dec_s * 1e3 / EP_DECODE, 3)},
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del params, fwd, dec, dec_want
+        self.free()
+
+    def lm_pod_train(self):
+        """mamba2-130m (full width and depth, bf16) through make_train_step
+        with grad_compression="int8_ef" over pod 2 of the card, the
+        trainer's batch, POD_STEPS steps from step 1 (lr > 0 past the
+        warmup's 0 at step 0). Every step is checked from inside: a spy on
+        ``_compress_pod_grads`` keeps what the step itself reduced. Losses
+        finite; the ring-reduced gradient within POD_GRAD_TOL x max|exact
+        float32 mean of the members' gradients| on every leaf and equal on
+        both members bit for bit; each member's new residual ==
+        ``ef_int8_compress``'s on its gradient and incoming residual, and
+        those residuals are what the step returns; the new params ==
+        ``adamw_update`` of the old with member 0's reduced gradient, bit
+        for bit, and moved; every ssd_chunk launch on the cuda tier; each
+        step's recorded wire bytes == the ring model's."""
+        import math
+        torch = self.torch
+        from repro_torch import kernels
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import steps as S
+        from repro_torch.distributed.collectives import (
+            collective_bytes, record_collectives,
+        )
+        from repro_torch.kernels import ops
+        from repro_torch.optim import AdamWConfig, ScheduleConfig
+        from repro_torch.optim import make_schedule
+        from repro_torch.optim.adamw import adamw_update, tree_leaves
+        from repro_torch.optim.compression import ef_int8_compress
+        t0 = time.perf_counter()
+        cfg = get_config(TRAIN_ARCH)
+        opt_cfg = AdamWConfig()
+        sched = make_schedule(ScheduleConfig())
+        rules = self.one_card_rules((2, 1, 1), ("pod", "data", "model"))
+        pod = rules.mesh.axis_mesh("pod")
+        n = pod.size
+        params, opt = S.init_train_state(0, cfg, opt_cfg, device=self.dev)
+        opt["ef_err"] = S.init_ef_buffers(params, n, pod.member_devices())
+        batch = self.lm_batch(cfg, 256, 8)
+        # The ring model's bytes a step: n - 1 hops of int8 rows and float32
+        # scales, then n - 1 of float32 rows, per leaf.
+        wire = 0
+        for p in tree_leaves(params):
+            chunk = -(-math.ceil(p.numel() / 1024) // n)
+            wire += (n - 1) * chunk * (1024 + 4 + 4 * 1024)
+        step_fn = S.make_train_step(cfg, opt_cfg, sched, rules,
+                                    grad_compression="int8_ef")
+        seen = []
+        orig = S._compress_pod_grads
+
+        def spy(grads, ef_err, mesh):
+            out = orig(grads, ef_err, mesh)
+            seen.append((grads, ef_err) + out)
+            return out
+        self.note_batches()
+        kernels.reset_launches()
+        ops.reset_dispatch()
+        per_step, worst = [], 0.0
+        for i in range(1, POD_STEPS + 1):
+            prev_params, prev_opt = params, opt
+            seen.clear()
+            S._compress_pod_grads = spy
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with record_collectives() as coll:
+                    params, opt, m = step_fn(params, opt, batch, i)
+                loss = float(m["loss"])
+                ms = round((time.perf_counter() - t1) * 1e3, 2)
+            finally:
+                S._compress_pod_grads = orig
+            per_step.append({"step": i, "loss": loss, "ms": ms,
+                             "lr_scale": float(sched(i)),
+                             "wire_bytes": collective_bytes(coll)["total"],
+                             "permutes": len(coll)})
+            check(math.isfinite(loss), ("pod loss", i, loss))
+            check(collective_bytes(coll)["total"] == wire,
+                  ("pod wire bytes vs ring model", per_step[-1], wire))
+            check(len(seen) == 1, ("pod reductions a step", len(seen)))
+            grads, ef_in, reduced, ef_out = seen.pop()
+            flat = [tree_leaves(t) for t in (*grads, *reduced)]
+            for li in range(len(flat[0])):
+                exact = sum(flat[j][li].float() for j in range(n)) / n
+                got = flat[n][li]
+                err = (got.float() - exact).abs().max().item()
+                scale = exact.abs().max().item()
+                check(err <= POD_GRAD_TOL * scale,
+                      ("pod grad leaf", i, li, err, scale))
+                worst = max(worst, err / scale if scale else 0.0)
+                check(all(torch.equal(got, flat[n + j][li])
+                          for j in range(1, n)),
+                      ("pod members differ", i, li))
+            for j in range(n):
+                for g, e0, e1 in zip(tree_leaves(grads[j]),
+                                     tree_leaves(ef_in[j]),
+                                     tree_leaves(ef_out[j])):
+                    check(torch.equal(ef_int8_compress(g, e0)[2], e1),
+                          ("pod ef residual", i, j))
+            check(opt["ef_err"] is ef_out, ("pod residuals returned", i))
+            want_p, _ = adamw_update(prev_params, reduced[0], prev_opt,
+                                     opt_cfg, sched(i))
+            moved = False
+            for a, b, p0 in zip(tree_leaves(params), tree_leaves(want_p),
+                                tree_leaves(prev_params)):
+                check(torch.equal(a, b), ("pod params vs adamw_update", i))
+                moved = moved or not torch.equal(a, p0)
+            check(moved, ("pod params moved", i))
+            del grads, ef_in, reduced, ef_out, flat, want_p
+            del prev_params, prev_opt
+        launches = kernels.launches()["ssd_chunk"]
+        tiers = ops.dispatch_breakdown().get("ssd_chunk")
+        chunks = -(-256 // cfg.blocks[0].ssm.chunk)
+        want = POD_STEPS * n * cfg.n_layers * chunks * (2 if cfg.remat
+                                                        else 1)
+        check(launches == want and tiers == {"cuda": want},
+              ("pod ssd_chunk launches", launches, tiers, want))
+        self.pod_launches = launches
+        log({"phase": "lm_pod_train", "arch": TRAIN_ARCH,
+             "param_count": cfg.param_count(), "dtype": cfg.param_dtype,
+             "seq_len": 256, "global_batch": 8, "pod": n,
+             "grad_worst_rel_err": worst,
+             "grad_tolerance_rel": POD_GRAD_TOL,
+             "ring_model_wire_bytes_per_step": wire, "per_step": per_step,
+             "ms_per_step_after_first": round(sum(
+                 e["ms"] for e in per_step[1:]) / (POD_STEPS - 1), 2),
+             "launches": {"ssd_chunk": launches}, "dispatch_tiers": tiers,
+             "seconds": round(time.perf_counter() - t0, 3)})
+        del params, opt
+        self.free()
+
+    def start_dryrun_cell(self):
+        """``python -m repro_torch.launch.dryrun`` for mamba2-130m x
+        train_4k on the production mesh, a CPU subprocess that runs while
+        the card works (the dry run counts on meta tensors)."""
+        import subprocess
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        self.dryrun_dir = os.path.join(HERE, "reports", "dryrun_torch")
+        self.dryrun_proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", "mamba2-130m", "--shape", "train_4k",
+             "--report-dir", self.dryrun_dir],
+            env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def lm_dryrun(self):
+        """The MEMHD dry runs at their defaults on the abstract (16, 16)
+        mesh, and the LM cell the subprocess counted; their rooflines."""
+        from repro_torch.core.distributed import (
+            dryrun_epoch, dryrun_inference,
+        )
+        from repro_torch.launch.mesh import make_production_mesh
+        t0 = time.perf_counter()
+        mesh = make_production_mesh()
+        reps = {"memhd_epoch": dryrun_epoch(mesh),
+                "memhd_inference": dryrun_inference(mesh)}
+        for name, rep in reps.items():
+            r = rep["roofline"]
+            check(r["flops_per_dev"] > 0 and r["useful_flops_ratio"] > 0.2,
+                  (name, r["flops_per_dev"], r["useful_flops_ratio"]))
+        try:
+            out, _ = self.dryrun_proc.communicate(timeout=600)
+        finally:
+            if self.dryrun_proc.poll() is None:
+                self.dryrun_proc.kill()
+        check(self.dryrun_proc.returncode == 0, ("dryrun cell", out[-2000:]))
+        with open(os.path.join(self.dryrun_dir,
+                               "mamba2-130m__train_4k__16x16.json")) as f:
+            cell = json.load(f)
+        check(cell["status"] == "ok", ("dryrun cell", cell.get("error")))
+        reps["mamba2-130m__train_4k"] = {
+            k: cell[k] for k in ("roofline", "memory", "grad_accum",
+                                 "n_collectives", "count_s")}
+        log({"phase": "lm_dryrun", "mesh": "16x16", "reports": reps,
+             "seconds": round(time.perf_counter() - t0, 3)})
+
     def nondeterministic_leaves(self):
         """The gradient leaves that differ between two evaluations of one
         loss on the same smoke params and batch (the ops under them are
@@ -4202,6 +4756,10 @@ class Smoke:
         rows = {r["name"]: r for r in out}
         rows["ssd_chunk"].setdefault("launches_by_path", {})[
             "lm_train"] = self.train_launches_lm
+        rows["ssd_chunk"]["launches_by_path"]["lm_sharded"] = \
+            self.pod_launches
+        rows["flash_decode"].setdefault("launches_by_path", {})[
+            "lm_sharded"] = self.sp_launches
         # Launches on this slice's paths, beside each row's own path.
         for name, path, counts in (
                 ("binary_mvm", "baselines", self.baseline_launches),
@@ -4317,7 +4875,8 @@ def main():
     ap.add_argument("--phases", default="all",
                     help="comma list of build,kernels,main,train,fidelity,"
                          "hier,baselines,online,autotune,sharded,"
-                         "fit_sharded,lm,lm_families,lm_train,robustness,"
+                         "fit_sharded,lm,lm_families,lm_train,lm_sharded,"
+                         "robustness,"
                          "cli,trainer,repro "
                          "(development runs; train, fidelity, hier, "
                          "baselines, online and fit_sharded need main, "
@@ -4325,7 +4884,7 @@ def main():
                          "fidelity and hier; the kernels line needs "
                          "kernels, main, train, fidelity, hier, baselines, "
                          "online, autotune, sharded, fit_sharded, lm, "
-                         "lm_families and lm_train)")
+                         "lm_families, lm_train and lm_sharded)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -4343,8 +4902,8 @@ def main():
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
                "baselines", "online", "autotune", "sharded", "fit_sharded",
-               "lm", "lm_families", "lm_train", "robustness", "cli",
-               "trainer", "repro"]
+               "lm", "lm_families", "lm_train", "lm_sharded", "robustness",
+               "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -4412,6 +4971,19 @@ def main():
         smoke.lm_train_resume()
         log({"phase": "lm_train_group",
              "seconds": round(time.perf_counter() - t_lm, 3)})
+    if "lm_sharded" in phases:
+        t_lm = time.perf_counter()
+        smoke.start_dryrun_cell()
+        try:
+            smoke.lm_seq_parallel()
+            smoke.lm_expert_parallel()
+            smoke.lm_pod_train()
+            smoke.lm_dryrun()
+        finally:
+            if smoke.dryrun_proc.poll() is None:
+                smoke.dryrun_proc.kill()
+        log({"phase": "lm_sharded_group",
+             "seconds": round(time.perf_counter() - t_lm, 3)})
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
@@ -4423,7 +4995,7 @@ def main():
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
                                  "hier", "baselines", "online", "autotune",
                                  "sharded", "fit_sharded", "lm",
-                                 "lm_families", "lm_train")):
+                                 "lm_families", "lm_train", "lm_sharded")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

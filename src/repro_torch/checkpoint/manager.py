@@ -19,7 +19,9 @@ their path ("0/fp", "1", ...) — the key layout of the reference's
 pytree paths. Leaves are saved as numpy ``.npy`` files; ``restore``
 loads them onto the device and dtype of the template's leaves. numpy has
 no bfloat16: a bfloat16 tensor is saved as its int16 bit pattern, with
-"bfloat16" as its dtype in the manifest, and restored bit for bit.
+"bfloat16" as its dtype in the manifest, and restored bit for bit. The
+reference writes its bfloat16 leaves as 2-byte void records under the
+same manifest dtype; they restore bit for bit too.
 """
 from __future__ import annotations
 
@@ -85,6 +87,11 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 def _like(arr: np.ndarray, dtype: str, template):
     """A loaded array in the template leaf's kind, device and dtype."""
     if isinstance(template, torch.Tensor):
+        if dtype == "bfloat16" and arr.dtype.kind == "V" \
+                and arr.dtype.itemsize == 2:
+            # The reference's bfloat16 leaves load as 2-byte void: the
+            # same bits the port writes as int16.
+            arr = arr.view(np.int16)
         # ascontiguousarray makes a 0-d array 1-d: keep the shape.
         t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
         if dtype == "bfloat16":

@@ -24,7 +24,8 @@ whole-epoch variant (one binary-AM snapshot per epoch, encode included);
 ``shardings_for`` has no counterpart beyond the split rule: every
 prebatched minibatch is cut into contiguous equal row shards in mesh
 order (``shard_prebatched``). ``dryrun_inference`` and ``dryrun_epoch``
-need the HLO cost tools and raise.
+count one member's run on meta tensors (``distributed.cost``) over a
+``launch.mesh.Mesh`` and give the reference's roofline report.
 """
 from __future__ import annotations
 
@@ -237,16 +238,78 @@ def make_inference_fn(enc_cfg: EncoderConfig, am_cfg: MemhdConfig):
     return infer
 
 
-def dryrun_inference(mesh, **kwargs):
-    """The reference lowers and compiles the search on a production mesh
-    and reads roofline terms from the HLO; the port has no HLO tools."""
-    raise NotImplementedError(
-        "dryrun_inference needs the HLO cost tools, which are not ported "
-        "yet (ROADMAP queue 1, item 17c)")
+def _meta(*shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def dryrun_epoch(mesh, **kwargs):
-    """See ``dryrun_inference``."""
-    raise NotImplementedError(
-        "dryrun_epoch needs the HLO cost tools, which are not ported yet "
-        "(ROADMAP queue 1, item 17c)")
+def _dryrun(arch: str, mesh, run, inputs, model_flops: float, dim: int,
+            columns: int) -> Dict:
+    """Count one member's ``run()`` on meta tensors and report it as the
+    reference does: {"roofline", "memory"}, the argument bytes those of
+    ``inputs`` (the member's, the AM replicated)."""
+    from repro_torch.distributed import cost
+    from repro_torch.distributed.roofline import roofline
+    from repro_torch.launch.mesh import mesh_name
+    _, totals = cost.count(run)
+    arg_bytes = sum(x.numel() * x.element_size() for x in inputs)
+    rep = roofline(
+        arch=arch, shape=f"{dim}x{columns}", mesh_name=mesh_name(mesh),
+        chips=mesh.size, flops_per_dev=totals.flops,
+        bytes_per_dev=totals.hbm_bytes, wire_by_kind=totals.wire_by_kind,
+        model_flops_global=model_flops, argument_bytes=float(arg_bytes),
+        temp_bytes=totals.peak_bytes)
+    return {"roofline": rep.to_json(),
+            "memory": {"argument_bytes": int(arg_bytes),
+                       "temp_bytes": int(totals.peak_bytes)}}
+
+
+def dryrun_inference(mesh, *, features: int = 784, dim: int = 1024,
+                     columns: int = 1024, n_queries: int = 1_048_576
+                     ) -> Dict:
+    """Roofline of the batched one-shot search (``make_inference_fn``) on
+    ``mesh`` (a ``launch.mesh.Mesh``, abstract allowed): one member's run
+    counted on meta tensors (``distributed.cost``) at n_queries / chips
+    rows (the batch over every mesh axis, the model replicated: the
+    reference's ``_batch_axes``); it issues no collective. ``temp_bytes``
+    is the peak of the run's live op outputs."""
+    proj = _meta(features, dim, dtype=torch.bfloat16)
+    am = _meta(columns, dim, dtype=torch.bfloat16)
+    owners = _meta(columns, dtype=torch.int32)
+    feats = _meta(-(-n_queries // mesh.size), features, dtype=torch.bfloat16)
+    infer = make_inference_fn(None, None)
+    return _dryrun("memhd-search", mesh,
+                   lambda: infer({"projection": proj}, am, owners, feats),
+                   (proj, am, owners, feats),
+                   2.0 * n_queries * (features * dim + dim * columns),
+                   dim, columns)
+
+
+def dryrun_epoch(mesh, *, features: int = 784, dim: int = 1024,
+                 columns: int = 1024, classes: int = 10,
+                 n_samples: int = 61_440) -> Dict:
+    """Roofline of one distributed QAIL epoch (``make_epoch_fn``) on
+    ``mesh``: one member's epoch counted on meta tensors at n_samples /
+    chips rows (encode, similarity, the ``qail_update`` delta, normalize
+    and re-binarize; the AM replicated), plus the epoch's collectives as
+    ``make_epoch_fn`` issues them: one all-reduce of the bfloat16 (C, D)
+    delta and one of the miss count over every member. Useful FLOPs are
+    the reference's closed form (encode + similarity MVMs, no backprop)."""
+    from repro_torch.distributed import collectives
+    am_cfg = MemhdConfig(dim=dim, columns=columns, classes=classes)
+    enc = {"projection": _meta(features, dim)}
+    am = {"fp": _meta(columns, dim), "binary": _meta(columns, dim),
+          "centroid_class": _meta(columns, dtype=torch.int32)}
+    rows = -(-n_samples // mesh.size)
+    feats, labels = _meta(rows, features), _meta(rows, dtype=torch.int32)
+    epoch = make_epoch_fn(None, am_cfg, ("meta",))
+
+    def run():
+        out = epoch(enc, am, feats, labels)
+        collectives.account("all-reduce", columns * dim * 2, mesh.size)
+        collectives.account("all-reduce", 4, mesh.size)
+        return out
+
+    return _dryrun("memhd-qail", mesh, run,
+                   (enc["projection"], *am.values(), feats, labels),
+                   2.0 * n_samples * (features * dim + dim * columns),
+                   dim, columns)

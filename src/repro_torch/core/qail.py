@@ -211,8 +211,9 @@ def qail_batch_delta(state: AmState, cfg: MemhdConfig, h: torch.Tensor,
     mispredicted samples; ``mask`` (B,) zeroes padded samples.
 
     ``use_kernel`` None means the ``qail_update`` kernel on a CUDA tensor
-    (``ops.qail_update``, the single-device kernel fit's int8 route) and
-    the plain version on the CPU. The plain version is the reference's:
+    (``ops.qail_update``, the single-device kernel fit's int8 route; on a
+    meta tensor its plain version through ``ops``' meta tier) and the
+    plain version below on the CPU. The plain version is the reference's:
     each coefficient row lr * mis * upd is rounded to ``wire_dtype``, then
     accumulated in it, true targets first and then predicted ones, each in
     row order (no ``index_add_``, whose float atomics on CUDA sum in any
@@ -229,7 +230,8 @@ def qail_batch_delta(state: AmState, cfg: MemhdConfig, h: torch.Tensor,
         mask = torch.ones(labels.shape, device=queries.device)
     mask = mask.float()
     if use_kernel is None:
-        use_kernel = queries.device.type == "cuda"
+        # meta (the dry run): ops' meta tier, the kernel's plain version.
+        use_kernel = queries.device.type in ("cuda", "meta")
     if use_kernel:
         from repro_torch.kernels import ops
         delta, n_miss = ops.qail_update(queries, upd, binary.T,

@@ -72,7 +72,7 @@ SIGNATURES = {
     "am_search_sparse_gathered_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _I, _I, _I, _P),
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _P),
+                            _I, _I, _I, _I, _F, _P),
     "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I64,
                          _P),

@@ -647,20 +647,21 @@ cudaError_t launch_pass1(const void* q, const void* k, const void* v,
 
 // Splits of split_len keys (a multiple of the dtype's tile: 32 keys for
 // float32, 64 for bfloat16), n_splits * split_len >= S; softcap 0 (no
-// cap) or positive. Returns the cudaError_t of the launches (0 on
-// success).
+// cap) or positive; out_f32 1 writes `out` in float32 whatever the
+// dtype (a sequence shard's unrounded partial), 0 in the inputs' dtype.
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lens,
                                    void* part_ml, void* part_acc, void* out,
                                    int B, int S, int H, int KV, int Dh,
                                    int n_splits, int split_len, int dtype,
-                                   float softcap, void* stream) {
+                                   int out_f32, float softcap, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   const int tile = dtype == 0 ? SIMT_TILE : KT;
   if (KV <= 0 || H % KV || Dh <= 0 || Dh > 256 || S <= 0 || n_splits <= 0 ||
       split_len <= 0 || split_len % tile ||
       (long long)n_splits * split_len < S || B > 65535 ||
-      (dtype != 0 && dtype != 1) ||
+      (dtype != 0 && dtype != 1) || (out_f32 != 0 && out_f32 != 1) ||
       !(softcap >= 0.f && softcap < INFINITY))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
@@ -694,7 +695,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   cfg.numAttrs = 1;
   const float* pml = static_cast<const float*>(part_ml);
   const float* pacc = static_cast<const float*>(part_acc);
-  if (dtype == 0)
+  if (dtype == 0 || out_f32)
     e = cudaLaunchKernelEx(&cfg, flash_decode_merge<float>, pml, pacc,
                            static_cast<float*>(out), H, KV, Dh, n_splits);
   else

@@ -93,7 +93,7 @@ def split_plan(b: int, kv: int, s: int, sms: int, *, dtype: torch.dtype,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                 softcap: float | None = None) -> torch.Tensor:
+                 softcap: float | None = None, return_lse: bool = False):
     """Attention of one query position over the cache.
 
     Args:
@@ -101,8 +101,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
       k_cache/v_cache: (B, S, KV, Dh), q's dtype; H % KV == 0; any S.
       cache_len: (B,) int32 valid entries per row.
       softcap: None, or a positive cap on the scaled scores.
+      return_lse: also return each row's log-sum-exp of its (capped)
+        scores, (B, H) float32, -inf where ``cache_len`` is 0.
 
-    Returns: (B, H, Dh) in q's dtype.
+    Returns: (B, H, Dh) in q's dtype, or with ``return_lse`` (out, lse):
+    out unrounded in float32 (the merge pass writes float32), so that a
+    sequence-parallel merge of shards rounds once, as the reference's
+    psum of float32 partials does; the LSE read from the launch's
+    per-split (m, l) partials (``part_ml``) as logsumexp over splits of
+    m + log l, by torch ops on the same stream.
     """
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"flash_decode: bad shapes {tuple(q.shape)}, "
@@ -121,7 +128,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if softcap is not None and not 0 < softcap < float("inf"):
         raise ValueError(f"softcap must be positive, got {softcap}")
     if q.device.type == "cpu":
-        return ref.flash_decode(q, k_cache, v_cache, cache_len, softcap)
+        return ref.flash_decode(q, k_cache, v_cache, cache_len, softcap,
+                                return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     if q.dtype not in DTYPES:
@@ -132,11 +140,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     _build.check_operand(cache_len, "cache_len", torch.int32, 1)
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {dh} outside [1, {MAX_HEAD_DIM}]")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if s == 0:
-        return out.zero_()
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse
+                           else q.dtype)
+    if out.numel() == 0 or s == 0:
+        out.zero_()
+        lse = torch.full((b, h), float("-inf"), device=q.device)
+        return (out, lse) if return_lse else out
     groups = h // kv
     if smem_bytes(groups, dh, q.dtype) > BLOCK_SMEM:
         raise ValueError(f"flash_decode: {groups} query heads per KV head "
@@ -154,10 +163,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), b, s, h, kv, dh, n_splits, split_len,
-            DTYPES[q.dtype], float(softcap or 0.0), _build.stream_of(q))
+            DTYPES[q.dtype], int(return_lse), float(softcap or 0.0),
+            _build.stream_of(q))
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
-    return out
+    if not return_lse:
+        return out
+    m, l = part_ml.unbind(-1)                      # (B, KV, splits, G)
+    lse = torch.logsumexp(m + torch.log(l), dim=2)
+    return out, lse.reshape(b, h)
 
 
 flash_decode.launches = 0

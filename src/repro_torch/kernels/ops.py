@@ -4,7 +4,9 @@ Port of the serving dispatches of ``repro.kernels.ops``. Each keeps the
 reference's ``use_kernel`` switch: a CUDA tensor with ``use_kernel=True``
 or ``None`` (the reference's "the kernel on the accelerator") is served
 by the hand-written CUDA kernel (tier ``cuda``); a CPU tensor, or
-``use_kernel=False``, by the plain PyTorch version (tier ``torch-ref``).
+``use_kernel=False``, by the plain PyTorch version (tier ``torch-ref``);
+a meta tensor (the dry run, ``distributed.cost``) by the plain version,
+which computes nothing there (tier ``meta``).
 Every call adds one to the ``(kernel, tier, geometry)`` series of the
 ``kernel_dispatch_total`` counter of the metrics registry
 (``obs.metrics``), as in the reference; ``dispatch_breakdown()`` sums it
@@ -111,9 +113,13 @@ def _count(kernel: str, tier: str, **dims) -> None:
 
 def _tier(x: torch.Tensor, use_kernel: bool | None) -> str:
     """``cuda`` for a CUDA tensor unless ``use_kernel`` is False (None, the
-    reference's auto-dispatch, means the kernel on the accelerator)."""
+    reference's auto-dispatch, means the kernel on the accelerator);
+    ``meta`` for a meta tensor (the dry run: the plain version, which on
+    meta computes nothing); else ``torch-ref``."""
     if use_kernel is not False and x.device.type == "cuda":
         return "cuda"
+    if x.device.type == "meta":
+        return "meta"
     return "torch-ref"
 
 
@@ -271,7 +277,7 @@ def encode_mvm(feats: torch.Tensor, projection: torch.Tensor, *,
     tier = _tier(feats, use_kernel)
     _count("binary_mvm", tier, B=feats.shape[0], f=projection.shape[0],
            D=projection.shape[1])
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.binary_mvm(feats, projection)
     return _binary_mvm(feats.float().contiguous(), projection.float())
 
@@ -290,7 +296,7 @@ def encode_pack(feats: torch.Tensor, projection: torch.Tensor, *,
         tile = _encode_tile(feats, f, d)
     tier = _tier(feats, use_kernel)
     _count("encode_pack", tier, B=feats.shape[0], f=f, D=d)
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.encode_pack(feats, projection)
     return _encode_pack_tiled(feats.float().contiguous(), projection, tile)
 
@@ -310,7 +316,7 @@ def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
     block_b = _packed_block_b(block_b, feats, mode, d, c)
     tier = _tier(feats, use_kernel)
     _count("search_from_features", tier, B=feats.shape[0], D=d, C=c)
-    if tier == "torch-ref":
+    if tier != "cuda":
         qp = ref.encode_pack(feats, projection)
         return ref.am_search_packed(qp, am_packed_t, d)
     return _search_from_features(feats.float().contiguous(), projection,
@@ -333,7 +339,7 @@ def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
     block_b = _packed_block_b(block_b, feats, mode, d, c)
     tier = _tier(feats, use_kernel)
     _count("predict_from_features", tier, B=feats.shape[0], D=d, C=c)
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.predict_from_features(feats, projection, am_packed_t,
                                          centroid_class)
     return _predict_from_features(feats.float().contiguous(), projection,
@@ -354,7 +360,7 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     tier = _tier(q_packed, use_kernel)
     _count("am_search_packed", tier, B=q_packed.shape[0], D=n_dims,
            C=am_packed_t.shape[1])
-    if tier == "torch-ref":
+    if tier != "cuda":
         if mode == "unpack":
             return ref.am_search_packed_unpack(q_packed, am_packed_t, n_dims)
         return ref.am_search_packed(q_packed, am_packed_t, n_dims)
@@ -375,7 +381,7 @@ def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
     tier = _tier(q_packed, use_kernel)
     _count("am_shortlist", tier, B=q_packed.shape[0], D=n_dims,
            G=super_packed_t.shape[1], S=s)
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.am_shortlist(q_packed, super_packed_t, n_dims, s)
     return _am_shortlist(q_packed, super_packed_t, n_dims=n_dims, s=s)
 
@@ -399,7 +405,7 @@ def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
     tier = _tier(q_packed, use_kernel)
     _count("am_search_sparse", tier, B=q_packed.shape[0], D=n_dims,
            S=shortlist.shape[1], K=k)
-    if tier == "torch-ref":
+    if tier != "cuda":
         return am_search_sparse_plain(
             q_packed, am_slab_t, col_ids, shortlist, tile_start, tile_count,
             n_dims=n_dims, k=k, max_tiles=max_tiles)
@@ -413,7 +419,7 @@ def pack_rows(x: torch.Tensor, *,
     """(B, D) bipolar -> (B, ceil(D/8)) uint8, any D (tail bits 0)."""
     tier = _tier(x, use_kernel)
     _count("pack_rows", tier, B=x.shape[0], D=x.shape[1])
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.pack_rows(x)
     return _pack_rows(x)
 
@@ -423,7 +429,7 @@ def pack_bits(x: torch.Tensor, *,
     """(R, C) bipolar, C % 8 == 0 -> (R, C // 8) uint8."""
     tier = _tier(x, use_kernel)
     _count("pack_bits", tier, R=x.shape[0], C=x.shape[1])
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.pack_bits(x)
     return _pack_bits(x.float().contiguous())
 
@@ -433,7 +439,7 @@ def unpack_bits(p: torch.Tensor, *, use_kernel: bool | None = True,
     """(R, C // 8) uint8 -> (R, C) float32 {-1, +1}."""
     tier = _tier(p, use_kernel)
     _count("unpack_bits", tier, R=p.shape[0], C=p.shape[1] * 8)
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.unpack_bits(p)
     return _unpack_bits(p.contiguous())
 
@@ -460,7 +466,7 @@ def am_search(queries: torch.Tensor, am: torch.Tensor, *,
     tier = _tier(queries, use_kernel)
     _count("am_search", tier, B=queries.shape[0], D=queries.shape[1],
            C=am.shape[0])
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.am_search(queries, am.T)
     return _am_search(queries.float().contiguous(), am.float().T)
 
@@ -491,7 +497,7 @@ def am_search_imc(queries: torch.Tensor, am: torch.Tensor, *, sim,
            C=am.shape[0])
     kw = dict(tile_rows=sim.arr.rows, tile_cols=sim.arr.cols,
               adc_bits=sim.adc_bits, adc_clip=sim.clip)
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.am_search_imc(queries, am.T, offsets=offsets, **kw)
     return _am_search_imc(queries.float().contiguous(), am.float().T,
                           offsets, **kw)
@@ -530,7 +536,7 @@ def am_search_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor, *,
            D=queries.shape[1], C=am_planes_t.shape[2], bits=cell_bits)
     kw = dict(cell_bits=cell_bits, tile_rows=tile_rows, tile_cols=tile_cols,
               adc_bits=adc_bits, adc_clip=float(adc_clip))
-    if tier == "torch-ref":
+    if tier != "cuda":
         idx, s = ref.am_search_multibit(queries, am_planes_t,
                                         offsets=offsets, **kw)
     else:
@@ -560,7 +566,7 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
     tier = _tier(q, use_kernel)
     _count("qail_update", tier, B=q.shape[0], D=am_t.shape[0],
            C=am_t.shape[1])
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.qail_update_delta(q, upd, am_t, centroid_class, labels,
                                      mask, lr)
     return _qail_update(q.float().contiguous(), upd.float().contiguous(),
@@ -595,21 +601,25 @@ def predict_multibit(queries: torch.Tensor, am_planes_t: torch.Tensor,
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                  softcap: float | None = None,
-                 use_kernel: bool | None = True) -> torch.Tensor:
+                 use_kernel: bool | None = True, return_lse: bool = False):
     """One-token GQA attention over a length-masked KV cache (the decode
     step's attention). q: (B, H, Dh); k_cache/v_cache: (B, S, KV, Dh),
     not head-repeated; cache_len: (B,) valid keys per row; ``softcap``
     caps the scaled scores (cap * tanh(s / cap)). Returns (B, H, Dh) in
-    q's dtype; float32 softmax and P @ V."""
+    q's dtype; float32 softmax and P @ V. ``return_lse`` returns (out,
+    lse): out unrounded in float32 and each row's log-sum-exp of its
+    scores, (B, H) float32 (-inf for a row with ``cache_len`` 0): a
+    sequence shard's partial."""
     tier = _tier(q, use_kernel)
     _count("flash_decode", tier, B=q.shape[0], H=q.shape[1],
            KV=k_cache.shape[2], S=k_cache.shape[1], Dh=q.shape[2])
-    if tier == "torch-ref":
-        return ref.flash_decode(q, k_cache, v_cache, cache_len, softcap)
+    if tier != "cuda":
+        return ref.flash_decode(q, k_cache, v_cache, cache_len, softcap,
+                                return_lse)
     return _flash_decode(q.contiguous(), k_cache.contiguous(),
                          v_cache.contiguous(),
                          cache_len.to(torch.int32).contiguous(),
-                         softcap=softcap)
+                         softcap=softcap, return_lse=return_lse)
 
 
 def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -626,7 +636,7 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     tier = _tier(x, use_kernel)
     _count("ssd_chunk", tier, B=x.shape[0], Q=x.shape[1], H=x.shape[2],
            N=b.shape[3], P=x.shape[3])
-    if tier == "torch-ref":
+    if tier != "cuda":
         return ref.ssd_chunk(x, b, c, dt, da, state)
     rows = [t if t.shape[0] == 0 or t[0].is_contiguous() else t.contiguous()
             for t in (x, b, c, dt.float(), da.float())]

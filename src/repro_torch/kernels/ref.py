@@ -389,7 +389,7 @@ def am_search_multibit(q: torch.Tensor, am_planes_t: torch.Tensor, *,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor,
-                 softcap: float | None = None) -> torch.Tensor:
+                 softcap: float | None = None, return_lse: bool = False):
     """One-token GQA attention over a length-masked KV cache, all in
     float32: the function of the TPU kernel ``flash_decode``.
 
@@ -399,7 +399,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     kernel's ``m_safe`` / ``corr`` guards). ``softcap``: the scaled
     scores s become softcap * tanh(s / softcap) before the mask (the
     reference's ``attention_decode``). P @ V runs in float32 on the
-    unrounded probabilities. Returns (B, H, Dh) in q's dtype.
+    unrounded probabilities. Returns (B, H, Dh) in q's dtype; with
+    ``return_lse`` (out, lse): out unrounded in float32, and the rows'
+    log-sum-exp of the (capped) scores, (B, H) float32, -inf for a row
+    with cache_len 0 (a sequence shard past the row's length): the
+    partials a sequence-parallel decode merges.
     """
     b, h, dh = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
@@ -418,8 +422,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.where(torch.isfinite(sc), torch.exp(sc - m_safe),
                     torch.zeros_like(sc))
     acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    out = acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    return out.reshape(b, h, dh).to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (acc / l.clamp_min(1e-20)).reshape(b, h, dh)
+    if not return_lse:
+        return out.to(q.dtype)
+    return out, (m + torch.log(l)).reshape(b, h)
 
 
 def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

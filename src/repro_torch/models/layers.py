@@ -16,25 +16,36 @@ forward, the plain version's VJP), which is what the LM train step
 differentiates.
 
 Each ``init_*`` draws from an explicit ``torch.Generator`` with the
-reference's shapes, dtypes and distributions and returns the params only
-(the reference also returns logical sharding axes, which a single device
-has no use for; its ``shard_act`` annotations are no-ops here and are
-dropped). ``use_kernel=False`` runs the kernels' plain versions.
+reference's shapes, dtypes and distributions and returns the params
+only; the reference's logical sharding axes come from the matching
+``*_axes`` function (``transformer.param_axes`` assembles the tree).
+Under ``abstract_init()`` every init allocates ``torch.empty`` on the
+meta device and draws nothing (the dry run's shapes). The reference's
+``shard_act`` annotations are identities here and are dropped.
+``use_kernel=False`` runs the kernels' plain versions.
 
-Not ported yet, each raising ``NotImplementedError``: the
-sequence-parallel decode and the expert-parallel MoE (the sharding
-slice).
+Under sharding rules (``models.sharding.use_rules``) two paths run over
+the rules' mesh, each issuing its collectives through
+``distributed.collectives``: the sequence-parallel decode
+(``gqa_decode(seq_parallel=True)``: the cache's sequence dim cut over
+"model", one ``flash_decode`` per shard, the partials merged by their
+log-sum-exp) and the expert-parallel MoE (``moe_ffn``: tokens cut over
+every mesh axis, experts over "model", two all-to-alls).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.models.config import AttnSpec, FfnSpec, SsmSpec
+from repro_torch.models.sharding import batch_axes, current_rules
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = float("-inf")
@@ -42,9 +53,41 @@ NEG_INF = float("-inf")
 DRAW_ELEMS = 1 << 26
 
 
-def deferred(what: str, item: str = "queue 1 item 17c") -> None:
-    """Raise for a part of the LM stack the port does not have yet."""
+def deferred(what: str, item: str) -> None:
+    """Raise for a part of the LM stack the port does not have."""
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+# ---------------------------------------------------------------------------
+# Abstract init: the dry run needs the params' shapes and dtypes of
+# 340B / 671B models without allocating a byte or drawing a number.
+# ---------------------------------------------------------------------------
+
+_abstract = threading.local()
+META = torch.device("meta")
+
+
+@contextlib.contextmanager
+def abstract_init():
+    """Inside, every ``init_*`` returns ``torch.empty`` on the meta device
+    and draws nothing (its generator may be None)."""
+    prev = getattr(_abstract, "on", False)
+    _abstract.on = True
+    try:
+        yield
+    finally:
+        _abstract.on = prev
+
+
+def is_abstract() -> bool:
+    return getattr(_abstract, "on", False)
+
+
+def _made(make, shape, dtype) -> torch.Tensor:
+    """``make()``, or a meta tensor of ``shape`` under ``abstract_init``."""
+    if is_abstract():
+        return torch.empty(shape, dtype=dtype, device=META)
+    return make()
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +102,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _zeros(shape, dtype, device) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+    return _made(lambda: torch.zeros(shape, dtype=dtype, device=device),
+                 shape, dtype)
 
 
 def normal(gen: torch.Generator, shape, std: float, dtype,
@@ -67,6 +111,8 @@ def normal(gen: torch.Generator, shape, std: float, dtype,
     """N(0, std^2) in ``dtype``. A leaf of more than ``DRAW_ELEMS``
     elements is drawn slice by slice of its leading axis, so a float32
     copy of a large bfloat16 leaf is never whole."""
+    if is_abstract():
+        return _made(None, shape, dtype)
     n = math.prod(shape)
     if n <= DRAW_ELEMS:
         return (torch.randn(shape, generator=gen, device=device)
@@ -113,6 +159,69 @@ def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return scores
     return cap * torch.tanh(scores / cap)
+
+
+# ---------------------------------------------------------------------------
+# Logical sharding axes of each layer's params: the reference's second
+# return value of its ``init_*`` (``models.sharding`` resolves them).
+# ---------------------------------------------------------------------------
+
+def gqa_axes(spec: AttnSpec) -> Dict[str, tuple]:
+    a = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if spec.qkv_bias:
+        a.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    return a
+
+
+def mla_axes(spec: AttnSpec) -> Dict[str, tuple]:
+    if spec.q_lora_rank:
+        a = {"wq_a": ("embed", "lora"), "q_norm": ("lora",),
+             "wq_b": ("lora", "heads", "head_dim")}
+    else:
+        a = {"wq": ("embed", "heads", "head_dim")}
+    a.update(wkv_a=("embed", "lora"), kv_norm=("lora",),
+             wk_b=("lora", "heads", "head_dim"),
+             wv_b=("lora", "heads", "head_dim"),
+             wo=("heads", "head_dim", "embed"))
+    return a
+
+
+def cross_attn_axes() -> Dict[str, tuple]:
+    return {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "heads", "head_dim"),
+            "wv": ("embed", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
+
+def dense_ffn_axes(spec: FfnSpec) -> Dict[str, tuple]:
+    a = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if spec.activation.endswith("_glu"):
+        a["w_up"] = ("embed", "mlp")
+    return a
+
+
+def moe_ffn_axes(spec: FfnSpec) -> Dict[str, tuple]:
+    a = {"router": ("embed", None),
+         "w_gate": ("experts", "embed", "expert_mlp"),
+         "w_up": ("experts", "embed", "expert_mlp"),
+         "w_down": ("experts", "expert_mlp", "embed")}
+    if spec.router == "sigmoid":
+        a["router_bias"] = (None,)
+    if spec.n_shared:
+        a.update(ws_gate=("embed", "mlp"), ws_up=("embed", "mlp"),
+                 ws_down=("mlp", "embed"))
+    return a
+
+
+def ssm_axes() -> Dict[str, tuple]:
+    return {"w_in": ("embed", "ssm_inner"), "conv_w": ("conv", "ssm_inner"),
+            "conv_b": ("ssm_inner",), "a_log": (None,), "d_skip": (None,),
+            "dt_bias": (None,), "gate_norm": ("ssm_inner",),
+            "w_out": ("ssm_inner", "embed")}
 
 
 # ---------------------------------------------------------------------------
@@ -270,16 +379,40 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     does not depend on the keys' order, so the ring needs no unrolling.
     The attention is ``ops.flash_decode`` over the un-repeated KV heads,
     with the layer's logit softcap.
+
+    With ``seq_parallel`` and active rules that ``seq_parallel_ok``
+    accepts (the reference's conditions) the attention runs
+    sequence-parallel (``attention_decode_seqpar``) over a cache of
+    per-member blocks: one that ``init_gqa_cache(seq_parallel=True)``
+    built under the rules, or that ``seq_shard_cache`` cut from a whole
+    one. A whole cache there raises: the path exists so that no member
+    holds the whole cache. Otherwise the local path runs.
     """
-    if seq_parallel:
-        deferred("seq_parallel_decode", "queue 1 item 17c")
     pos = cache["len"]  # (B,) absolute position of the new token
     q, k, v = _project(p, spec, x)
     q, k = _rope_qk(q, k, pos[:, None], spec.rope_theta)
-    k_cache, v_cache = cache["k"], cache["v"]
-    s_cache = k_cache.shape[1]
+    sharded = isinstance(cache["k"], list)
+    s_cache = (cache["k"][0].shape[1] * cache["seq_shards"] if sharded
+               else cache["k"].shape[1])
     slot = pos % s_cache if spec.window is not None else pos
     valid = torch.clamp_max(pos + 1, s_cache)
+    rules = current_rules()
+    if seq_parallel and seq_parallel_ok(spec, s_cache, rules):
+        if not sharded:
+            raise ValueError(
+                "the sequence-parallel decode takes a sequence-sharded "
+                "cache: build it under the rules (T.init_cache, or "
+                "init_gqa_cache(seq_parallel=True)) or cut it with "
+                "seq_shard_cache")
+        out = attention_decode_seqpar(
+            q[:, 0], cache["k"], cache["v"], k[:, 0], v[:, 0], slot, valid,
+            rules, softcap=spec.logit_softcap, use_kernel=use_kernel)
+        y = (out.flatten(1) @ p["wo"].flatten(0, 1))[:, None]
+        return y, {**cache, "len": pos + 1}
+    if sharded:
+        raise ValueError("a sequence-sharded cache needs the "
+                         "sequence-parallel decode under its rules")
+    k_cache, v_cache = cache["k"], cache["v"]
     idx = (torch.arange(x.shape[0], device=x.device), slot.long())
     k_cache.index_put_(idx, k[:, 0])
     v_cache.index_put_(idx, v[:, 0])
@@ -290,10 +423,163 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     return y, {"k": k_cache, "v": v_cache, "len": pos + 1}
 
 
+def _batch_block(mesh, member: int, b: int) -> Tuple[int, slice]:
+    """(block index, rows) of the batch a member holds: B cut over the
+    batch axes when they divide it, else the whole batch (block 0)."""
+    ba = tuple(a for a in batch_axes(mesh) if a in mesh.axis_names)
+    n = mesh.axis_size(ba) if ba else 1
+    if n == 1 or b % n:
+        return 0, slice(0, b)
+    i = mesh.axis_index(member, ba)
+    return i, slice(i * (b // n), (i + 1) * (b // n))
+
+
+def seq_parallel_ok(spec: AttnSpec, s_cache: int, rules) -> bool:
+    """The reference's conditions for the sequence-parallel decode
+    (``layers.py:438-445``): rules with ``shard_seq``, a "model" axis
+    that divides the cache's length, and no window."""
+    return (rules is not None and rules.shard_seq
+            and "model" in rules.mesh.axis_names
+            and s_cache % rules.mesh.shape["model"] == 0
+            and spec.window is None)
+
+
+def seq_blocks(mesh, b: int, s: int) -> List[Tuple[slice, slice]]:
+    """(rows, keys) of a whole (B, S, ...) cache that each member holds
+    in the sequence-parallel decode, in member order: its rows from
+    ``_batch_block``, its keys the contiguous slice of its "model"
+    index."""
+    s_local = s // mesh.shape["model"]
+    out = []
+    for i in range(mesh.size):
+        off = mesh.axis_index(i, "model") * s_local
+        out.append((_batch_block(mesh, i, b)[1],
+                    slice(off, off + s_local)))
+    return out
+
+
+def seq_shard_cache(cache: Dict[str, torch.Tensor], rules,
+                    ) -> Dict[str, object]:
+    """An explicit converter: a whole GQA cache cut for the
+    sequence-parallel decode. "k" / "v" become lists with one new
+    contiguous (B_local, S / model, KV, Dh) block per mesh member, on its
+    device (``seq_blocks``); "len" stays whole; "seq_shards" holds the
+    "model" size. The whole cache is not written afterwards. A cache
+    built under the rules (``init_gqa_cache(seq_parallel=True)``) is cut
+    from the start and never whole."""
+    mesh = rules.mesh
+    b, s = cache["k"].shape[:2]
+    out: Dict[str, object] = {"len": cache["len"],
+                              "seq_shards": mesh.shape["model"]}
+    for name in ("k", "v"):
+        blocks = []
+        for (rows, keys), dev in zip(seq_blocks(mesh, b, s),
+                                     mesh.member_devices()):
+            part = cache[name][rows, keys]
+            blocks.append(torch.empty(part.shape, dtype=part.dtype,
+                                      device=dev).copy_(part))
+        out[name] = blocks
+    return out
+
+
+def seq_gather_cache(cache: Dict[str, object], rules,
+                     ) -> Dict[str, torch.Tensor]:
+    """The whole cache back from the per-member blocks, on the device of
+    "len"."""
+    mesh = rules.mesh
+    b = cache["len"].shape[0]
+    s = cache["k"][0].shape[1] * cache["seq_shards"]
+    dev = cache["len"].device
+    out = {"len": cache["len"]}
+    for name in ("k", "v"):
+        first = cache[name][0]
+        whole = torch.empty((b, s) + tuple(first.shape[2:]),
+                            dtype=first.dtype, device=dev)
+        for (rows, keys), block in zip(seq_blocks(mesh, b, s), cache[name]):
+            whole[rows, keys] = block.to(dev)
+        out[name] = whole
+    return out
+
+
+def attention_decode_seqpar(q: torch.Tensor, k_blocks: List[torch.Tensor],
+                            v_blocks: List[torch.Tensor],
+                            k_new: torch.Tensor, v_new: torch.Tensor,
+                            slot: torch.Tensor, cache_len: torch.Tensor,
+                            rules, *, softcap: Optional[float] = None,
+                            use_kernel: bool = True) -> torch.Tensor:
+    """Sequence-parallel flash decode over a sequence-sharded cache (ref
+    ``attention_decode_seqpar``).
+
+    q: (B, H, Dh); k_blocks / v_blocks: ``seq_shard_cache``'s per-member
+    blocks; k_new / v_new: (B, KV, Dh) this step's entries; slot: (B,)
+    global slot to write; cache_len: (B,) valid entries after the write.
+    Each member writes the new entries where it owns ``slot`` and runs
+    ``ops.flash_decode(..., return_lse=True)`` over its block with
+    ``clamp(cache_len - offset, 0, S_local)`` valid keys (the hand-written
+    kernel on a CUDA tensor). The partials merge as the reference's
+    three reductions over "model" (``collectives.all_reduce``): the max
+    of the LSEs, then the sums of the weights w_r = exp(lse_r - max) and
+    of w_r * out_r; out = sum(w out) / sum(w), 0 where every shard is
+    empty. Returns (B, H, Dh) in q's dtype on q's device.
+    """
+    mesh = rules.mesh
+    b = q.shape[0]
+    s_local = k_blocks[0].shape[1]
+    outs, lses, blocks = [], [], []
+    for i, dev in enumerate(mesh.member_devices()):
+        blk, rows = _batch_block(mesh, i, b)
+        off = mesh.axis_index(i, "model") * s_local
+        kc, vc = k_blocks[i], v_blocks[i]
+        local = slot[rows].to(dev) - off
+        own = ((local >= 0) & (local < s_local))[:, None, None]
+        idx = (torch.arange(kc.shape[0], device=dev),
+               local.clamp(0, s_local - 1).long())
+        for c, new in ((kc, k_new), (vc, v_new)):
+            c.index_put_(idx, torch.where(own, new[rows].to(dev), c[idx]))
+        n_local = (cache_len[rows].to(dev) - off).clamp(0, s_local)
+        out, lse = ops.flash_decode(q[rows].to(dev), kc, vc,
+                                    n_local.to(torch.int32),
+                                    softcap=softcap, use_kernel=use_kernel,
+                                    return_lse=True)
+        outs.append(out)
+        lses.append(lse)
+        blocks.append(blk)
+    m = collectives.all_reduce(lses, mesh, "model", op="max")
+    w = [torch.exp(lse - torch.where(torch.isfinite(mg), mg, 0.0))
+         for lse, mg in zip(lses, m)]
+    l_sum = collectives.all_reduce(w, mesh, "model")
+    acc = collectives.all_reduce([wi[..., None] * o for wi, o in
+                                  zip(w, outs)], mesh, "model")
+    merged: Dict[int, torch.Tensor] = {}
+    for i, blk in enumerate(blocks):
+        if blk not in merged:
+            merged[blk] = (acc[i] / l_sum[i].clamp_min(1e-20)[..., None]
+                           ).to(q.device, q.dtype)
+    return torch.cat([merged[k] for k in sorted(merged)], dim=0)
+
+
 def init_gqa_cache(spec: AttnSpec, batch: int, max_len: int, dtype,
-                   device, quant: bool = False) -> Dict[str, torch.Tensor]:
+                   device, quant: bool = False, seq_parallel: bool = False,
+                   ) -> Dict[str, torch.Tensor]:
+    """A zero cache. With ``seq_parallel`` under active rules that
+    ``seq_parallel_ok`` accepts, "k" / "v" are allocated directly as the
+    sequence-parallel decode's per-member blocks (``seq_blocks``), each
+    on its member's device, so the whole cache never exists; "len" lies
+    on ``device``."""
     s = min(max_len, spec.window) if spec.window is not None else max_len
     shape = (batch, s, spec.n_kv_heads, spec.head_dim)
+    rules = current_rules()
+    if seq_parallel and not quant and seq_parallel_ok(spec, s, rules):
+        mesh = rules.mesh
+
+        def blocks():
+            return [_zeros((rows.stop - rows.start, keys.stop - keys.start)
+                           + shape[2:], dtype, dev)
+                    for (rows, keys), dev in zip(seq_blocks(mesh, batch, s),
+                                                 mesh.member_devices())]
+        return {"k": blocks(), "v": blocks(),
+                "len": _zeros((batch,), torch.int32, device),
+                "seq_shards": mesh.shape["model"]}
     if quant:
         # int8 rows + per-(batch, pos, kv-head) float16 scales: ~1.03
         # bytes an element against 2 for bf16.
@@ -570,16 +856,18 @@ def _route(logits: torch.Tensor, spec: FfnSpec,
 
 def moe_ffn(p: Params, spec: FfnSpec, x: torch.Tensor, *, rules=None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Top-k MoE. x: (B, S, D) -> (y, aux). Only the reference's local
-    (single-device) dispatch is ported; sharding ``rules`` raise.
+    """Top-k MoE. x: (B, S, D) -> (y, aux).
 
+    With sharding rules (``rules``, else the active ones) whose mesh has
+    a "model" axis the expert-parallel dispatch runs
+    (``_moe_ffn_sharded``); otherwise the local one (``_moe_ffn_local``).
     aux carries the load-balance loss and per-expert slot counts (softmax
     router) or the counts only (sigmoid router, for DeepSeek-V3's
     aux-free bias update).
     """
-    if rules is not None:
-        deferred("the expert-parallel MoE (_moe_ffn_sharded)",
-                 "queue 1 item 17c")
+    rules = rules if rules is not None else current_rules()
+    if rules is not None and "model" in rules.mesh.axis_names:
+        return _moe_ffn_sharded(p, spec, x, rules)
     return _moe_ffn_local(p, spec, x)
 
 
@@ -592,60 +880,184 @@ def moe_capacity(t: int, spec: FfnSpec) -> int:
                             * spec.capacity_factor))
 
 
-def _moe_ffn_local(p: Params, spec: FfnSpec, x: torch.Tensor,
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Sort-based top-k dispatch with the reference's semantics.
+def _dispatch(xt: torch.Tensor, top_i: torch.Tensor, e: int, cap: int,
+              ) -> Tuple[torch.Tensor, tuple]:
+    """Sort-based dispatch of (T, D) tokens into an (E * cap, D) buffer.
 
     The (T * k) slots are sorted by expert (stably: token-major order
-    within an expert), each expert keeps its first ``moe_capacity`` slots
-    and the rest go to a sink row and are dropped, and the experts run as
-    one batched product over the (E, cap, D) buffer. Each token's k slot
-    outputs are gathered back through the inverse of the sort and summed
-    in slot order: no scatter-add, so the sum is the same on every run.
-    """
+    within an expert) and each expert keeps its first ``cap``; the rest go
+    to a sink row and are dropped. Returns (buffer, route) where route
+    is what ``_combine`` needs."""
+    t, k = top_i.shape
+    flat_e = top_i.reshape(-1)                                  # (T*k,)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(e, device=xt.device))
+    pos_in_seg = (torch.arange(t * k, device=xt.device)
+                  - seg_start[sorted_e])
+    keep = pos_in_seg < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_seg, e * cap)
+    buf = torch.zeros((e * cap + 1, xt.shape[1]), dtype=xt.dtype,
+                      device=xt.device)
+    buf[dest] = xt[order // k]
+    return buf[:e * cap], (order, keep, dest)
+
+
+def _combine(y_flat: torch.Tensor, top_w: torch.Tensor, route: tuple,
+             ) -> torch.Tensor:
+    """Each token's k slot outputs from the (E * cap, D) expert outputs,
+    weighted and summed in slot order: gathered through the inverse of the
+    dispatch's sort, no scatter-add, so the sum is the same on every
+    run. Dropped slots add 0."""
+    order, keep, dest = route
+    t, k = top_w.shape
+    y_slots = torch.where(keep[:, None],
+                          y_flat[torch.clamp_max(dest, y_flat.shape[0] - 1)],
+                          0.0)
+    w_slots = top_w.reshape(-1)[order][:, None].to(y_slots.dtype)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=order.device)
+    contrib = (y_slots * w_slots)[inv].reshape(t, k, -1)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y
+
+
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor) -> torch.Tensor:
+    """The experts as one batched product: (E, C, D) -> (E, C, D)."""
+    return torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
+
+
+def _expert_counts(top_i: torch.Tensor, e: int) -> torch.Tensor:
+    """Slots per expert, float32: an exact scatter of ones (``bincount``
+    has no meta kernel)."""
+    flat = top_i.reshape(-1)
+    return torch.zeros(e, dtype=torch.float32, device=flat.device
+                       ).scatter_add_(0, flat, torch.ones(
+                           flat.shape, dtype=torch.float32,
+                           device=flat.device))
+
+
+def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
+    return (F.silu(xt @ p["ws_gate"]) * (xt @ p["ws_up"])) @ p["ws_down"]
+
+
+def _moe_ffn_local(p: Params, spec: FfnSpec, x: torch.Tensor,
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sort-based top-k dispatch with the reference's semantics: every
+    expert keeps its first ``moe_capacity`` slots (``_dispatch``), the
+    experts run as one batched product over the (E, cap, D) buffer, and
+    the slots combine in slot order (``_combine``)."""
     b, s, d = x.shape
     e, k = spec.n_experts, spec.top_k
     t = b * s
     xt = x.reshape(t, d)
     scores, top_w, top_i = _route(xt.float() @ p["router"], spec,
                                   p.get("router_bias"))
-
     cap = moe_capacity(t, spec)
-    flat_e = top_i.reshape(-1)                                  # (T*k,)
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    seg_start = torch.searchsorted(sorted_e,
-                                   torch.arange(e, device=x.device))
-    pos_in_seg = (torch.arange(t * k, device=x.device)
-                  - seg_start[sorted_e])
-    keep = pos_in_seg < cap
-    dest = torch.where(keep, sorted_e * cap + pos_in_seg, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest] = xt[order // k]
-    buf = buf[:e * cap].reshape(e, cap, d)
-
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    y_flat = torch.bmm(h, p["w_down"]).reshape(e * cap, d)
-
-    y_slots = torch.where(keep[:, None],
-                          y_flat[torch.clamp_max(dest, e * cap - 1)], 0.0)
-    w_slots = top_w.reshape(-1)[order][:, None].to(y_slots.dtype)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=x.device)
-    contrib = (y_slots * w_slots)[inv].reshape(t, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
-
+    buf, route = _dispatch(xt, top_i, e, cap)
+    y_flat = _experts(buf.reshape(e, cap, d), p["w_gate"], p["w_up"],
+                      p["w_down"]).reshape(e * cap, d)
+    y = _combine(y_flat, top_w, route)
     if spec.n_shared:
-        sh = F.silu(xt @ p["ws_gate"]) * (xt @ p["ws_up"])
-        y = y + sh @ p["ws_down"]
-
-    counts = torch.bincount(flat_e, minlength=e).float()
+        y = y + _shared(p, xt)
+    counts = _expert_counts(top_i, e)
     aux = {"expert_counts": counts}
     if spec.router != "sigmoid":
         # Switch-style load-balance loss.
         aux["lb_loss"] = e * torch.sum(counts / (t * k) * scores.mean(0))
+    return y.reshape(b, s, d), aux
+
+
+def _expert_axes(rules, e: int) -> Tuple[Tuple[str, ...], int]:
+    """The axes experts are cut over: the rules' "experts" entry, or
+    ("model",) when its size does not divide E (ref ``layers.py:896``)."""
+    mesh = rules.mesh
+    axes = tuple(a for a in (rules.table().get("experts") or ("model",))
+                 if a in mesh.axis_names)
+    size = mesh.axis_size(axes) if axes else 1
+    if e % size:
+        axes, size = ("model",), mesh.shape["model"]
+    if e % size:
+        raise ValueError(f"{e} experts do not split over {size} members")
+    return axes, size
+
+
+def moe_shard_capacity(t: int, n_members: int, spec: FfnSpec) -> int:
+    """The expert-parallel path's slots per (source member, expert):
+    ceil(t_local * k / E * capacity_factor), t padded to a multiple of
+    the mesh size."""
+    t_local = -(-t // n_members)
+    return max(1, math.ceil(t_local * spec.top_k / spec.n_experts
+                            * spec.capacity_factor))
+
+
+def _moe_ffn_sharded(p: Params, spec: FfnSpec, x: torch.Tensor, rules,
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert-parallel MoE over the rules' mesh (ref ``_moe_ffn_sharded``).
+
+    Tokens are flattened to (T, D), zero-padded to a multiple of the mesh
+    size and cut over every mesh member in order; experts are cut over
+    ``_expert_axes`` (member r along them owns experts [r E_l, (r+1) E_l)).
+    Each member routes its tokens (``_route``), packs an (E * cap, D)
+    buffer with a per-(source, expert) capacity
+    (``moe_shard_capacity``), and an ``all_to_all`` over the expert axes
+    hands each owner its experts' rows from every source; the owner runs
+    them as one batched product and a second ``all_to_all`` returns the
+    results, which combine in slot order. The counts are summed and the
+    router's mean probabilities averaged over every member
+    (``all_reduce`` over all axes); the shared experts run unsharded on
+    x's device. Returns (y on x's device, aux) as the local path.
+    """
+    mesh = rules.mesh
+    devs = mesh.member_devices()
+    all_axes = tuple(mesh.axis_names)
+    e, k = spec.n_experts, spec.top_k
+    b, s, d = x.shape
+    t = b * s
+    exp_axes, m_size = _expert_axes(rules, e)
+    e_local = e // m_size
+    n = mesh.size
+    xt = x.reshape(t, d)
+    xp = F.pad(xt, (0, 0, 0, -t % n))
+    t_local = xp.shape[0] // n
+    cap = moe_shard_capacity(t, n, spec)
+    bias = p.get("router_bias")
+    sends, routes, counts, probs = [], [], [], []
+    for i, dev in enumerate(devs):
+        xl = xp[i * t_local:(i + 1) * t_local].to(dev)
+        scores, top_w, top_i = _route(
+            xl.float() @ p["router"].to(dev), spec,
+            bias.to(dev) if bias is not None else None)
+        buf, route = _dispatch(xl, top_i, e, cap)
+        sends.append(buf.reshape(m_size, e_local * cap, d))
+        routes.append((top_w, route))
+        counts.append(_expert_counts(top_i, e))
+        probs.append(scores.mean(0))
+    recv = collectives.all_to_all(sends, mesh, exp_axes)
+    outs = []
+    for i, dev in enumerate(devs):
+        r = mesh.axis_index(i, exp_axes)
+        w = [p[name][r * e_local:(r + 1) * e_local].to(dev)
+             for name in ("w_gate", "w_up", "w_down")]
+        hbuf = recv[i].reshape(m_size, e_local, cap, d).transpose(0, 1)
+        y_e = _experts(hbuf.reshape(e_local, m_size * cap, d), *w)
+        outs.append(y_e.reshape(e_local, m_size, cap, d).transpose(0, 1)
+                    .reshape(m_size, e_local * cap, d))
+    back = collectives.all_to_all(outs, mesh, exp_axes)
+    y = torch.cat([_combine(back[i].reshape(e * cap, d), *routes[i]
+                            ).to(x.device) for i in range(n)])[:t]
+    if spec.n_shared:
+        y = y + _shared(p, xt)
+    counts = collectives.all_reduce(counts, mesh, all_axes)[0].to(x.device)
+    aux = {"expert_counts": counts}
+    if spec.router != "sigmoid":
+        probs_mean = collectives.all_reduce(probs, mesh, all_axes)[0] / n
+        frac = counts / torch.clamp_min(counts.sum(), 1.0)
+        aux["lb_loss"] = e * torch.sum(frac * probs_mean.to(x.device))
     return y.reshape(b, s, d), aux
 
 
@@ -663,15 +1075,21 @@ def init_ssm(gen: torch.Generator, d_model: int, spec: SsmSpec, dtype,
     w_in = _dense_init(gen, (d_model, d_proj), dtype, device)
     conv_w = _dense_init(gen, (spec.conv_width, conv_dim), dtype, device)
     lo, hi = math.log(spec.dt_min), math.log(spec.dt_max)
-    u = torch.rand((n_heads,), generator=gen, device=device) * (hi - lo) + lo
+
+    def dt_bias():
+        u = torch.rand((n_heads,), generator=gen, device=device) \
+            * (hi - lo) + lo
+        return torch.log(torch.expm1(torch.exp(u))).to(dtype)
+
     return {
         "w_in": w_in,
         "conv_w": conv_w,
         "conv_b": _zeros((conv_dim,), dtype, device),
-        "a_log": torch.log(torch.linspace(1.0, 16.0, n_heads,
-                                          device=device)).to(dtype),
-        "d_skip": torch.ones((n_heads,), dtype=dtype, device=device),
-        "dt_bias": torch.log(torch.expm1(torch.exp(u))).to(dtype),
+        "a_log": _made(lambda: torch.log(torch.linspace(
+            1.0, 16.0, n_heads, device=device)).to(dtype), (n_heads,), dtype),
+        "d_skip": _made(lambda: torch.ones((n_heads,), dtype=dtype,
+                                           device=device), (n_heads,), dtype),
+        "dt_bias": _made(dt_bias, (n_heads,), dtype),
         "gate_norm": _zeros((d_in,), dtype, device),
         "w_out": _dense_init(gen, (d_in, d_model), dtype, device),
     }

@@ -17,6 +17,7 @@ layer's activations instead of keeping them; the numbers are the same.
 
 Public surface:
   init_params(generator, cfg, device=)       -> params
+  param_axes(cfg)                            -> logical sharding axes
   forward(params, cfg, batch)                -> logits, aux
   loss_fn(params, cfg, batch)                -> loss, metrics
   init_cache(cfg, batch, max_len, device=)   -> decode caches
@@ -46,9 +47,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg.seq_parallel_decode:
-        L.deferred("seq_parallel_decode", "queue 1 item 17c")
+    """Raise ``NotImplementedError`` for what the port does not have."""
     if cfg.param_dtype != cfg.activation_dtype:
         L.deferred("mixed param/activation dtypes",
                    "queue 1 item 17a, a kept difference")
@@ -135,8 +134,10 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     distributions, drawn from ``generator`` (which must live on
     ``device``; default the GPU). The draws are not ``jax.random``'s. A
     large leaf is drawn in float32 slices (``layers.normal``), so a
-    bfloat16 model never has a float32 copy resident."""
-    device = resolve_device(device)
+    bfloat16 model never has a float32 copy resident. Under
+    ``layers.abstract_init()`` every leaf is an empty meta tensor and
+    nothing is drawn (``generator`` may be None)."""
+    device = L.META if L.is_abstract() else resolve_device(device)
     check_supported(cfg)
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
@@ -160,6 +161,46 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                                           device),
                     "ln": L._zeros((d,), dt, device)}
     return p
+
+
+def _layer_axes(b: BlockSpec) -> Params:
+    a: Params = {"ln1": ("embed",)}
+    if _has_ffn(b):
+        a["ln2"] = ("embed",)
+    if b.mixer in ("attn", "hybrid"):
+        a["attn"] = (L.gqa_axes(b.attn) if b.attn.kind == "gqa"
+                     else L.mla_axes(b.attn))
+    if b.mixer in ("ssm", "hybrid"):
+        a["ssm"] = L.ssm_axes()
+    if b.cross_attn:
+        a["ln_x"] = ("embed",)
+        a["xattn"] = L.cross_attn_axes()
+    if b.ffn.kind == "moe":
+        a["ffn"] = L.moe_ffn_axes(b.ffn)
+    elif _has_ffn(b):
+        a["ffn"] = L.dense_ffn_axes(b.ffn)
+    return a
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The params' logical sharding axes, the reference's second return
+    value of ``init_params``: the same tree with a tuple of logical axis
+    names per dim at each leaf (a group's leaves lead with ``None``, its
+    stacking axis). Allocates nothing."""
+    a: Params = {"embed": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        a["unembed"] = ("vocab", "embed")
+    if cfg.n_codebooks > 1:
+        a["codebook_heads"] = (None, "vocab", "embed")
+    if cfg.frontend == "vision_patches":
+        a["patch_proj"] = (None, "embed")
+    a["groups"] = [_map(lambda ax: (None,) + ax, _layer_axes(b))
+                   for b in cfg.blocks]
+    a["ln_f"] = ("embed",)
+    if cfg.mtp_depth:
+        a["mtp"] = {"block": _layer_axes(cfg.blocks[-1]),
+                    "proj": (None, "embed"), "ln": ("embed",)}
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -355,14 +396,18 @@ def loss_fn(params: Params, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype_name: Optional[str] = None, *, device=None) -> list:
-    """Decode caches on ``device`` (default the GPU): per group, a list of
+    """Decode caches on ``device`` (default the GPU; ``"meta"`` for the
+    dry run's shapes): per group, a list of
     one dict per layer ({"attn": ..., "ssm": ...}). The reference stacks
     a group's caches for its scan; the port's layer loop takes them one
     by one and never copies them.
 
     Windowed GQA layers allocate ring buffers of min(window, S); global
     ones the full horizon, int8 with ``cfg.kv_cache_quant``; MLA layers
-    the latent (ckv, krope) cache; SSM layers are O(1).
+    the latent (ckv, krope) cache; SSM layers are O(1). With
+    ``cfg.seq_parallel_decode`` under active rules, a GQA layer that the
+    sequence-parallel decode takes gets its per-member blocks directly
+    (``L.init_gqa_cache(seq_parallel=True)``): no whole cache is made.
     """
     device = resolve_device(device)
     check_supported(cfg)
@@ -376,7 +421,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 if b.attn.kind == "gqa":
                     entry["attn"] = L.init_gqa_cache(
                         b.attn, batch, max_len, dt, device,
-                        quant=cfg.kv_cache_quant)
+                        quant=cfg.kv_cache_quant,
+                        seq_parallel=cfg.seq_parallel_decode)
                 else:
                     entry["attn"] = L.init_mla_cache(b.attn, batch, max_len,
                                                      dt, device)

@@ -1339,6 +1339,10 @@ def test_flash_decode_softcap_none_launches_the_uncapped_kernel(dev, dtype):
                                    dh=64)
     names = {}
     for cap in (None, 30.0):
+        # Once outside the trace: a first call in the process builds the
+        # library and loads the kernels, and the trace then missed them.
+        flash_decode.flash_decode(q, k, v, lens, softcap=cap)
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             flash_decode.flash_decode(q, k, v, lens, softcap=cap)
             torch.cuda.synchronize()
@@ -1978,3 +1982,78 @@ def test_fit_sharded_two_shards_on_one_card(dev):
     for key in ("fp", "binary"):
         assert torch.equal(m1.am_state[key], m2.am_state[key])
     assert h1["curve"] == h2["curve"]
+
+
+# -- the sharded LM paths: flash_decode's partials, the sequence-parallel
+# decode and the expert-parallel MoE over (cuda:0, cuda:0) ---------------------
+
+@pytest.mark.parametrize("s", [1, 64, 320, 4097])
+@pytest.mark.parametrize("softcap", [None, 2.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_return_lse(dev, s, softcap, dtype):
+    """The LSE read from the launch's per-split partials against the plain
+    version's; -inf on the row with cache_len 0, whose output is 0; the
+    output is float32, and rounded to q's dtype it is the same launch's
+    output as without ``return_lse``."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng([s, 77])
+    q, k, v, lens = flash_decode_case(rng, 4, s, 10, 2, 64, dt, dev)
+    got, lse = flash_decode.flash_decode(q, k, v, lens, softcap=softcap,
+                                         return_lse=True)
+    want, wlse = ref.flash_decode(q, k, v, lens, softcap, return_lse=True)
+    assert_flash_decode(got, want, dt)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.to(dt), flash_decode.flash_decode(
+        q, k, v, lens, softcap=softcap))
+    assert lse.shape == (4, 10) and lse.dtype == torch.float32
+    assert torch.isneginf(lse[1]).all() and (got[1] == 0).all()
+    fin = torch.isfinite(wlse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    err = (lse - wlse)[fin].abs()
+    assert (err <= 1e-4 + 1e-5 * wlse[fin].abs()).all(), err.max().item()
+
+
+def _one_card_rules(**kw):
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    return make_rules(make_test_mesh((1, 2), devices="cuda:0"), **kw)
+
+
+def test_seq_parallel_decode_on_one_card_twice(dev):
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import AttnSpec
+    from repro_torch.models.sharding import use_rules
+    spec = AttnSpec(kind="gqa", n_heads=8, n_kv_heads=2, head_dim=64,
+                    logit_softcap=30.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = L.init_gqa(gen, 128, spec, torch.float32, dev)
+    x = torch.randn((3, 12, 128), generator=gen, device=dev)
+    rules = _one_card_rules(shard_seq=True)
+    caches = [L.init_gqa_cache(spec, 3, 256, torch.float32, dev)]
+    with use_rules(rules):
+        caches.append(L.init_gqa_cache(spec, 3, 256, torch.float32, dev,
+                                       seq_parallel=True))
+    kernels.reset_launches()
+    for i in range(12):
+        want, caches[0] = L.gqa_decode(p, spec, x[:, i:i + 1], caches[0])
+        with use_rules(rules):
+            got, caches[1] = L.gqa_decode(p, spec, x[:, i:i + 1], caches[1],
+                                          seq_parallel=True)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert kernels.launches()["flash_decode"] == 12 * 3
+    assert torch.equal(L.seq_gather_cache(caches[1], rules)["k"],
+                       caches[0]["k"])
+
+
+def test_expert_parallel_moe_on_one_card_twice(dev):
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import FfnSpec
+    spec = FfnSpec(kind="moe", d_ff=64, n_experts=8, n_shared=1, top_k=2,
+                   d_ff_expert=32, router="softmax", capacity_factor=8.0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = L.init_moe_ffn(gen, 64, spec, torch.float32, dev)
+    x = torch.randn((4, 16, 64), generator=gen, device=dev)
+    want, aux0 = L.moe_ffn(p, spec, x)
+    got, aux = L.moe_ffn(p, spec, x, rules=_one_card_rules())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(aux["expert_counts"], aux0["expert_counts"])
+    assert got.device == x.device

@@ -228,44 +228,91 @@ def test_gqa_forward_matches_the_reference(window):
     model_close(L.gqa_forward(ours, spec, t(x), t(pos)), want)
 
 
-# -- what is not ported yet ---------------------------------------------------
+# -- what once raised: the sequence-parallel decode's config flag ----------
 
-DEFERRED = {
+SEQ_PARALLEL = {
     "seq_parallel": lambda: configs.get_smoke_config(
         "hymba-1.5b", seq_parallel_decode=True),
 }
 
 
-@pytest.mark.parametrize("what", sorted(DEFERRED))
+@pytest.mark.parametrize("what", sorted(SEQ_PARALLEL))
 def test_deferred_parts_raise(what):
-    cfg = DEFERRED[what]()
-    assert isinstance(cfg, ModelConfig)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.lm_params_from_numpy({"groups": []}, cfg, device="cpu")
+    """``seq_parallel_decode`` no longer raises: the flagged config inits,
+    builds caches and crosses the reference's params, and without
+    sharding rules it decodes exactly as the unflagged config (the
+    sequence-parallel path needs rules with ``shard_seq``; it is held
+    against the reference in tests/test_torch_lm_sharded.py)."""
+    cfg = SEQ_PARALLEL[what]()
+    assert isinstance(cfg, ModelConfig) and cfg.seq_parallel_decode
+    plain = dataclasses.replace(cfg, seq_parallel_decode=False)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    crossed = convert.lm_params_from_numpy(
+        {k: v for k, v in _numpy_tree(params).items()}, cfg, device="cpu")
+    assert T.param_axes(cfg) == T.param_axes(plain)
+    caches = [T.init_cache(c, 2, 8, device="cpu") for c in (cfg, plain)]
+    toks = torch.tensor([[3], [5]])
+    for _ in range(3):
+        got, caches[0] = T.decode_step(crossed, cfg, {"tokens": toks},
+                                       caches[0])
+        want, caches[1] = T.decode_step(params, plain, {"tokens": toks},
+                                        caches[1])
+        assert torch.equal(got, want)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.numpy()
 
 
 def test_decode_softcap_and_quant_cache_raise():
-    """The sequence-parallel decode still raises; the decode softcap and
-    the int8 cache now run (held against the reference in
-    tests/test_torch_lm_mla_moe.py and tests/test_torch_lm_families.py)."""
+    """Nothing here raises any more: the decode softcap, the int8 cache
+    and the sequence-parallel decode run (the first two are held against
+    the reference in tests/test_torch_lm_mla_moe.py and
+    tests/test_torch_lm_families.py, the third in
+    tests/test_torch_lm_sharded.py). Here: ``seq_parallel=True`` without
+    rules is the local decode bit for bit, and under rules over two CPU
+    "model" members it agrees with it within 1e-5 (a softcapped layer)."""
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.models.sharding import use_rules
     cfg = configs.get_smoke_config("hymba-1.5b")
-    spec = dataclasses.replace(cfg.blocks[0].attn, logit_softcap=30.0)
+    spec = dataclasses.replace(cfg.blocks[0].attn, logit_softcap=30.0,
+                               window=None)
     gen = torch.Generator().manual_seed(0)
     p = L.init_gqa(gen, cfg.d_model, spec, torch.float32, "cpu")
+    x = torch.randn((2, 4, cfg.d_model), generator=gen)
+    rules = make_rules(make_test_mesh((1, 2), devices="cpu"), shard_seq=True)
+    caches = [L.init_gqa_cache(spec, 2, 8, torch.float32, "cpu",
+                               seq_parallel=True) for _ in range(2)]
+    with use_rules(rules):
+        caches.append(L.init_gqa_cache(spec, 2, 8, torch.float32, "cpu",
+                                       seq_parallel=True))
+    for i in range(4):
+        xi = x[:, i:i + 1]
+        y0, caches[0] = L.gqa_decode(p, spec, xi, caches[0])
+        y1, caches[1] = L.gqa_decode(p, spec, xi, caches[1],
+                                     seq_parallel=True)
+        with use_rules(rules):
+            y2, caches[2] = L.gqa_decode(p, spec, xi, caches[2],
+                                         seq_parallel=True)
+        assert torch.equal(y0, y1)
+        torch.testing.assert_close(y2, y0, rtol=1e-5, atol=1e-5)
+    assert isinstance(caches[2]["k"], list) and len(caches[2]["k"]) == 2
+    assert torch.equal(L.seq_gather_cache(caches[2], rules)["k"],
+                       caches[0]["k"])
+    assert torch.isfinite(y0).all() and caches[0]["len"].tolist() == [4, 4]
     cache = L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu")
-    x = torch.ones((1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        L.gqa_decode(p, cfg.blocks[0].attn, x, cache, seq_parallel=True)
-    y, cache = L.gqa_decode(p, spec, x, cache)
-    assert torch.isfinite(y).all() and cache["len"].tolist() == [1]
+    xq = torch.ones((1, 1, cfg.d_model))
     qcache = L.init_gqa_cache(spec, 1, 8, torch.float32, "cpu", quant=True)
     assert qcache["k_q"].dtype == torch.int8
-    yq, qcache = L.gqa_decode_quant(p, spec, x, qcache)
+    yq, qcache = L.gqa_decode_quant(p, spec, xq, qcache)
     assert torch.isfinite(yq).all() and qcache["len"].tolist() == [1]
+    y, cache = L.gqa_decode(p, spec, xq, cache)
+    assert torch.isfinite(y).all() and cache["len"].tolist() == [1]
     # The prefill path keeps the softcap (plain attention, no kernel).
     out = L.gqa_forward(p, spec, torch.ones((1, 4, cfg.d_model)),
                         torch.arange(4))

@@ -234,9 +234,23 @@ def test_moe_combine_is_independent_of_the_run():
 
 
 def test_moe_sharding_rules_raise():
+    """Sharding rules no longer raise: ``moe_ffn(rules=)`` over a (data 1,
+    model 2) mesh of CPU members takes the expert-parallel path (two
+    all-to-alls recorded), and at a capacity where nothing drops (cf = E)
+    it equals the local path within 1e-5 with the same counts (the
+    reference's contract is held in tests/test_torch_lm_sharded.py)."""
+    from repro_torch.distributed.collectives import record_collectives
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
     spec, ours, _, x = moe_case("deepseek-v3-671b", 1, 4, 1.25, 36)
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        L.moe_ffn(ours, spec, t(x), rules=object())
+    spec = dataclasses.replace(spec, capacity_factor=float(spec.n_experts))
+    rules = make_rules(make_test_mesh((1, 2), devices="cpu"))
+    with record_collectives() as ops:
+        y, aux = L.moe_ffn(ours, spec, t(x), rules=rules)
+    assert [op.kind for op in ops] == ["all-to-all", "all-to-all",
+                                       "all-reduce"]
+    y0, aux0 = L.moe_ffn(ours, spec, t(x))
+    torch.testing.assert_close(y, y0, rtol=1e-5, atol=1e-5)
+    assert torch.equal(aux["expert_counts"], aux0["expert_counts"])
 
 
 def test_deepseek_params_cross_in_bfloat16_bit_for_bit():

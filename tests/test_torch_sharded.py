@@ -446,9 +446,17 @@ def test_make_inference_fn_matches_the_reference(pair):
         torch.as_tensor(x))
     np.testing.assert_array_equal(n(got), np.asarray(want))
     np.testing.assert_array_equal(n(got), n(tm.predict(x)))
+    # The dry runs no longer raise: on an abstract (2, 4) mesh they count
+    # one member's run on meta tensors (tests/test_torch_dryrun.py holds
+    # them against the reference).
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(None, ("data", "model"), (2, 4))
     for fn in (distributed.dryrun_inference, distributed.dryrun_epoch):
-        with pytest.raises(NotImplementedError, match="item 17c"):
-            fn(cpu_mesh(1))
+        rep = fn(mesh, features=F, dim=64, columns=32, **{
+            "n_queries" if fn is distributed.dryrun_inference
+            else "n_samples": 512})
+        assert rep["roofline"]["flops_per_dev"] > 0
+        assert rep["roofline"]["chips"] == 8
 
 
 # -- the launchers ------------------------------------------------------------
