@@ -64,7 +64,15 @@ script exits non-zero without the final result line:
    epoch's miss bit-equal, at D = C = 128 and at full width, 10 epochs,
    every kernel-fit launch on the int8 route;
 6. the serving CLI: staged, ``--fused``, ``--target unpacked`` and
-   ``--mode unpack``;
+   ``--mode unpack``; then the port's four example drivers
+   (``examples/*_torch.py``, phase ``examples``) as subprocesses on the
+   card, all at once, each to a zero exit with its own check:
+   ``train_lm_torch --preset smoke`` past its warm-up (the loss drops;
+   every SSD chunk an ``ssd_chunk`` launch), ``imc_mapping_report_torch``
+   (Table II and the head's accuracy), ``quickstart_torch`` (its parity
+   asserts; every MEMHD kernel launched) and ``serve_lm_torch``
+   (``flash_decode`` launched), read from each one's ``kernel launches``
+   line;
 7. the trainer CLI (``repro_torch.launch.train --arch memhd --smoke
    --steps 10``): a run killed at step 7 (exit 42), its resume and a
    clean run give the same ``am_digest``, on the card and on the CPU;
@@ -289,7 +297,27 @@ script exits non-zero without the final result line:
    abstract (16, 16) mesh and ``repro_torch.launch.dryrun`` on
    mamba2-130m x train_4k, a CPU subprocess started with the group
    (``lm_dryrun``: their rooflines). The ``kernels`` line gives
-   ``flash_decode`` and ``ssd_chunk`` their ``lm_sharded`` launches.
+   ``flash_decode`` and ``ssd_chunk`` their ``lm_sharded`` launches;
+20. mixed precision (phase group ``lm_mixed``, after ``lm_sharded``):
+   mamba2-130m at full width and depth with float32 params and bfloat16
+   activations (the one mixed config the reference runs): at the
+   trainer's batch (seq 256, batch 8) the bf16 forward logits and the
+   float32 gradients on the kernel route against the plain route, each
+   within MIXED_YARDSTICKS x the bf16 yardstick (the plain route's mixed
+   run against its float32-activation run of the same params:
+   max|logits| overall, a gradient leaf leaf by leaf); MIXED_STEPS train
+   steps from step 1
+   (the schedule's lr is 0 at step 0) at the trainer's lr and schedule:
+   losses finite, the params float32 and moved at every step, the AdamW
+   moments fp32, every SSD chunk on the ``ssd_chunk`` kernel (steps x
+   layers x chunks x 2 under remat, counts zeroed just before and read
+   just after), ms and tokens/s a step, one step under
+   ``torch.profiler`` (``lm_mixed_profile``), the peak memory; decode at
+   B 4 (prefill as decode, then greedy): the caches bfloat16 at init and
+   after every step the conv window float32 and the state bfloat16, as
+   the reference's; ms a step; ``launch.serve.generate`` == that loop
+   token for token. The ``kernels`` line gives ``ssd_chunk`` its
+   ``lm_mixed`` launches.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -490,6 +518,27 @@ EP_DECODE = 4
 # float32 mean| of every leaf (tests/test_distributed.py's ring bound).
 POD_STEPS = 3
 POD_GRAD_TOL = 0.05
+# Mixed precision (phase group ``lm_mixed``): mamba2-130m at full width and
+# depth, float32 params with bfloat16 activations; MIXED_STEPS train steps
+# from step 1 at the trainer's batch; decode at (B, prompt, new tokens).
+MIXED = dict(param_dtype="float32", activation_dtype="bfloat16")
+MIXED_STEPS = 3
+MIXED_DECODE = (4, 32, 16)
+# The kernel route and the plain route round their activations to bf16
+# apart (the kernel's float32 SSD output differs in its last bits, which
+# flips bf16 roundings that the residual stream carries on), so each lies
+# about a yardstick from the float32-activation run and the two within
+# twice that: MIXED_YARDSTICKS. Measured at most 0.94 (a gradient leaf;
+# the forward 0.69).
+MIXED_YARDSTICKS = 2.0
+# The example drivers (phase ``examples``): train_lm_torch runs past its
+# 20-step warm-up; quickstart_torch launches every MEMHD kernel.
+EXAMPLE_TRAIN_STEPS = 40
+QUICKSTART_KERNELS = ("pack_bits", "am_search_packed",
+                      "am_search_packed_unpack", "encode_pack",
+                      "qail_update", "am_search", "binary_mvm",
+                      "unpack_bits", "am_search_imc", "am_search_multibit",
+                      "am_shortlist")
 
 
 def check(cond, what) -> None:
@@ -640,6 +689,7 @@ class Smoke:
         self.families_launches = {}  # flash_decode's lm_families launches
         self.sp_launches = 0     # flash_decode's lm_sharded launches
         self.pod_launches = 0    # ssd_chunk's lm_sharded launches
+        self.mixed_launches = 0  # ssd_chunk's lm_mixed launches
         self.batches_seen = {}   # kernel -> {B: CUDA dispatches}
 
     # -- helpers ---------------------------------------------------------------
@@ -1890,6 +1940,76 @@ class Smoke:
             tiers = rep["metrics"]["dispatch_tiers"]
             check("torch-ref" not in json.dumps(tiers), tiers)
             log({"phase": "cli", "args": base + extra, "ok": True})
+
+    def examples(self):
+        """The port's four example drivers as subprocesses on the card, all
+        started at once: each exits 0 and passes its own check, and its
+        ``kernel launches`` line shows its path's kernels launched."""
+        from repro_torch.configs import get_smoke_config
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        build = os.path.join(HERE, "build")
+        os.makedirs(build, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            runs = {"train_lm_torch": ["--preset", "smoke", "--steps",
+                                       str(EXAMPLE_TRAIN_STEPS),
+                                       "--ckpt-dir", tmp],
+                    "imc_mapping_report_torch": [],
+                    "quickstart_torch": [],
+                    "serve_lm_torch": []}
+            procs = {name: subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "examples",
+                                              f"{name}.py"), *args],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True) for name, args in runs.items()}
+            outs = {}
+            try:
+                for name, proc in procs.items():
+                    out, err = proc.communicate(timeout=600)
+                    check(proc.returncode == 0,
+                          (name, proc.returncode, err[-2000:]))
+                    outs[name] = out
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+        secs = round(time.perf_counter() - t0, 3)
+        launches = {}
+        for name, out in outs.items():
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("kernel launches: ")]
+            check(len(line) == 1, (name, out[-2000:]))
+            launches[name] = {k: v for k, v in json.loads(
+                line[0].split(": ", 1)[1]).items() if v}
+        train = outs["train_lm_torch"]
+        check("(drop +" in train and "no loss check" not in train,
+              train[-2000:])
+        scfg = get_smoke_config(TRAIN_ARCH)
+        want = (EXAMPLE_TRAIN_STEPS * scfg.n_layers
+                * -(-256 // scfg.blocks[0].ssm.chunk)
+                * (2 if scfg.remat else 1))
+        check(launches["train_lm_torch"] == {"ssd_chunk": want},
+              ("train_lm_torch launches", launches, want))
+        imc = outs["imc_mapping_report_torch"]
+        check("=== Table II (array 128x128) ===" in imc
+              and "head accuracy on synthetic 6-class task" in imc,
+              imc[-2000:])
+        qs = outs["quickstart_torch"]
+        check("predictions bit-exact with the staged pipeline" in qs
+              and "bit-exact with packed" in qs, qs[-2000:])
+        got = launches["quickstart_torch"]
+        check(all(got.get(k, 0) > 0 for k in QUICKSTART_KERNELS)
+              and got.get("am_search_sparse", 0)
+              + got.get("am_search_sparse_gathered", 0) > 0,
+              ("quickstart_torch launches", got))
+        check("arch=hymba-1.5b-smoke" in outs["serve_lm_torch"]
+              and launches["serve_lm_torch"].get("flash_decode", 0) > 0,
+              ("serve_lm_torch", launches["serve_lm_torch"]))
+        log({"phase": "examples", "seconds_all_four": secs,
+             "launches": launches,
+             "last_lines": {name: [ln for ln in out.splitlines()
+                                   if ln.strip()][-3:-1]
+                            for name, out in outs.items()}})
 
     # -- phase 7 ---------------------------------------------------------------
     def trainer(self):
@@ -3701,6 +3821,201 @@ class Smoke:
              "seconds_three_runs": round(time.perf_counter() - t0, 3)})
 
     # -- phase group lm_sharded ------------------------------------------------
+    # -- phase group lm_mixed ----------------------------------------------
+    def lm_mixed(self):
+        """mamba2-130m at full width and depth, float32 params with bfloat16
+        activations: the forward and the gradient on the kernel route
+        against the plain route, MIXED_STEPS train steps from step 1, and
+        decode with the caches' dtypes after every step."""
+        import dataclasses
+        import math
+        torch = self.torch
+        from repro_torch import generator
+        from repro_torch.configs import get_config
+        from repro_torch.distributed.steps import (
+            loss_and_grads, make_train_step,
+        )
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve, train
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import (
+            AdamWConfig, ScheduleConfig, adamw_init, make_schedule,
+        )
+        from repro_torch.optim.adamw import tree_leaves
+        t_ph = time.perf_counter()
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), **MIXED)
+        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(generator(0, self.dev), cfg, device=self.dev)
+        check({p.dtype for p in tree_leaves(params)} == {torch.float32},
+              "mixed params are float32")
+        batches = [self.lm_batch(cfg, 256, 8, position=i)
+                   for i in range(MIXED_STEPS + 1)]
+
+        # The forward: kernel route against plain route, and the plain
+        # route's float32-activation run as the bf16 yardstick.
+        with torch.no_grad():
+            lk, _ = T.forward(params, cfg, batches[1])
+            lp, _ = T.forward(params, cfg, batches[1], use_kernel=False)
+            l32, _ = T.forward(params, cfg32, batches[1], use_kernel=False)
+        check(lk.dtype == lp.dtype == torch.bfloat16
+              and bool(torch.isfinite(lk).all()), ("mixed logits", lk.dtype))
+        fwd_err = (lk.float() - lp.float()).abs().max().item()
+        fwd_yard = (lp.float() - l32).abs().max().item()
+        fwd_max = lp.float().abs().max().item()
+        check(fwd_err <= MIXED_YARDSTICKS * fwd_yard,
+              ("mixed forward kernel vs plain", fwd_err, fwd_yard))
+        del lk, lp, l32
+
+        # The step-1 gradient, leaf by leaf against the same yardstick.
+        losses = {}
+        grads = {}
+        for name, (c, uk) in {"kernel": (cfg, True), "plain": (cfg, False),
+                              "f32": (cfg32, False)}.items():
+            loss, _, g = loss_and_grads(params, c, batches[1], use_kernel=uk)
+            losses[name], grads[name] = loss.item(), tree_leaves(g)
+        check(all(g.dtype == torch.float32 for g in grads["kernel"]),
+              "mixed gradients are float32")
+        names = self.paths(params)
+        worst, where, worst_rel = 0.0, None, 0.0
+        for i, (a, b, c) in enumerate(zip(grads["kernel"], grads["plain"],
+                                          grads["f32"])):
+            err = (a - b).abs().max().item()
+            yard = (b - c).abs().max().item()
+            check(math.isfinite(err) and err <= MIXED_YARDSTICKS * yard,
+                  ("mixed grad leaf kernel vs plain", names[i], err, yard))
+            worst_rel = max(worst_rel, err / max(b.abs().max().item(),
+                                                 1e-30))
+            if yard > 0 and err / yard >= worst:
+                worst, where = err / yard, names[i]
+        del grads
+        self.free()
+        # The plain routes above are comparisons, not a path.
+        self.note_batches()
+        ops.reset_dispatch()
+
+        # MIXED_STEPS train steps from step 1 at the trainer's lr and
+        # schedule.
+        rc = train.TrainRunConfig()
+        opt_cfg = AdamWConfig(lr=rc.lr)
+        sched = make_schedule(ScheduleConfig(warmup_steps=rc.warmup,
+                                             total_steps=rc.steps))
+        opt = adamw_init(params, opt_cfg)
+        step_fn = make_train_step(cfg, opt_cfg, sched)
+        per_step = []
+
+        def run():
+            nonlocal params, opt
+            for step in range(1, MIXED_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, opt, m = step_fn(params, opt, batches[step], step)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                moved = self.moved(params, new)
+                per_step.append({"step": step, "lr": float(sched(step)),
+                                 "loss": m["loss"].item(),
+                                 "ms": round(dt * 1e3, 3),
+                                 "tokens_per_s": round(8 * 256 / dt, 1),
+                                 "leaves_moved": sum(v > 0 for v in
+                                                     moved.values()),
+                                 "leaves": len(moved)})
+                params = new
+
+        _, launches, tiers = self.path_counts(run)
+        chunks = -(-256 // cfg.blocks[0].ssm.chunk)
+        want = MIXED_STEPS * cfg.n_layers * chunks * (2 if cfg.remat else 1)
+        check(launches["ssd_chunk"] == want > 0,
+              ("ssd_chunk launches on the mixed train path", launches, want))
+        check(tiers == {"ssd_chunk": {"cuda": want}}, tiers)
+        check(all(math.isfinite(r["loss"]) and r["lr"] > 0
+                  and r["leaves_moved"] > 0 for r in per_step), per_step)
+        check({p.dtype for p in tree_leaves(params)} == {torch.float32}
+              and {x.dtype for x in tree_leaves(opt["m"])}
+              == {x.dtype for x in tree_leaves(opt["v"])} == {torch.float32},
+              "mixed params float32, moments fp32 after the steps")
+        self.mixed_launches = launches["ssd_chunk"]
+        self.profile("lm_mixed_profile",
+                     lambda: step_fn(params, opt, batches[-1],
+                                     MIXED_STEPS + 1),
+                     arch=TRAIN_ARCH, B=8, S=256, dtype="float32 params, "
+                     "bfloat16 activations")
+        peak_train = torch.cuda.max_memory_allocated()
+        del opt
+        self.free()
+
+        # Decode: prefill as decode, then greedy, the caches' dtypes read
+        # after every step; generate() over the same prompts.
+        b, p_len, gen = MIXED_DECODE
+        prompts = torch.randint(0, cfg.vocab_size, (b, p_len),
+                                generator=generator(1, self.dev),
+                                device=self.dev, dtype=torch.int32)
+
+        def ssm_dtypes(caches):
+            return {(str(c["ssm"]["conv"].dtype), str(c["ssm"]["state"].dtype))
+                    for g in caches for c in g}
+
+        step_ms, toks = [], []
+        with torch.inference_mode():
+            caches = T.init_cache(cfg, b, p_len + gen, device=self.dev)
+            check(ssm_dtypes(caches) == {("torch.bfloat16",
+                                          "torch.bfloat16")},
+                  ("mixed caches at init", ssm_dtypes(caches)))
+            cur = prompts[:, :1]
+            for t in range(p_len + gen - 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches = T.decode_step(params, cfg, {"tokens": cur},
+                                           caches)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                check(ssm_dtypes(caches) == {("torch.float32",
+                                              "torch.bfloat16")},
+                      ("mixed caches after a step", t, ssm_dtypes(caches)))
+                check(lg.dtype == torch.bfloat16
+                      and bool(torch.isfinite(lg).all()), ("decode", t))
+                if t + 1 < p_len:
+                    cur = prompts[:, t + 1:t + 2]
+                else:
+                    cur = torch.argmax(lg[..., :cfg.vocab_size], dim=-1)[
+                        :, None].to(torch.int32)
+                    toks.append(cur)
+            out = serve.generate(cfg, params, prompts, gen)
+        check(torch.equal(out[:, p_len:], torch.cat(toks, dim=1)),
+              "generate != the decode loop's greedy tokens")
+        decode_ms = statistics.mean(step_ms[1:])
+        log({"phase": "lm_mixed", "arch": TRAIN_ARCH,
+             "gpu": nvidia_smi("name,power.limit"),
+             "param_dtype": cfg.param_dtype,
+             "activation_dtype": cfg.activation_dtype,
+             "param_count": cfg.param_count(), "layers": cfg.n_layers,
+             "d_model": cfg.d_model, "remat": cfg.remat, "B": 8, "S": 256,
+             "forward_max_abs_err": fwd_err, "forward_yardstick": fwd_yard,
+             "forward_max_abs_logit": fwd_max,
+             "losses_step1": losses,
+             "grad_worst_share_of_yardstick": worst,
+             "grad_worst_leaf": where,
+             "grad_worst_rel_of_max_leaf": worst_rel,
+             "yardsticks_allowed": MIXED_YARDSTICKS,
+             "per_step": per_step,
+             "ms_per_step_after_first": round(statistics.mean(
+                 r["ms"] for r in per_step[1:]), 3),
+             "tokens_per_s_after_first": round(statistics.mean(
+                 r["tokens_per_s"] for r in per_step[1:]), 1),
+             "launches": {"ssd_chunk": launches["ssd_chunk"]},
+             "dispatch_tiers": tiers,
+             "peak_bytes_train": peak_train,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "decode": {"B": b, "prompt": p_len, "gen": gen,
+                        "steps": len(step_ms),
+                        "ms_per_step_after_first": round(decode_ms, 3),
+                        "tokens_per_s": round(b * 1e3 / decode_ms, 1),
+                        "cache_dtypes_after_step": ["float32 conv",
+                                                    "bfloat16 state"]},
+             "seconds": round(time.perf_counter() - t_ph, 3)})
+        del params
+        self.free()
+
     def one_card_rules(self, shape, axes, **kw):
         from repro_torch.launch.mesh import make_rules, make_test_mesh
         return make_rules(make_test_mesh(shape, axes, devices=self.dev), **kw)
@@ -4758,6 +5073,8 @@ class Smoke:
             "lm_train"] = self.train_launches_lm
         rows["ssd_chunk"]["launches_by_path"]["lm_sharded"] = \
             self.pod_launches
+        rows["ssd_chunk"]["launches_by_path"]["lm_mixed"] = \
+            self.mixed_launches
         rows["flash_decode"].setdefault("launches_by_path", {})[
             "lm_sharded"] = self.sp_launches
         # Launches on this slice's paths, beside each row's own path.
@@ -4876,7 +5193,7 @@ def main():
                     help="comma list of build,kernels,main,train,fidelity,"
                          "hier,baselines,online,autotune,sharded,"
                          "fit_sharded,lm,lm_families,lm_train,lm_sharded,"
-                         "robustness,"
+                         "lm_mixed,robustness,"
                          "cli,trainer,repro "
                          "(development runs; train, fidelity, hier, "
                          "baselines, online and fit_sharded need main, "
@@ -4884,7 +5201,7 @@ def main():
                          "fidelity and hier; the kernels line needs "
                          "kernels, main, train, fidelity, hier, baselines, "
                          "online, autotune, sharded, fit_sharded, lm, "
-                         "lm_families, lm_train and lm_sharded)")
+                         "lm_families, lm_train, lm_sharded and lm_mixed)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -4902,8 +5219,8 @@ def main():
          "count": torch.cuda.device_count()})
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
                "baselines", "online", "autotune", "sharded", "fit_sharded",
-               "lm", "lm_families", "lm_train", "lm_sharded", "robustness",
-               "cli", "trainer", "repro"]
+               "lm", "lm_families", "lm_train", "lm_sharded", "lm_mixed",
+               "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -4984,10 +5301,16 @@ def main():
                 smoke.dryrun_proc.kill()
         log({"phase": "lm_sharded_group",
              "seconds": round(time.perf_counter() - t_lm, 3)})
+    if "lm_mixed" in phases:
+        t_lm = time.perf_counter()
+        smoke.lm_mixed()
+        log({"phase": "lm_mixed_group",
+             "seconds": round(time.perf_counter() - t_lm, 3)})
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
         smoke.cli()
+        smoke.examples()
     if "trainer" in phases:
         smoke.trainer()
     if "repro" in phases:
@@ -4995,7 +5318,8 @@ def main():
     if all(p in phases for p in ("kernels", "main", "train", "fidelity",
                                  "hier", "baselines", "online", "autotune",
                                  "sharded", "fit_sharded", "lm",
-                                 "lm_families", "lm_train", "lm_sharded")):
+                                 "lm_families", "lm_train", "lm_sharded",
+                                 "lm_mixed")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

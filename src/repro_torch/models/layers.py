@@ -53,11 +53,6 @@ NEG_INF = float("-inf")
 DRAW_ELEMS = 1 << 26
 
 
-def deferred(what: str, item: str) -> None:
-    """Raise for a part of the LM stack the port does not have."""
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 # ---------------------------------------------------------------------------
 # Abstract init: the dry run needs the params' shapes and dtypes of
 # 340B / 671B models without allocating a byte or drawing a number.
@@ -94,9 +89,18 @@ def _made(make, shape, dtype) -> torch.Tensor:
 # Basics
 # ---------------------------------------------------------------------------
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under jnp's promotion: mixed float operands (bfloat16
+    activations against float32 params) multiply in the promoted dtype,
+    as the reference's ``@`` does; torch's ``@`` refuses them."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in float32."""
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in float32, returned in
+    x's dtype (a float32 scale keeps bfloat16 x bfloat16)."""
     return F.rms_norm(x.float(), x.shape[-1:], 1.0 + scale.float(),
                       eps).to(x.dtype)
 
@@ -1139,7 +1143,9 @@ def ssd_forward(p: Params, spec: SsmSpec, d_model: int, x: torch.Tensor, *,
     n_heads = d_in // spec.head_dim
     n, ph = spec.d_state, spec.head_dim
 
-    proj = x @ p["w_in"]
+    # Mixed precision: bfloat16 x @ float32 w_in is float32, so the conv,
+    # the chunk operands and y run in float32 until the last cast.
+    proj = matmul(x, p["w_in"])
     z, xbc, dt = _ssm_split(spec, d_model, proj)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs, bmat, cmat = _split_heads(spec, d_in, xbc)
@@ -1183,9 +1189,11 @@ def ssd_decode(p: Params, spec: SsmSpec, d_model: int, x: torch.Tensor,
     """
     b = x.shape[0]
     d_in = spec.expand * d_model
-    proj = x @ p["w_in"]  # (B,1,dproj)
+    proj = matmul(x, p["w_in"])  # (B,1,dproj)
     z, xbc, dt = _ssm_split(spec, d_model, proj)
-    # Causal conv against the rolling window.
+    # Causal conv against the rolling window, in the promoted dtype: with
+    # float32 params the bfloat16 conv cache comes back float32 after the
+    # first step (the reference's concatenate); the state keeps its dtype.
     window = torch.cat([cache["conv"], xbc], dim=1)  # (B,W,conv)
     conv_out = (window * p["conv_w"]).sum(dim=1) + p["conv_b"]
     xs, bmat, cmat = _split_heads(spec, d_in, F.silu(conv_out))

@@ -23,7 +23,9 @@ Public surface:
   init_cache(cfg, batch, max_len, device=)   -> decode caches
   decode_step(params, cfg, batch, caches)    -> logits, caches
 
-``use_kernel=False`` runs the kernels' plain versions.
+``use_kernel=False`` runs the kernels' plain versions. Mixed precision
+(float32 params, bfloat16 activations) runs on SSM-only stacks, as in the
+reference (``check_supported``).
 """
 from __future__ import annotations
 
@@ -47,10 +49,32 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have."""
-    if cfg.param_dtype != cfg.activation_dtype:
-        L.deferred("mixed param/activation dtypes",
-                   "queue 1 item 17a, a kept difference")
+    """Raise ``NotImplementedError`` for a config the reference cannot run.
+
+    Mixed precision (float32 params, bfloat16 activations) runs where the
+    reference runs it: a stack of SSM blocks with no FFN and no
+    cross-attention, whose residual stream stays bfloat16 (``ssd_forward``
+    casts its output back). Elsewhere the reference's layer scan raises
+    ``TypeError``: an attention, FFN or cross-attention output is float32,
+    so the scan's carry leaves float32 where it entered bfloat16. The port
+    refuses those configs here instead (a kept difference). bfloat16
+    params with float32 activations, which the reference runs everywhere,
+    are not ported yet."""
+    if cfg.param_dtype == cfg.activation_dtype:
+        return
+    if (cfg.param_dtype, cfg.activation_dtype) != ("float32", "bfloat16"):
+        raise NotImplementedError(
+            f"param_dtype {cfg.param_dtype} with activation_dtype "
+            f"{cfg.activation_dtype}: only float32 params with bfloat16 "
+            f"activations are ported (ROADMAP queue 1 item 19)")
+    if not all(b.mixer == "ssm" and not _has_ffn(b) and not b.cross_attn
+               for b in cfg.blocks):
+        raise NotImplementedError(
+            f"{cfg.name}: float32 params with bfloat16 activations run only "
+            f"on SSM blocks without an FFN or cross-attention; the "
+            f"reference's layer scan raises TypeError here (its bfloat16 "
+            f"carry comes back float32), so the port refuses it (a kept "
+            f"difference)")
 
 
 def _has_ffn(b: BlockSpec) -> bool:
@@ -277,7 +301,8 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     else:
         x = params["embed"][batch["tokens"]].to(dt)
         if cfg.frontend == "vision_patches":
-            patches = batch["patch_feats"].to(dt) @ params["patch_proj"]
+            patches = L.matmul(batch["patch_feats"].to(dt),
+                               params["patch_proj"])
             x = torch.cat([patches.to(dt), x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -375,7 +400,8 @@ def loss_fn(params: Params, cfg: ModelConfig,
     if cfg.mtp_depth and cfg.frontend == "none":
         # DeepSeek-V3 MTP: predict t+2 from [h_i ; emb(t_{i+1})].
         emb_next = params["embed"][batch["targets"]].to(h.dtype)
-        hin = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"]
+        hin = L.matmul(torch.cat([h, emb_next], dim=-1),
+                       params["mtp"]["proj"])
         positions = torch.arange(h.shape[1], device=h.device)[None, :] \
             .expand(h.shape[0], -1)
         hm, _ = _layer_forward(cfg, cfg.blocks[-1], params["mtp"]["block"],

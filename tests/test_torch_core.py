@@ -529,7 +529,7 @@ def test_fit_crash_and_resume_is_bit_exact(tmp_path):
     assert hist2 == chist
 
 
-def test_qail_not_ported_options_raise():
+def test_qail_options_and_epoch_variants_run_on_the_cpu():
     cfg = types.MemhdConfig(dim=8, columns=8, classes=2)
     state = am.make_am_state(torch.zeros((8, 8)),
                              torch.zeros(8, dtype=torch.int32))

@@ -1624,6 +1624,100 @@ def test_lm_train_step_runs_through_the_kernel(dev):
     assert not torch.equal(new["embed"], params["embed"])
 
 
+MIXED = dict(param_dtype="float32", activation_dtype="bfloat16")
+
+
+def test_lm_mixed_precision_runs_through_the_kernel(dev):
+    """mamba2-130m's smoke config with float32 params and bfloat16
+    activations on the card: the forward's logits are bfloat16 and its SSD
+    chunks launch ``ssd_chunk`` (its operands float32); the logits and each
+    gradient leaf (float32) on the kernel route within the bf16 yardstick
+    of the plain route (the plain route's mixed run against its
+    float32-activation run); a train step at lr > 0 keeps the params
+    float32 and the moments fp32 and moves every leaf."""
+    import dataclasses
+    from repro_torch import generator
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import (AdamWConfig, ScheduleConfig,
+                                   adamw_init, make_schedule)
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_smoke_config("mamba2-130m", **MIXED)
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    params = T.init_params(generator(0, dev), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=dev,
+                         generator=generator(1, dev), dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    kernels.reset_launches()
+    with torch.no_grad():
+        lk, _ = T.forward(params, cfg, batch)
+    assert kernels.launches()["ssd_chunk"] == cfg.n_layers * 2
+    with torch.no_grad():
+        lp, _ = T.forward(params, cfg, batch, use_kernel=False)
+        l32, _ = T.forward(params, cfg32, batch, use_kernel=False)
+    assert lk.dtype == torch.bfloat16
+    assert (lk.float() - lp.float()).abs().max() <= (
+        lp.float() - l32).abs().max()
+    grads = [tree_leaves(steps.loss_and_grads(params, c, batch,
+                                              use_kernel=k)[2])
+             for c, k in ((cfg, True), (cfg, False), (cfg32, False))]
+    for g, w, w32 in zip(*grads):
+        assert g.dtype == torch.float32
+        assert (g - w).abs().max() <= (w - w32).abs().max()
+    step = steps.make_train_step(cfg, AdamWConfig(), make_schedule(
+        ScheduleConfig(warmup_steps=2, total_steps=10)))
+    new, opt, metrics = step(params, adamw_init(params, AdamWConfig()),
+                             batch, 3)
+    assert torch.isfinite(torch.as_tensor(float(metrics["loss"])))
+    for a, p0 in zip(tree_leaves(new), tree_leaves(params)):
+        assert a.dtype == torch.float32 and not torch.equal(a, p0)
+    assert {m.dtype for m in tree_leaves(opt["m"]) + tree_leaves(opt["v"])
+            } == {torch.float32}
+
+
+def test_lm_mixed_precision_decode_on_the_card(dev):
+    """Mixed decode on the card: the SSM caches bfloat16 at init, then the
+    conv window float32 and the state bfloat16 after every step (the
+    reference's dtypes); each step's logits equal the CPU's plain decode
+    within the bf16 yardstick; ``generate`` runs."""
+    from repro_torch import generator
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_map
+    cfg = get_smoke_config("mamba2-130m", **MIXED)
+    cfg32 = get_smoke_config("mamba2-130m")
+    params = T.init_params(generator(0, "cpu"), cfg, device="cpu")
+    on_dev = tree_map(lambda x: x.to(dev), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=generator(1, "cpu"), dtype=torch.int32)
+    caches = {k: T.init_cache(c, 2, 12, device=d) for k, (c, d) in
+              {"card": (cfg, dev), "cpu": (cfg, "cpu"),
+               "f32": (cfg32, "cpu")}.items()}
+
+    def dtypes(c):
+        return {(layer["ssm"]["conv"].dtype, layer["ssm"]["state"].dtype)
+                for g in c for layer in g}
+
+    assert dtypes(caches["card"]) == {(torch.bfloat16, torch.bfloat16)}
+    with torch.inference_mode():
+        for t in range(12):
+            tok = toks[:, t:t + 1]
+            got, caches["card"] = T.decode_step(on_dev, cfg, {
+                "tokens": tok.to(dev)}, caches["card"])
+            want, caches["cpu"] = T.decode_step(params, cfg, {
+                "tokens": tok}, caches["cpu"])
+            w32, caches["f32"] = T.decode_step(params, cfg32, {
+                "tokens": tok}, caches["f32"])
+            assert dtypes(caches["card"]) == {(torch.float32,
+                                               torch.bfloat16)}
+            assert (got.cpu().float() - want.float()).abs().max() <= (
+                want.float() - w32).abs().max()
+        out = serve.generate(cfg, on_dev, toks[:, :4].to(dev), 4)
+    assert tuple(out.shape) == (2, 8)
+
+
 def moe_case(arch, b, s, capacity_factor):
     """A DeepSeek smoke MoE layer (the port's own draw) with its router on
     a 2^-10 grid and inputs on a 2^-4 grid in [-2, 2]: every router logit

@@ -228,7 +228,7 @@ def test_gqa_forward_matches_the_reference(window):
     model_close(L.gqa_forward(ours, spec, t(x), t(pos)), want)
 
 
-# -- what once raised: the sequence-parallel decode's config flag ----------
+# -- the sequence-parallel decode's config flag ---------------------------
 
 SEQ_PARALLEL = {
     "seq_parallel": lambda: configs.get_smoke_config(
@@ -237,12 +237,12 @@ SEQ_PARALLEL = {
 
 
 @pytest.mark.parametrize("what", sorted(SEQ_PARALLEL))
-def test_deferred_parts_raise(what):
-    """``seq_parallel_decode`` no longer raises: the flagged config inits,
-    builds caches and crosses the reference's params, and without
-    sharding rules it decodes exactly as the unflagged config (the
-    sequence-parallel path needs rules with ``shard_seq``; it is held
-    against the reference in tests/test_torch_lm_sharded.py)."""
+def test_seq_parallel_flag_without_rules_decodes_as_unflagged(what):
+    """With ``seq_parallel_decode`` set, the config inits, builds caches
+    and crosses the reference's params, and without sharding rules it
+    decodes exactly as the unflagged config (the sequence-parallel path
+    needs rules with ``shard_seq``; it is held against the reference in
+    tests/test_torch_lm_sharded.py)."""
     cfg = SEQ_PARALLEL[what]()
     assert isinstance(cfg, ModelConfig) and cfg.seq_parallel_decode
     plain = dataclasses.replace(cfg, seq_parallel_decode=False)
@@ -269,14 +269,13 @@ def _numpy_tree(tree):
     return tree.numpy()
 
 
-def test_decode_softcap_and_quant_cache_raise():
-    """Nothing here raises any more: the decode softcap, the int8 cache
-    and the sequence-parallel decode run (the first two are held against
-    the reference in tests/test_torch_lm_mla_moe.py and
-    tests/test_torch_lm_families.py, the third in
-    tests/test_torch_lm_sharded.py). Here: ``seq_parallel=True`` without
-    rules is the local decode bit for bit, and under rules over two CPU
-    "model" members it agrees with it within 1e-5 (a softcapped layer)."""
+def test_seq_parallel_gqa_decode_matches_the_local_decode():
+    """``seq_parallel=True`` without rules is the local GQA decode bit for
+    bit, and under rules over two CPU "model" members it agrees with it
+    within 1e-5 (a softcapped layer). The decode softcap and the int8
+    cache are held against the reference in tests/test_torch_lm_mla_moe.py
+    and tests/test_torch_lm_families.py, the sequence-parallel decode in
+    tests/test_torch_lm_sharded.py."""
     from repro_torch.launch.mesh import make_rules, make_test_mesh
     from repro_torch.models.sharding import use_rules
     cfg = configs.get_smoke_config("hymba-1.5b")

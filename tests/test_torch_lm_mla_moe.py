@@ -233,12 +233,12 @@ def test_moe_combine_is_independent_of_the_run():
     assert torch.equal(y1, y2)
 
 
-def test_moe_sharding_rules_raise():
-    """Sharding rules no longer raise: ``moe_ffn(rules=)`` over a (data 1,
-    model 2) mesh of CPU members takes the expert-parallel path (two
-    all-to-alls recorded), and at a capacity where nothing drops (cf = E)
-    it equals the local path within 1e-5 with the same counts (the
-    reference's contract is held in tests/test_torch_lm_sharded.py)."""
+def test_moe_under_sharding_rules_matches_the_local_path():
+    """``moe_ffn(rules=)`` over a (data 1, model 2) mesh of CPU members
+    takes the expert-parallel path (two all-to-alls recorded), and at a
+    capacity where nothing drops (cf = E) it equals the local path within
+    1e-5 with the same counts (the reference's contract is held in
+    tests/test_torch_lm_sharded.py)."""
     from repro_torch.distributed.collectives import record_collectives
     from repro_torch.launch.mesh import make_rules, make_test_mesh
     spec, ours, _, x = moe_case("deepseek-v3-671b", 1, 4, 1.25, 36)

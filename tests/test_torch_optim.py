@@ -206,12 +206,12 @@ def test_int8_blockings_match_the_reference_codes(n):
         np.asarray(jcomp.ef_int8_decompress(jq, js, g.shape, n)), rtol=1e-7)
 
 
-def test_ring_collectives_raise_naming_item_17c():
-    """The rings no longer raise: over a 4-member "pod" mesh of CPU
-    members the int8 reduce-scatter and the all-gather give every member
-    the same sum, within 5 % of max|sum| (the reference's ring contract;
-    bit parity with the reference's rings is in
-    tests/test_torch_lm_sharded.py), in 2 x 3 + 3 permutes."""
+def test_ring_collectives_sum_over_four_members():
+    """Over a 4-member "pod" mesh of CPU members the int8 reduce-scatter
+    and the all-gather give every member the same sum, within 5 % of
+    max|sum| (the reference's ring contract; bit parity with the
+    reference's rings is in tests/test_torch_lm_sharded.py), in 2 x 3 + 3
+    permutes."""
     from repro_torch.distributed.collectives import record_collectives
     from repro_torch.launch.mesh import make_test_mesh
     mesh = make_test_mesh((4,), ("pod",), devices="cpu")

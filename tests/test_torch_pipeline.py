@@ -228,7 +228,7 @@ def test_empty_stream_reports_nulls(pair):
     assert stats["pad_overhead"] is None
 
 
-def test_not_ported_targets_raise(pair):
+def test_unknown_targets_raise_and_every_ported_target_serves(pair):
     # Sharded serving is a wrapper (deploy.ShardedArtifact, held against
     # the reference in tests/test_torch_sharded.py), not a deploy target;
     # the imc, multibit and hierarchical targets and top-k serving are

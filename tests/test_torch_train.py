@@ -58,11 +58,11 @@ def test_memhd_crash_and_resume_bit_exact(tmp_path):
         "step_0000000010"]
 
 
-def test_lm_archs_and_json_logs_are_not_ported(tmp_path):
-    """The name is from before the LM trainer was ported: an LM arch now
-    trains on the CPU (the same result keys as the reference's run, plus
-    the device); an arch with a modality frontend exits, as the
-    reference's; and --log-json logs one JSON object per line."""
+def test_lm_archs_train_and_json_logs_are_one_object_a_line(tmp_path):
+    """An LM arch trains on the CPU (the same result keys as the
+    reference's run, plus the device); an arch with a modality frontend
+    exits, as the reference's; and --log-json logs one JSON object per
+    line."""
     cfg = train.TrainRunConfig(arch="mamba2-130m", device="cpu", steps=3,
                                seq_len=32, global_batch=2, ckpt_every=2,
                                ckpt_dir=str(tmp_path / "lm"))
