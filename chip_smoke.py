@@ -317,7 +317,33 @@ script exits non-zero without the final result line:
    after every step the conv window float32 and the state bfloat16, as
    the reference's; ms a step; ``launch.serve.generate`` == that loop
    token for token. The ``kernels`` line gives ``ssd_chunk`` its
-   ``lm_mixed`` launches.
+   ``lm_mixed`` launches;
+21. the reverse mix (phase group ``lm_reverse``, after ``lm_mixed``):
+   bfloat16 params with float32 activations, which the reference runs on
+   every architecture. hymba-1.5b at full width and depth
+   (``lm_reverse_serve``): ``generate`` at B 4, 32 + 16 tokens, timed and
+   counted (every ``flash_decode`` launch cuda), the teacher-forced
+   decode of its tokens on the kernel route (reproducing them) and the
+   plain route within LM_TOL x max|logit| a step, ``T.forward`` over them
+   on both routes (every ``ssd_chunk`` launch cuda) within LM_TOL, the
+   caches' dtypes; mamba2-130m at full width and depth
+   (``lm_reverse_train``): the step-1 loss and bfloat16 gradients, kernel
+   route against plain route (REVERSE_GRAD_TOL x max|leaf| plus
+   REVERSE_GRAD_STEPS bfloat16 steps), 3 train steps from step 1 at the
+   trainer's batch (finite losses, params bfloat16, moments fp32, the
+   params moved, steps x layers x chunks x 2 ``ssd_chunk`` launches
+   under remat, all cuda), ms and tokens/s a step, one step under
+   ``torch.profiler``
+   (``lm_reverse_profile``), the peak memory; deepseek-v2-lite cut to 1
+   dense + 3 MoE layers (``lm_reverse_deepseek``: the forward at B 2 x S
+   256 timed, 4 decode steps over the float32 latent cache == the
+   forward's last position within SERVE_TOL, the peak memory);
+   qwen1.5-32b cut to 8 layers with the int8 cache (``lm_reverse_quant``:
+   64 teacher-forced steps within QUANT_TOL of the float32-cache decode
+   and of the forward, the caches int8 with float16 scales). Every run
+   checks float32 logits and residual stream on the card. The ``kernels``
+   line gives ``flash_decode`` and ``ssd_chunk`` their ``lm_reverse``
+   launches.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -531,6 +557,26 @@ MIXED_DECODE = (4, 32, 16)
 # twice that: MIXED_YARDSTICKS. Measured at most 0.94 (a gradient leaf;
 # the forward 0.69).
 MIXED_YARDSTICKS = 2.0
+# bfloat16 params with float32 activations (phase group ``lm_reverse``):
+# hymba-1.5b serving at (B, prompt, new tokens), mamba2-130m training
+# (REVERSE_STEPS steps), deepseek-v2-lite cut to 1 dense + 3 MoE layers
+# (forward at DS_FORWARD, REVERSE_DS_DECODE decode steps) and qwen1.5-32b's
+# int8-cache cut at REVERSE_QUANT_DECODE (B, S).
+REVERSE_DECODE = (4, 32, 16)
+REVERSE_STEPS = 3
+REVERSE_DS_DEPTH = (1, 3)
+REVERSE_DS_DECODE = 4
+REVERSE_QUANT_DECODE = (2, 64)
+# A reverse-mix gradient is bfloat16: the kernel route's and the plain
+# route's float32 gradients part by at most the float32 tolerance
+# (TRAIN_GRAD_TOL x max|leaf|, as lm_train_grads), and rounding to
+# bfloat16 adds a step at max|leaf| (``bf16_step``) where it flips; a
+# leaf whose gradient is a bfloat16 sum of bfloat16-rounded terms (the
+# tied embedding: the scatter-add of 2,048 token rows and the head's
+# cotangent) adds one where each flips. The check allows
+# REVERSE_GRAD_STEPS; measured 2 (the embedding) on an H100.
+REVERSE_GRAD_TOL = TRAIN_GRAD_TOL
+REVERSE_GRAD_STEPS = 4
 # The example drivers (phase ``examples``): train_lm_torch runs past its
 # 20-step warm-up; quickstart_torch launches every MEMHD kernel.
 EXAMPLE_TRAIN_STEPS = 40
@@ -563,6 +609,12 @@ def bf16_ulp(x):
     import torch
     _, e = torch.frexp(x.float().abs())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def bf16_step(x: float) -> float:
+    """One bfloat16 step (unit in the last place) at |x|."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
 def map_tree(fn, tree):
@@ -690,6 +742,8 @@ class Smoke:
         self.sp_launches = 0     # flash_decode's lm_sharded launches
         self.pod_launches = 0    # ssd_chunk's lm_sharded launches
         self.mixed_launches = 0  # ssd_chunk's lm_mixed launches
+        # flash_decode's and ssd_chunk's lm_reverse launches
+        self.reverse_launches = {"flash_decode": 0, "ssd_chunk": 0}
         self.batches_seen = {}   # kernel -> {B: CUDA dispatches}
 
     # -- helpers ---------------------------------------------------------------
@@ -3063,10 +3117,12 @@ class Smoke:
              "seconds": round(time.perf_counter() - t0, 3), **rep})
 
     # -- phase group lm_families -------------------------------------------
-    def lm_model(self, arch, depth=None, dtype="bfloat16", seed=10, **kw):
+    def lm_model(self, arch, depth=None, dtype="bfloat16", seed=10,
+                 act=None, **kw):
         """(cfg, params, init seconds): ``arch`` at full width from a
         seed, each block group cut to ``depth`` layers when given, in
-        ``dtype`` (params drawn in it leaf by leaf)."""
+        ``dtype`` (params drawn in it leaf by leaf) with ``act``
+        activations (default ``dtype``)."""
         import dataclasses
         torch = self.torch
         from repro_torch import generator
@@ -3078,7 +3134,7 @@ class Smoke:
                 dataclasses.replace(b, repeat=n)
                 for b, n in zip(cfg.blocks, depth)))
         cfg = dataclasses.replace(cfg, param_dtype=dtype,
-                                  activation_dtype=dtype, **kw)
+                                  activation_dtype=act or dtype, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = T.init_params(generator(seed, self.dev), cfg,
@@ -4014,6 +4070,377 @@ class Smoke:
                                                     "bfloat16 state"]},
              "seconds": round(time.perf_counter() - t_ph, 3)})
         del params
+        self.free()
+
+    # -- phase group lm_reverse --------------------------------------------
+    def reverse_checks(self, what, logits, hidden=None, caches=None):
+        """The reverse mix's invariants of one run: float32 logits (and
+        residual stream) on the card, finite, and float32 caches (int8
+        rows and float16 scales under ``kv_cache_quant``) on the card:
+        no product fell back to the CPU."""
+        torch = self.torch
+        for name, t in (("logits", logits), ("final_hidden", hidden)):
+            if t is not None:
+                check(t.dtype == torch.float32 and t.is_cuda
+                      and bool(torch.isfinite(t).all()),
+                      (what, name, t.dtype, t.device))
+        if caches is not None:
+            got = {(str(v.dtype), v.device.type) for g in caches
+                   for layer in g for c in layer.values()
+                   for v in c.values() if torch.is_tensor(v)}
+            check({d for d, _ in got} <= {"torch.float32", "torch.int32",
+                                          "torch.int8", "torch.float16"}
+                  and {t for _, t in got} == {"cuda"}, (what, got))
+            return sorted({d.removeprefix("torch.") for d, _ in got})
+        return None
+
+    def lm_reverse_serve(self):
+        """hymba-1.5b at full width and depth, bfloat16 params with
+        float32 activations: generate at REVERSE_DECODE (timed, counted;
+        every flash_decode launch cuda), then teacher-forced decode of the
+        generated tokens on the kernel route (it reproduces generate's
+        tokens) and on the plain route, step by step within LM_TOL x
+        max|logit|; T.forward over the same tokens on both routes (every
+        ssd_chunk launch cuda) within LM_TOL."""
+        torch = self.torch
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.adamw import tree_leaves
+        t_ph = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = self.lm_model(LM_ARCH, seed=31, act="float32")
+        check({p.dtype for p in tree_leaves(params)} == {torch.bfloat16},
+              "reverse-mix params are bfloat16")
+        b, plen, gen = REVERSE_DECODE
+        prompts, _ = self.token_steps(cfg, b, plen, 32)
+        serve.generate(cfg, params, prompts[:, :4], 2)  # warm-up
+        t0 = time.perf_counter()
+        out, launches, tiers = self.path_counts(
+            lambda: serve.generate(cfg, params, prompts, gen))
+        wall = time.perf_counter() - t0
+        steps = plen + gen - 1
+        want = cfg.n_layers * steps
+        check(launches["flash_decode"] == want
+              and tiers == {"flash_decode": {"cuda": want}},
+              ("reverse generate launches", launches, tiers, want))
+        fed = [{"tokens": out[:, i:i + 1]} for i in range(steps)]
+        with torch.inference_mode():
+            caches = T.init_cache(cfg, b, plen + gen, device=self.dev)
+            dtypes = self.reverse_checks("reverse caches at init", None,
+                                         caches=caches)
+            lk = []
+            for sb in fed:
+                lg, caches = T.decode_step(params, cfg, sb, caches)
+                lk.append(lg)
+            after = self.reverse_checks("reverse decode", lk[-1],
+                                        caches=caches)
+            lk = torch.stack(lk, 1)[..., :cfg.vocab_size]
+            check(torch.equal(lk[:, plen - 1:].argmax(-1).to(torch.int32),
+                              out[:, plen:]),
+                  "teacher-forced kernel decode != generate's tokens")
+            lp = self.tf_decode(cfg, params, fed, use_kernel=False,
+                                max_len=plen + gen)[..., :cfg.vocab_size]
+            err = (lk - lp).abs().amax(dim=(0, 2))
+            scale = lp.abs().amax(dim=(0, 2))
+            bad = (err > LM_TOL * scale).nonzero().flatten().tolist()
+            check(not bad, ("reverse decode kernel vs plain", bad[:5]))
+            batch = {"tokens": out}
+            (fk, aux), f_launches, f_tiers = self.path_counts(
+                lambda: T.forward(params, cfg, batch))
+            n_chunks = -(-out.shape[1] // cfg.blocks[0].ssm.chunk)
+            want_f = cfg.n_layers * n_chunks
+            check(f_launches["ssd_chunk"] == want_f
+                  and f_tiers == {"ssd_chunk": {"cuda": want_f}},
+                  ("reverse forward launches", f_launches, f_tiers))
+            self.reverse_checks("reverse forward", fk, aux["final_hidden"])
+            fp, _ = T.forward(params, cfg, batch, use_kernel=False)
+            f_err = (fk - fp).abs().max().item()
+            f_scale = fp.abs().max().item()
+            check(f_err <= LM_TOL * f_scale,
+                  ("reverse forward kernel vs plain", f_err, f_scale))
+            self.profile("lm_reverse_decode_profile", lambda: self.tf_decode(
+                cfg, params, fed[:4]), B=b, steps=4)
+        # The plain routes above are comparisons, not a path.
+        self.note_batches()
+        from repro_torch.kernels import ops
+        ops.reset_dispatch()
+        self.reverse_launches["flash_decode"] += launches["flash_decode"]
+        self.reverse_launches["ssd_chunk"] += f_launches["ssd_chunk"]
+        log({"phase": "lm_reverse_serve",
+             **self.model_log(cfg, LM_ARCH, init_s),
+             "gpu": nvidia_smi("name,power.limit"),
+             "activation_dtype": cfg.activation_dtype, "B": b,
+             "prompt": plen, "gen": gen, "wall_s": round(wall, 4),
+             "ms_per_decode_step": round(wall * 1e3 / steps, 3),
+             "tok_per_s": round(b * (plen + gen) / wall, 1),
+             "launches": {"flash_decode": launches["flash_decode"],
+                          "ssd_chunk": f_launches["ssd_chunk"]},
+             "dispatch_tiers": tiers, "forward_tiers": f_tiers,
+             "cache_dtypes_at_init": dtypes,
+             "cache_dtypes_after_steps": after,
+             "decode_kernel_vs_plain_max_abs": err.max().item(),
+             "decode_tolerance_min": (LM_TOL * scale).min().item(),
+             "forward_kernel_vs_plain_max_abs": f_err,
+             "forward_tolerance": LM_TOL * f_scale,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "seconds": round(time.perf_counter() - t_ph, 3)})
+        del params, caches
+        self.free()
+
+    def lm_reverse_train(self):
+        """mamba2-130m at full width and depth, bfloat16 params with
+        float32 activations, the trainer's batch (seq 256, batch 8): the
+        step-1 loss and gradients on the kernel route against the plain
+        route (REVERSE_GRAD_TOL, REVERSE_GRAD_STEPS); REVERSE_STEPS train
+        steps from step 1 at the trainer's lr and schedule (losses finite,
+        params bfloat16, moments fp32, at least two steps move the params,
+        every SSD chunk on ``ssd_chunk``: steps x layers x chunks x 2
+        under remat)."""
+        import math
+        torch = self.torch
+        from repro_torch.distributed.steps import (
+            loss_and_grads, make_train_step,
+        )
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import (
+            AdamWConfig, ScheduleConfig, adamw_init, make_schedule,
+        )
+        from repro_torch.optim.adamw import tree_leaves
+        t_ph = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = self.lm_model(TRAIN_ARCH, seed=33,
+                                            act="float32")
+        batches = [self.lm_batch(cfg, 256, 8, position=i)
+                   for i in range(REVERSE_STEPS + 1)]
+        with torch.no_grad():
+            lg, aux = T.forward(params, cfg, batches[1])
+        self.reverse_checks("reverse train forward", lg,
+                            aux["final_hidden"])
+        del lg, aux
+        (lk, _, gk), (lp, _, gp) = (
+            loss_and_grads(params, cfg, batches[1], use_kernel=uk)
+            for uk in (True, False))
+        check(abs(lk.item() - lp.item()) <= LM_TOL * abs(lp.item()),
+              ("reverse loss kernel vs plain", lk.item(), lp.item()))
+        # Each leaf's error in bfloat16 steps at its max|plain leaf|.
+        grad_steps = {}
+        for name, a, b in zip(self.paths(params), tree_leaves(gk),
+                              tree_leaves(gp)):
+            check(a.dtype == b.dtype == torch.bfloat16, (name, a.dtype))
+            top = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            grad_steps[name] = (max(0.0, err - REVERSE_GRAD_TOL * top)
+                                / bf16_step(top) if top > 0 else 0.0)
+        worst = sorted(grad_steps.items(), key=lambda kv: -kv[1])[:5]
+        check(worst[0][1] <= REVERSE_GRAD_STEPS,
+              ("reverse grad leaves kernel vs plain", worst))
+        del gk, gp
+        self.free()
+        self.note_batches()
+        ops.reset_dispatch()
+
+        rc = train.TrainRunConfig()
+        opt_cfg = AdamWConfig(lr=rc.lr)
+        sched = make_schedule(ScheduleConfig(warmup_steps=rc.warmup,
+                                             total_steps=rc.steps))
+        opt = adamw_init(params, opt_cfg)
+        step_fn = make_train_step(cfg, opt_cfg, sched)
+        per_step = []
+
+        def run():
+            nonlocal params, opt
+            for step in range(1, REVERSE_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, opt, m = step_fn(params, opt, batches[step], step)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                moved = self.moved(params, new)
+                per_step.append({"step": step, "lr": float(sched(step)),
+                                 "loss": m["loss"].item(),
+                                 "ms": round(dt * 1e3, 3),
+                                 "tokens_per_s": round(8 * 256 / dt, 1),
+                                 "leaves_moved": sum(v > 0 for v in
+                                                     moved.values()),
+                                 "leaves": len(moved)})
+                params = new
+
+        _, launches, tiers = self.path_counts(run)
+        chunks = -(-256 // cfg.blocks[0].ssm.chunk)
+        want = REVERSE_STEPS * cfg.n_layers * chunks * (2 if cfg.remat
+                                                        else 1)
+        check(launches["ssd_chunk"] == want > 0
+              and tiers == {"ssd_chunk": {"cuda": want}},
+              ("ssd_chunk launches on the reverse train path", launches,
+               tiers, want))
+        check(all(math.isfinite(r["loss"]) for r in per_step)
+              and sum(r["leaves_moved"] > 0 for r in per_step) >= 2,
+              per_step)
+        check({p.dtype for p in tree_leaves(params)} == {torch.bfloat16}
+              and {x.dtype for x in tree_leaves(opt["m"])}
+              == {x.dtype for x in tree_leaves(opt["v"])} == {torch.float32},
+              "reverse params bfloat16, moments fp32 after the steps")
+        self.reverse_launches["ssd_chunk"] += launches["ssd_chunk"]
+        self.profile("lm_reverse_profile",
+                     lambda: step_fn(params, opt, batches[-1],
+                                     REVERSE_STEPS + 1),
+                     arch=TRAIN_ARCH, B=8, S=256, dtype="bfloat16 params, "
+                     "float32 activations")
+        log({"phase": "lm_reverse_train",
+             **self.model_log(cfg, TRAIN_ARCH, init_s),
+             "gpu": nvidia_smi("name,power.limit"),
+             "activation_dtype": cfg.activation_dtype, "remat": cfg.remat,
+             "B": 8, "S": 256,
+             "losses_step1": {"kernel": lk.item(), "plain": lp.item()},
+             "grad_worst_bf16_steps": worst,
+             "grad_tolerance": f"{REVERSE_GRAD_TOL} x max|leaf| + "
+                               f"{REVERSE_GRAD_STEPS} bf16 steps at "
+                               f"max|leaf|",
+             "per_step": per_step,
+             "ms_per_step_after_first": round(statistics.mean(
+                 r["ms"] for r in per_step[1:]), 3),
+             "tokens_per_s_after_first": round(statistics.mean(
+                 r["tokens_per_s"] for r in per_step[1:]), 1),
+             "launches": {"ssd_chunk": launches["ssd_chunk"]},
+             "dispatch_tiers": tiers,
+             "moments": "fp32",
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "seconds": round(time.perf_counter() - t_ph, 3)})
+        del params, opt
+        self.free()
+
+    def lm_reverse_deepseek(self):
+        """deepseek-v2-lite-16b at full width cut to REVERSE_DS_DEPTH (1
+        dense + 3 MoE layers), bfloat16 params (float32 routers) with
+        float32 activations: T.forward at DS_FORWARD (MLA, the MoE's
+        float32 router and each layer's experts widened to float32),
+        timed after a warm-up; REVERSE_DS_DECODE teacher-forced decode
+        steps over the latent cache (float32) from the forward's first
+        tokens, the last within SERVE_TOL x max|logit| of the forward at
+        that position."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.adamw import tree_leaves
+        t_ph = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = self.lm_model(DS_ARCH, REVERSE_DS_DEPTH,
+                                            seed=34, act="float32")
+        check({p.dtype for p in tree_leaves(params)} == {torch.bfloat16,
+                                                         torch.float32},
+              "reverse deepseek params: bf16, float32 routers")
+        param_bytes = torch.cuda.memory_allocated()
+        fb, fs = DS_FORWARD
+        toks, _ = self.token_steps(cfg, fb, fs, 35)
+        n = REVERSE_DS_DECODE
+        with torch.inference_mode():
+            T.forward(params, cfg, {"tokens": toks})  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd, aux = T.forward(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            self.reverse_checks("reverse deepseek forward", fwd,
+                                aux["final_hidden"])
+            short, _ = T.forward(params, cfg, {"tokens": toks[:, :n]})
+            self.tf_decode(cfg, params, [{"tokens": toks[:, :1]}])  # warm-up
+            caches = T.init_cache(cfg, fb, n, device=self.dev)
+            step_ms = []
+            for i in range(n):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                dec, caches = T.decode_step(params, cfg,
+                                            {"tokens": toks[:, i:i + 1]},
+                                            caches)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            dtypes = self.reverse_checks("reverse deepseek decode", dec,
+                                         caches=caches)
+            err = (dec - short[:, -1]).abs().max().item()
+            scale = short[:, -1].abs().max().item()
+            check(err < SERVE_TOL * scale,
+                  ("reverse deepseek decode != forward", err, scale))
+        log({"phase": "lm_reverse_deepseek",
+             **self.model_log(cfg, DS_ARCH, init_s),
+             "gpu": nvidia_smi("name,power.limit"),
+             "activation_dtype": cfg.activation_dtype,
+             "depth_cut": {"layers": cfg.n_layers,
+                           "from": self.full_cfg(DS_ARCH).n_layers},
+             "param_bytes": param_bytes,
+             "forward": {"B": fb, "S": fs, "ms": round(fwd_s * 1e3, 3),
+                         "tok_per_s": round(fb * fs / fwd_s, 1)},
+             "decode": {"B": fb, "steps": n,
+                        "ms_per_step": [round(x, 3) for x in step_ms],
+                        "cache_dtypes": dtypes},
+             "decode_vs_forward_max_abs": err, "forward_logit_scale": scale,
+             "tolerance": SERVE_TOL * scale,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "seconds": round(time.perf_counter() - t_ph, 3)})
+        del params, fwd, aux, caches
+        self.free()
+
+    def lm_reverse_quant(self):
+        """qwen1.5-32b at full width cut to QUANT_LAYERS layers, bfloat16
+        params with float32 activations and the int8 KV cache:
+        teacher-forced decode over REVERSE_QUANT_DECODE (the caches int8
+        rows with float16 scales), every step within QUANT_TOL x
+        max|logit| of the float32-cache decode of the same params, and the
+        last step within it of the float forward's last position."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        t_ph = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = self.lm_model(QUANT_ARCH, (QUANT_LAYERS,),
+                                            seed=36, act="float32")
+        cfgq = dataclasses.replace(cfg, kv_cache_quant=True)
+        b, s = REVERSE_QUANT_DECODE
+        toks, steps = self.token_steps(cfg, b, s, 37)
+        with torch.inference_mode():
+            caches = T.init_cache(cfgq, b, s, device=self.dev)
+            t1 = time.perf_counter()
+            dq = []
+            for sb in steps:
+                lg, caches = T.decode_step(params, cfgq, sb, caches)
+                dq.append(lg)
+            torch.cuda.synchronize()
+            q_s = time.perf_counter() - t1
+            dtypes = self.reverse_checks("reverse int8 decode", lg,
+                                         caches=caches)
+            check(dtypes == ["float16", "int32", "int8"], dtypes)
+            dq = torch.stack(dq, 1)
+            t2 = time.perf_counter()
+            df = self.tf_decode(cfg, params, steps)
+            torch.cuda.synchronize()
+            f_s = time.perf_counter() - t2
+            err = (dq - df).abs().amax(dim=(0, 2))
+            scale = df.abs().amax(dim=(0, 2))
+            bad = (err > QUANT_TOL * scale).nonzero().flatten().tolist()
+            check(not bad, ("reverse int8 cache decode vs float32 cache",
+                            bad[:5]))
+            fwd, aux = T.forward(params, cfg, {"tokens": toks})
+            self.reverse_checks("reverse qwen forward", fwd,
+                                aux["final_hidden"])
+            last = fwd[:, -1]
+            f_err = (dq[:, -1] - last).abs().max().item()
+            check(f_err < QUANT_TOL * last.abs().max().item(),
+                  ("reverse int8 decode vs forward", f_err))
+        log({"phase": "lm_reverse_quant",
+             **self.model_log(cfg, QUANT_ARCH, init_s),
+             "gpu": nvidia_smi("name,power.limit"),
+             "activation_dtype": cfg.activation_dtype,
+             "depth_cut": {"layers": QUANT_LAYERS,
+                           "from": self.full_cfg(QUANT_ARCH).n_layers},
+             "B": b, "S": s, "cache_dtypes": dtypes,
+             "max_rel_err_vs_float_cache": (err / scale).max().item(),
+             "last_step_vs_forward_max_abs": f_err,
+             "tolerance_rel": QUANT_TOL,
+             "ms_per_decode_step_int8_cache": round(q_s * 1e3 / s, 3),
+             "ms_per_decode_step_f32_cache": round(f_s * 1e3 / s, 3),
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "seconds": round(time.perf_counter() - t_ph, 3)})
+        del params, dq, df, fwd, aux, caches
         self.free()
 
     def one_card_rules(self, shape, axes, **kw):
@@ -5075,6 +5502,9 @@ class Smoke:
             self.pod_launches
         rows["ssd_chunk"]["launches_by_path"]["lm_mixed"] = \
             self.mixed_launches
+        for name in ("flash_decode", "ssd_chunk"):
+            rows[name].setdefault("launches_by_path", {})["lm_reverse"] = \
+                self.reverse_launches[name]
         rows["flash_decode"].setdefault("launches_by_path", {})[
             "lm_sharded"] = self.sp_launches
         # Launches on this slice's paths, beside each row's own path.
@@ -5193,7 +5623,7 @@ def main():
                     help="comma list of build,kernels,main,train,fidelity,"
                          "hier,baselines,online,autotune,sharded,"
                          "fit_sharded,lm,lm_families,lm_train,lm_sharded,"
-                         "lm_mixed,robustness,"
+                         "lm_mixed,lm_reverse,robustness,"
                          "cli,trainer,repro "
                          "(development runs; train, fidelity, hier, "
                          "baselines, online and fit_sharded need main, "
@@ -5201,7 +5631,8 @@ def main():
                          "fidelity and hier; the kernels line needs "
                          "kernels, main, train, fidelity, hier, baselines, "
                          "online, autotune, sharded, fit_sharded, lm, "
-                         "lm_families, lm_train, lm_sharded and lm_mixed)")
+                         "lm_families, lm_train, lm_sharded, lm_mixed and "
+                         "lm_reverse)")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -5220,7 +5651,7 @@ def main():
     phases = (["build", "kernels", "main", "train", "fidelity", "hier",
                "baselines", "online", "autotune", "sharded", "fit_sharded",
                "lm", "lm_families", "lm_train", "lm_sharded", "lm_mixed",
-               "robustness", "cli", "trainer", "repro"]
+               "lm_reverse", "robustness", "cli", "trainer", "repro"]
               if args.phases == "all" else args.phases.split(","))
     smoke = Smoke()
     t0 = time.perf_counter()
@@ -5306,6 +5737,14 @@ def main():
         smoke.lm_mixed()
         log({"phase": "lm_mixed_group",
              "seconds": round(time.perf_counter() - t_lm, 3)})
+    if "lm_reverse" in phases:
+        t_lm = time.perf_counter()
+        smoke.lm_reverse_serve()
+        smoke.lm_reverse_train()
+        smoke.lm_reverse_deepseek()
+        smoke.lm_reverse_quant()
+        log({"phase": "lm_reverse_group",
+             "seconds": round(time.perf_counter() - t_lm, 3)})
     if "robustness" in phases:
         smoke.robustness()
     if "cli" in phases:
@@ -5319,7 +5758,7 @@ def main():
                                  "hier", "baselines", "online", "autotune",
                                  "sharded", "fit_sharded", "lm",
                                  "lm_families", "lm_train", "lm_sharded",
-                                 "lm_mixed")):
+                                 "lm_mixed", "lm_reverse")):
         smoke.kernel_line()
     log({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     log(gpu)

@@ -89,12 +89,34 @@ def _made(make, shape, dtype) -> torch.Tensor:
 # Basics
 # ---------------------------------------------------------------------------
 
+def _promoted(*operands: torch.Tensor) -> List[torch.Tensor]:
+    """The operands cast to their promoted dtype (a no-op where they
+    agree)."""
+    dt = operands[0].dtype
+    for t in operands[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in operands]
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` under jnp's promotion: mixed float operands (bfloat16
-    activations against float32 params) multiply in the promoted dtype,
-    as the reference's ``@`` does; torch's ``@`` refuses them."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    """``a @ b`` under jnp's promotion: mixed float operands (an
+    activation against a weight of another dtype, either way round)
+    multiply in the promoted dtype, as the reference's ``@`` does; torch's
+    ``@`` refuses them. A bfloat16 weight is widened exactly, so the
+    product is a float32 product of the same numbers, and its gradient
+    comes back in the weight's dtype."""
+    a, b = _promoted(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` under jnp's promotion, as ``matmul``."""
+    return torch.einsum(eq, *_promoted(*operands))
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` under jnp's promotion, as ``matmul``."""
+    return torch.bmm(*_promoted(a, b))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -248,7 +270,7 @@ def init_gqa(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype,
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
-    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    return matmul(x, w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
 def _project(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -367,7 +389,7 @@ def gqa_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
                               softcap=spec.logit_softcap)
     else:
         out = attention_full(q, k, v, softcap=spec.logit_softcap)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -411,7 +433,7 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
         out = attention_decode_seqpar(
             q[:, 0], cache["k"], cache["v"], k[:, 0], v[:, 0], slot, valid,
             rules, softcap=spec.logit_softcap, use_kernel=use_kernel)
-        y = (out.flatten(1) @ p["wo"].flatten(0, 1))[:, None]
+        y = matmul(out.flatten(1), p["wo"].flatten(0, 1))[:, None]
         return y, {**cache, "len": pos + 1}
     if sharded:
         raise ValueError("a sequence-sharded cache needs the "
@@ -423,7 +445,7 @@ def gqa_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     out = ops.flash_decode(q[:, 0], k_cache, v_cache, valid,
                            softcap=spec.logit_softcap,
                            use_kernel=use_kernel)
-    y = (out.flatten(1) @ p["wo"].flatten(0, 1))[:, None]
+    y = matmul(out.flatten(1), p["wo"].flatten(0, 1))[:, None]
     return y, {"k": k_cache, "v": v_cache, "len": pos + 1}
 
 
@@ -639,7 +661,7 @@ def gqa_decode_quant(p: Params, spec: AttnSpec, x: torch.Tensor,
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     pw = torch.softmax(s, dim=-1) * v_s
     out = torch.einsum("bkgs,bskd->bkgd", pw, cache["v_q"].float())
-    y = (out.reshape(b, -1).to(x.dtype) @ p["wo"].flatten(0, 1))[:, None]
+    y = matmul(out.reshape(b, -1).to(x.dtype), p["wo"].flatten(0, 1))[:, None]
     return y, {**cache, "len": pos + 1}
 
 
@@ -677,7 +699,8 @@ def _mla_q(p: Params, spec: AttnSpec, x: torch.Tensor,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope))."""
     if spec.q_lora_rank:
-        q = _heads(rms_norm(x @ p["wq_a"], p["q_norm"], eps), p["wq_b"])
+        q = _heads(rms_norm(matmul(x, p["wq_a"]), p["q_norm"], eps),
+                   p["wq_b"])
     else:
         q = _heads(x, p["wq"])
     q_nope = q[..., :spec.qk_nope_dim]
@@ -689,7 +712,7 @@ def _mla_kv(p: Params, spec: AttnSpec, x: torch.Tensor,
             positions: torch.Tensor, eps: float,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The latent (c_kv (B,S,lora), k_rope (B,S,1,rope)) of x."""
-    kv = x @ p["wkv_a"]
+    kv = matmul(x, p["wkv_a"])
     c_kv = rms_norm(kv[..., :spec.kv_lora_rank], p["kv_norm"], eps)
     k_rope = rope(kv[..., spec.kv_lora_rank:][:, :, None, :], positions,
                   spec.rope_theta)
@@ -707,7 +730,7 @@ def mla_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1],
                                          spec.qk_rope_dim)], dim=-1)
     out = attention_full(torch.cat([q_nope, q_rope], dim=-1), k, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def mla_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -729,7 +752,7 @@ def mla_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     ckv.index_put_(idx, c_new[:, 0])
     krope.index_put_(idx, kr_new[:, 0, 0])
 
-    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    q_abs = einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
     scale = 1.0 / math.sqrt(spec.qk_nope_dim + spec.qk_rope_dim)
     s = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
          + torch.einsum("bshk,btk->bhst", q_rope, krope)) * scale
@@ -738,8 +761,8 @@ def mla_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     pw = torch.softmax(s.float(), dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", pw, ckv)
-    out = torch.einsum("bshr,rhk->bshk", ctx, p["wv_b"])
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = einsum("bshr,rhk->bshk", ctx, p["wv_b"])
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
     return y, {"ckv": ckv, "krope": krope, "len": pos + 1}
 
 
@@ -773,7 +796,7 @@ def cross_attn_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
     s = torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(spec.head_dim)
     pw = torch.softmax(s.float(), dim=-1).to(x.dtype)
     out = torch.einsum("bhst,bthk->bshk", pw, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -805,9 +828,9 @@ def init_dense_ffn(gen: torch.Generator, d_model: int, spec: FfnSpec,
 
 
 def dense_ffn(p: Params, spec: FfnSpec, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ p["w_in"]
-    up = x @ p["w_up"] if "w_up" in p else None
-    return _act(spec.activation, gate, up) @ p["w_out"]
+    gate = matmul(x, p["w_in"])
+    up = matmul(x, p["w_up"]) if "w_up" in p else None
+    return matmul(_act(spec.activation, gate, up), p["w_out"])
 
 
 def init_moe_ffn(gen: torch.Generator, d_model: int, spec: FfnSpec, dtype,
@@ -932,7 +955,7 @@ def _combine(y_flat: torch.Tensor, top_w: torch.Tensor, route: tuple,
 def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
              wd: torch.Tensor) -> torch.Tensor:
     """The experts as one batched product: (E, C, D) -> (E, C, D)."""
-    return torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
+    return bmm(F.silu(bmm(buf, wg)) * bmm(buf, wu), wd)
 
 
 def _expert_counts(top_i: torch.Tensor, e: int) -> torch.Tensor:
@@ -946,7 +969,8 @@ def _expert_counts(top_i: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
-    return (F.silu(xt @ p["ws_gate"]) * (xt @ p["ws_up"])) @ p["ws_down"]
+    return matmul(F.silu(matmul(xt, p["ws_gate"]))
+                  * matmul(xt, p["ws_up"]), p["ws_down"])
 
 
 def _moe_ffn_local(p: Params, spec: FfnSpec, x: torch.Tensor,
@@ -959,7 +983,7 @@ def _moe_ffn_local(p: Params, spec: FfnSpec, x: torch.Tensor,
     e, k = spec.n_experts, spec.top_k
     t = b * s
     xt = x.reshape(t, d)
-    scores, top_w, top_i = _route(xt.float() @ p["router"], spec,
+    scores, top_w, top_i = _route(matmul(xt.float(), p["router"]), spec,
                                   p.get("router_bias"))
     cap = moe_capacity(t, spec)
     buf, route = _dispatch(xt, top_i, e, cap)
@@ -1034,7 +1058,7 @@ def _moe_ffn_sharded(p: Params, spec: FfnSpec, x: torch.Tensor, rules,
     for i, dev in enumerate(devs):
         xl = xp[i * t_local:(i + 1) * t_local].to(dev)
         scores, top_w, top_i = _route(
-            xl.float() @ p["router"].to(dev), spec,
+            matmul(xl.float(), p["router"].to(dev)), spec,
             bias.to(dev) if bias is not None else None)
         buf, route = _dispatch(xl, top_i, e, cap)
         sends.append(buf.reshape(m_size, e_local * cap, d))
@@ -1143,8 +1167,9 @@ def ssd_forward(p: Params, spec: SsmSpec, d_model: int, x: torch.Tensor, *,
     n_heads = d_in // spec.head_dim
     n, ph = spec.d_state, spec.head_dim
 
-    # Mixed precision: bfloat16 x @ float32 w_in is float32, so the conv,
-    # the chunk operands and y run in float32 until the last cast.
+    # Mixed precision, either way round: x @ w_in promotes to float32, so
+    # the conv, the chunk operands and y run in float32 until the last
+    # cast.
     proj = matmul(x, p["w_in"])
     z, xbc, dt = _ssm_split(spec, d_model, proj)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -1177,7 +1202,7 @@ def ssd_forward(p: Params, spec: SsmSpec, d_model: int, x: torch.Tensor, *,
     y = y.to(xs.dtype) + xs * p["d_skip"].to(xs.dtype)[None, None, :, None]
     y = y.reshape(b, s, d_in)
     y = rms_norm(y * F.silu(z), p["gate_norm"])
-    return (y @ p["w_out"]).to(x.dtype)
+    return matmul(y, p["w_out"]).to(x.dtype)
 
 
 def ssd_decode(p: Params, spec: SsmSpec, d_model: int, x: torch.Tensor,
@@ -1207,7 +1232,7 @@ def ssd_decode(p: Params, spec: SsmSpec, d_model: int, x: torch.Tensor,
     y = (cmat.float()[..., None, :] @ state32)[..., 0, :]      # (B,H,P)
     y = y.to(xs.dtype) + xs * p["d_skip"].to(xs.dtype)[None, :, None]
     y = rms_norm(y.reshape(b, 1, d_in) * F.silu(z), p["gate_norm"])
-    return (y @ p["w_out"]).to(x.dtype), {
+    return matmul(y, p["w_out"]).to(x.dtype), {
         "state": state32.to(cache["state"].dtype), "conv": window[:, 1:],
         "len": cache["len"] + 1}
 

@@ -24,8 +24,10 @@ Public surface:
   decode_step(params, cfg, batch, caches)    -> logits, caches
 
 ``use_kernel=False`` runs the kernels' plain versions. Mixed precision
-(float32 params, bfloat16 activations) runs on SSM-only stacks, as in the
-reference (``check_supported``).
+runs where the reference runs it (``check_supported``): bfloat16 params
+with float32 activations on every architecture (each weight product
+promotes to float32, ``layers.matmul`` / ``einsum`` / ``bmm``), float32
+params with bfloat16 activations on SSM-only stacks.
 """
 from __future__ import annotations
 
@@ -51,22 +53,21 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the reference cannot run.
 
-    Mixed precision (float32 params, bfloat16 activations) runs where the
-    reference runs it: a stack of SSM blocks with no FFN and no
-    cross-attention, whose residual stream stays bfloat16 (``ssd_forward``
-    casts its output back). Elsewhere the reference's layer scan raises
-    ``TypeError``: an attention, FFN or cross-attention output is float32,
-    so the scan's carry leaves float32 where it entered bfloat16. The port
-    refuses those configs here instead (a kept difference). bfloat16
-    params with float32 activations, which the reference runs everywhere,
-    are not ported yet."""
-    if cfg.param_dtype == cfg.activation_dtype:
+    bfloat16 params with float32 activations run on every architecture,
+    as in the reference: the residual stream, the caches and the logits
+    are float32, and every product of an activation with a bfloat16
+    weight promotes to float32. float32 params with bfloat16 activations
+    run where the reference runs them: a stack of SSM blocks with no FFN
+    and no cross-attention, whose residual stream stays bfloat16
+    (``ssd_forward`` casts its output back). Elsewhere the reference's
+    layer scan raises ``TypeError``: an attention, FFN or cross-attention
+    output is float32, so the scan's carry leaves float32 where it
+    entered bfloat16. The port refuses those configs here instead (a
+    kept difference)."""
+    if (cfg.param_dtype == cfg.activation_dtype
+            or (cfg.param_dtype, cfg.activation_dtype)
+            == ("bfloat16", "float32")):
         return
-    if (cfg.param_dtype, cfg.activation_dtype) != ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"param_dtype {cfg.param_dtype} with activation_dtype "
-            f"{cfg.activation_dtype}: only float32 params with bfloat16 "
-            f"activations are ported (ROADMAP queue 1 item 19)")
     if not all(b.mixer == "ssm" and not _has_ffn(b) and not b.cross_attn
                for b in cfg.blocks):
         raise NotImplementedError(

@@ -7,6 +7,8 @@ with only the port's dependencies:
     PYTHONPATH=src python -m pytest -p no:cacheprovider --noconftest \
         tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -1716,6 +1718,94 @@ def test_lm_mixed_precision_decode_on_the_card(dev):
                 want.float() - w32).abs().max()
         out = serve.generate(cfg, on_dev, toks[:, :4].to(dev), 4)
     assert tuple(out.shape) == (2, 8)
+
+
+REVERSE = dict(param_dtype="bfloat16", activation_dtype="float32")
+
+
+def bf16_step(x: float) -> float:
+    """One bfloat16 step (unit in the last place) at |x|."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def test_lm_reverse_mix_forward_on_the_card(dev):
+    """hymba-1.5b's smoke config with bfloat16 params and float32
+    activations on the card: the forward's logits are float32, its SSD
+    chunks launch ``ssd_chunk`` on the cuda tier (float32 operands), and
+    the logits equal the plain route's within 1e-4 x max|logit| (the
+    float32 LM tolerance: every product is float32); the loss within 1e-5
+    relative and each gradient leaf (bfloat16, as its param) within one
+    bfloat16 step at the plain leaf's max."""
+    from repro_torch import generator
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_smoke_config("hymba-1.5b", **REVERSE)
+    params = T.init_params(generator(0, dev), cfg, device=dev)
+    assert {p.dtype for p in tree_leaves(params)} == {torch.bfloat16}
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), device=dev,
+                         generator=generator(1, dev), dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    kernels.reset_launches()
+    ops.reset_dispatch()
+    with torch.no_grad():
+        lk, aux = T.forward(params, cfg, batch)
+    assert kernels.launches()["ssd_chunk"] == cfg.n_layers * 2
+    assert ops.dispatch_breakdown()["ssd_chunk"] == {
+        "cuda": cfg.n_layers * 2}
+    with torch.no_grad():
+        lp, _ = T.forward(params, cfg, batch, use_kernel=False)
+    assert lk.dtype == aux["final_hidden"].dtype == torch.float32
+    assert (lk - lp).abs().max() <= 1e-4 * lp.abs().max()
+    (lossk, _, gk), (lossp, _, gp) = (
+        steps.loss_and_grads(params, cfg, batch, use_kernel=k)
+        for k in (True, False))
+    assert abs(float(lossk) - float(lossp)) <= 1e-5 * abs(float(lossp))
+    for g, w in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert g.dtype == w.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max() <= bf16_step(
+            w.float().abs().max().item())
+
+
+def test_lm_reverse_mix_decode_on_the_card(dev):
+    """Reverse-mix decode of hymba-1.5b's smoke config on the card: the
+    caches float32 (lengths int32) at init and after every step, every
+    GQA layer's attention one ``flash_decode`` launch on the cuda tier a
+    step, each step's logits (float32) equal the plain route's on the
+    card within 1e-4 x max|logit|; ``generate`` runs."""
+    from repro_torch import generator
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("hymba-1.5b", **REVERSE)
+    params = T.init_params(generator(0, dev), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=dev,
+                         generator=generator(1, dev), dtype=torch.int32)
+    caches = {k: T.init_cache(cfg, 2, 12, device=dev) for k in (True, False)}
+
+    def dtypes(c):
+        return {v.dtype for g in c for layer in g for m in layer.values()
+                for v in m.values() if torch.is_tensor(v)}
+
+    assert dtypes(caches[True]) == {torch.float32, torch.int32}
+    kernels.reset_launches()
+    ops.reset_dispatch()
+    with torch.inference_mode():
+        for t in range(12):
+            tok = {"tokens": toks[:, t:t + 1]}
+            got, caches[True] = T.decode_step(params, cfg, tok, caches[True])
+            want, caches[False] = T.decode_step(params, cfg, tok,
+                                                caches[False],
+                                                use_kernel=False)
+            assert got.dtype == torch.float32
+            assert dtypes(caches[True]) == {torch.float32, torch.int32}
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert kernels.launches()["flash_decode"] == cfg.n_layers * 12
+    assert ops.dispatch_breakdown()["flash_decode"] == {
+        "cuda": cfg.n_layers * 12, "torch-ref": cfg.n_layers * 12}
+    out = serve.generate(cfg, params, toks[:, :4], 4)
+    assert tuple(out.shape) == (2, 8) and out.device.type == "cuda"
 
 
 def moe_case(arch, b, s, capacity_factor):

@@ -286,3 +286,45 @@ def test_train_cell_counts_the_gradient_all_reduce():
         2 * shards * 15 / 16)
     assert dataclasses.is_dataclass(upd)
     assert np.isfinite(upd.hbm_bytes)
+
+
+def test_a_reverse_mix_train_cell_counts_on_meta():
+    """mamba2-130m at full width with bfloat16 params and float32
+    activations, counted on meta tensors as a train cell's microbatch (16
+    x 256 under the 16x16 mesh's rules) beside the same cell all in
+    float32: the params, the gradients and the AdamW state (bf16 moments,
+    as ``run_cell`` picks for bfloat16 params) take bfloat16 bytes, half
+    the float32 cell's params; the residual stream and the logits are
+    float32; the FLOPs are the float32 cell's and the HBM bytes at least
+    its (the same float32 activations, plus each bfloat16 weight's
+    widening copy and its gradient's narrowing one)."""
+    from repro_torch.models.sharding import param_sharding_tree
+    from repro_torch.models import transformer as T
+    rules = make_rules(make_production_mesh())
+    small = {k: torch.empty((16, 256), dtype=torch.int32, device="meta")
+             for k in ("tokens", "targets")}
+    counts, param_bytes = {}, {}
+    for pd, sd in (("bfloat16", "bf16"), ("float32", "fp32")):
+        cfg = dataclasses.replace(configs.get_config("mamba2-130m"),
+                                  param_dtype=pd, activation_dtype="float32")
+        opt_cfg = AdamWConfig(state_dtype=sd)
+        params, opt, axes = steps.abstract_train_state(cfg, opt_cfg)
+        p_sh = param_sharding_tree(axes, rules, params)
+        param_bytes[pd] = dryrun._sharded_bytes(params, p_sh)
+        moments = [x for _, x in _leaves(opt["m"])] + [
+            x for _, x in _leaves(opt["v"])]
+        assert {x.dtype for x in moments} == {
+            torch.bfloat16 if pd == "bfloat16" else torch.float32}
+        parts = dryrun._train_parts(cfg, opt_cfg, rules, params, opt, small,
+                                    1, p_sh)
+        (_, _, grads), counts[pd] = cost.count(parts[0][1])
+        assert {g.dtype for _, g in _leaves(grads)} == {
+            torch.bfloat16 if pd == "bfloat16" else torch.float32}
+        if pd == "bfloat16":
+            (logits, aux), _ = cost.count(
+                lambda: T.forward(params, cfg, {"tokens": small["tokens"]}))
+            assert logits.device.type == "meta"
+            assert logits.dtype == aux["final_hidden"].dtype == torch.float32
+    assert param_bytes["bfloat16"] * 2 == param_bytes["float32"]
+    assert counts["bfloat16"].flops == counts["float32"].flops > 0
+    assert counts["bfloat16"].hbm_bytes >= counts["float32"].hbm_bytes

@@ -12,6 +12,9 @@ or an MTP block (the other mixed products), and a mixed train state that
 the reference checkpoints and the port restores bit for bit. Where the
 reference's layer scan raises ``TypeError`` (its bfloat16 carry comes back
 float32), the port raises ``NotImplementedError`` at every entry point.
+The reverse mix (bfloat16 params, float32 activations) runs on every
+architecture in both packages; tests/test_torch_lm_reverse*.py hold the
+port to the reference there.
 
 The reference's params (``T.init_params(jax.random.key(0), cfg)``, float32)
 cross through ``convert.lm_params_from_numpy``; tokens, targets and a
@@ -139,15 +142,16 @@ def test_mixed_configs_run_exactly_where_the_reference_runs(arch):
             call()
 
 
-def test_the_reverse_mix_is_refused():
-    """bfloat16 params with float32 activations: the reference runs it
-    (every matmul promotes to float32); the port refuses it (not ported
-    yet: only float32 params with bfloat16 activations are)."""
+@pytest.mark.parametrize("arch", configs.list_archs())
+def test_the_reverse_mix_runs_where_the_reference_runs(arch):
+    """bfloat16 params with float32 activations: the reference runs
+    forward and decode on every architecture (every product promotes to
+    float32), and the port lets the config through
+    (tests/test_torch_lm_reverse.py holds it to the reference)."""
     kw = dict(param_dtype="bfloat16", activation_dtype="float32")
     assert reference_raises(
-        jax_configs.get_smoke_config("mamba2-130m", **kw)) == [None, None]
-    with pytest.raises(NotImplementedError, match="only float32 params"):
-        T.check_supported(configs.get_smoke_config("mamba2-130m", **kw))
+        jax_configs.get_smoke_config(arch, **kw)) == [None, None]
+    T.check_supported(configs.get_smoke_config(arch, **kw))
 
 
 # -- where the reference runs: the port held to it ---------------------------
