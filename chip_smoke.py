@@ -212,7 +212,13 @@ script exits non-zero without the final result line:
    (``online_profile``: the engine's ``fold`` / ``rewarm`` / ``dispatch``
    / ``device_wait`` ranges); the ``serve_online --smoke --append-class``
    CLI and ``serve_memhd --metrics-out/--trace-out`` as subprocesses,
-   both files parsed. Phases 13 and 14 run after the hierarchical paths;
+   both files parsed; beside them (``record_cli``) ``serve_memhd --smoke
+   --fused``, ``serve_memhd --smoke`` and ``serve_online --smoke
+   --append-class`` with ``--record-dir``: each ``BENCH_<name>.json``
+   names this card and its ``nvidia-smi`` power limit, its metrics and
+   meta equal the printed report's, and the dispatch tiers hold the
+   path's kernels under ``cuda`` only. Phases 13 and 14 run after the
+   hierarchical paths;
 15. the autotuner (phase ``autotune``): ``repro_torch.kernels.autotune``
    over every spec at its ``DEFAULT_GEOMETRIES`` into a temporary cache,
    every candidate bit-exact against its plain version on the card (each
@@ -354,6 +360,8 @@ import ctypes
 import itertools
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -441,6 +449,10 @@ FD_ROW = dict(b=8, s=32768, h=25, kv=5, dh=64)
 FD_SERVE = dict(b=4, s=320, h=25, kv=5, dh=64)
 SSD_ROW = dict(b=8, q=256, h=50, n=16, p=64)
 SSD_SERVE_B = 2  # ... and at the forward's batch (lm_forward: B 2)
+# ... and the bound at the shape the LM train step launches (mamba2-130m,
+# B 8 x S 256: one chunk of 256; phase group lm_train), on bf16 and on
+# float32 operands (lm_mixed, lm_reverse).
+SSD_TRAIN = dict(b=8, q=256, h=24, n=128, p=64)
 # The decode softcap of flash_decode's softcap cases (Gemma 2's value).
 FD_SOFTCAP = 30.0
 # The remaining LM families (phase group ``lm_families``), random weights
@@ -604,6 +616,66 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The record_cli phase: the --record-dir runs, each into its own directory
+# (a record is named by its CLI), and the kernels each must dispatch, all
+# on cuda: the fused chain (``predict_from_features``: encode_pack into
+# the popcount search), the staged one (pack_rows into the popcount
+# search) and the online stream (staged serving, folds through
+# qail_update).
+RECORD_RUNS = {
+    "serve_memhd --fused": ["repro_torch.launch.serve_memhd", "--smoke",
+                            "--fused"],
+    "serve_memhd": ["repro_torch.launch.serve_memhd", "--smoke"],
+    "serve_online --append-class": ["repro_torch.launch.serve_online",
+                                    "--smoke", "--append-class"],
+}
+RECORD_KERNELS = {
+    "serve_memhd --fused": {"predict_from_features"},
+    "serve_memhd": {"am_search_packed", "pack_rows"},
+    "serve_online --append-class": {"am_search_packed", "pack_rows",
+                                    "qail_update"},
+}
+RECORD_KEYS = {"schema_version", "bench", "created_unix", "git_sha",
+               "torch_version", "device", "meta", "metrics"}
+
+
+def start_record_runs(env, root):
+    """Start the RECORD_RUNS as subprocesses, each writing its record,
+    stdout and stderr (and the online run its metrics snapshot) into a
+    directory of its own under ``root``: [(label, process, directory)]."""
+    runs = []
+    for i, (label, cmd) in enumerate(RECORD_RUNS.items()):
+        out = os.path.join(root, str(i))
+        os.makedirs(out)
+        extra = (["--metrics-out", os.path.join(out, "metrics.json")]
+                 if "serve_online" in cmd[0] else [])
+        with open(os.path.join(out, "stdout.txt"), "w") as so, \
+                open(os.path.join(out, "stderr.txt"), "w") as se:
+            runs.append((label, subprocess.Popen(
+                [sys.executable, "-m", *cmd, "--record-dir", out, *extra],
+                env=env, stdout=so, stderr=se), out))
+    return runs
+
+
+def record_metrics(report) -> dict:
+    """What ``from_report`` makes of a report's numeric fields."""
+    return {k: {"us_per_call": float(v) * 1e3 if k.startswith("lat_ms")
+                else 0.0, "derived": str(v), "value": float(v)}
+            for k, v in report.items()
+            if not isinstance(v, bool) and isinstance(v, (int, float))}
+
+
+def snapshot_tiers(snap) -> dict:
+    """{kernel: {tier: count}} from a metrics snapshot's dispatches."""
+    out = {}
+    for key, n in snap["kernel_dispatch_total"]["values"].items():
+        kernel = re.search(r'kernel="([^"]+)"', key).group(1)
+        tier = re.search(r'tier="([^"]+)"', key).group(1)
+        out.setdefault(kernel, {}).setdefault(tier, 0)
+        out[kernel][tier] += int(n)
+    return out
+
+
 def bf16_ulp(x):
     """One bfloat16 unit in the last place at |x| (2^-8 at 0)."""
     import torch
@@ -686,6 +758,21 @@ def ssd_bound(b, q, h, n, p, nbytes):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def ssd_bound_f32(b, q, h, n, p, nbytes):
+    """ssd_chunk's bound on float32 x, B and C: every product has two
+    float32 operands, so each runs as three TF32 products (hi and lo
+    terms: lo*hi' + hi*lo' + hi*hi'); against the bytes."""
+    ops = 3 * b * h * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    return bound(nbytes, ops, TF32_FLOP_PER_S)
+
+
+def ssd_nbytes(b, q, h, n, p, es):
+    """ssd_chunk's bytes: x, B, C (``es`` bytes each) and dt, da, the
+    state (float32) read once; y (``es``) and the new state written."""
+    return (es * 2 * b * q * h * p + es * 2 * b * q * h * n
+            + 4 * 2 * b * q * h + 4 * 2 * b * h * n * p)
 
 
 def time_device_ms(fn, samples: int = 21, calls: int = 10) -> float:
@@ -2402,10 +2489,87 @@ class Smoke:
 
     def online_cli(self):
         """``serve_online --smoke --append-class`` and ``serve_memhd
-        --metrics-out/--trace-out`` as subprocesses on the card."""
+        --metrics-out/--trace-out`` as subprocesses on the card, with the
+        ``record_cli`` runs alongside."""
         env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
         build = os.path.join(HERE, "build")
         os.makedirs(build, exist_ok=True)
+        records = tempfile.mkdtemp(dir=build)
+        t0 = time.perf_counter()
+        runs = start_record_runs(env, records)
+        try:
+            self.online_cli_runs(env, build)
+            self.record_cli(runs, t0)
+        finally:
+            for _, proc, _ in runs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(records, ignore_errors=True)
+
+    def record_cli(self, runs, t0):
+        """The ``--record-dir`` runs' records against their reports: the
+        card's name and power limit as ``nvidia-smi`` gives them, every
+        metric and meta field as ``obs.record.from_report`` makes it from
+        the printed report, and every dispatch of the path on ``cuda``.
+        The report of ``serve_memhd`` carries its dispatch tiers (in the
+        record's ``meta.metrics``); the online report has none, as the
+        reference's, so its run's tiers come from its ``--metrics-out``
+        snapshot. ``meta.obs.dispatch_tiers`` is empty, as the
+        reference's: ``from_report`` opens its recorder after the run.
+        ``seconds`` counts from the runs' start (they overlap
+        ``online_cli``'s)."""
+        name, limit = (v.strip() for v in
+                       nvidia_smi("name,power.limit").split(","))
+        device = {"platform": "gpu", "name": name,
+                  "power_limit_w": float(limit.split()[0]),
+                  "count": self.torch.cuda.device_count()}
+        logged = []
+        for label, proc, out in runs:
+            if proc.wait(timeout=600) != 0:
+                with open(os.path.join(out, "stderr.txt")) as f:
+                    check(False, (label, f.read()[-2000:]))
+            with open(os.path.join(out, "stdout.txt")) as f:
+                rep = json.load(f)
+            bench = label.split()[0]
+            path = os.path.join(out, f"BENCH_{bench}.json")
+            with open(path) as f:
+                rec = json.load(f)
+            check(set(rec) == RECORD_KEYS, (label, sorted(rec)))
+            check(rec["schema_version"] == 1 and rec["bench"] == bench,
+                  (label, rec["bench"]))
+            check(rec["device"] == device, (label, rec["device"], device))
+            check(rec["torch_version"] == self.torch.__version__,
+                  rec["torch_version"])
+            want = record_metrics(rep)
+            check(rec["metrics"] == want, (label, rec["metrics"], want))
+            meta = {k: v for k, v in rep.items() if k not in want}
+            check({k: v for k, v in rec["meta"].items() if k != "obs"}
+                  == meta, (label, sorted(rec["meta"]), sorted(meta)))
+            check(rec["meta"]["obs"]["dispatch_tiers"] == {},
+                  (label, rec["meta"]["obs"]))
+            if bench == "serve_memhd":
+                tiers = rec["meta"]["metrics"]["dispatch_tiers"]
+                check(rec["meta"]["obs"]["compiles_total"]
+                      == rep["metrics"]["compiles_total"],
+                      (label, rec["meta"]["obs"], rep["metrics"]))
+            else:
+                with open(os.path.join(out, "metrics.json")) as f:
+                    tiers = snapshot_tiers(json.load(f))
+            check(RECORD_KERNELS[label] <= set(tiers)
+                  and all(set(t) == {"cuda"} for t in tiers.values()),
+                  (label, tiers))
+            logged.append({
+                "run": label, "device": rec["device"],
+                "git_sha": rec["git_sha"], "metrics": len(rec["metrics"]),
+                "rows_per_s": rec["metrics"]["rows_per_s"]["value"],
+                "lat_ms_p50": rec["metrics"]["lat_ms_p50"]["value"],
+                "dispatch_tiers": tiers, "obs": rec["meta"]["obs"]})
+        log({"phase": "record_cli",
+             "seconds": round(time.perf_counter() - t0, 3),
+             "records": logged})
+
+    def online_cli_runs(self, env, build):
         t0 = time.perf_counter()
         p = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve_online",
@@ -3838,31 +4002,53 @@ class Smoke:
 
     def lm_train_resume(self):
         """The LM trainer CLI on the card at the smoke config: killed at
-        step 12, resumed (from step 10), and run clean; the last losses
-        within RESUME_TOL. On a miss, the output names the step of the
-        first per-step divergence between two identical gradient
-        evaluations, where a non-deterministic CUDA op shows."""
+        step 12, resumed (from step 10), and run clean (beside the other
+        two); the last losses within RESUME_TOL. On a miss, the output
+        names the step of the first per-step divergence between two
+        identical gradient evaluations, where a non-deterministic CUDA op
+        shows."""
         env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
         build = os.path.join(HERE, "build")
         os.makedirs(build, exist_ok=True)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=build) as tmp:
+            def cmd(name, *extra):
+                return [sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", TRAIN_ARCH, *TRAIN_RESUME, "--device",
+                        "cuda", "--ckpt-dir", os.path.join(tmp, name),
+                        *extra]
+
             def run(name, *extra):
-                cmd = [sys.executable, "-m", "repro_torch.launch.train",
-                       "--arch", TRAIN_ARCH, *TRAIN_RESUME, "--device",
-                       "cuda", "--ckpt-dir", os.path.join(tmp, name), *extra]
-                return subprocess.run(cmd, env=env, capture_output=True,
-                                      text=True, timeout=300)
+                return subprocess.run(cmd(name, *extra), env=env,
+                                      capture_output=True, text=True,
+                                      timeout=300)
 
             def result(p):
                 check(p.returncode == 0, p.stderr[-2000:])
                 return json.loads(p.stdout[p.stdout.index("{"):])
 
-            crash = run("crash", "--fail-at-step", "12")
-            check(crash.returncode == 42, ("crash exit", crash.returncode,
-                                           crash.stderr[-2000:]))
-            resumed = result(run("crash"))
-            clean = result(run("clean"))
+            # The clean run's output goes to files: a pipe left unread
+            # while the other two run could fill and stall it.
+            outs = [os.path.join(tmp, f"clean.{k}") for k in ("out", "err")]
+            with open(outs[0], "w") as so, open(outs[1], "w") as se:
+                clean_proc = subprocess.Popen(cmd("clean"), env=env,
+                                              stdout=so, stderr=se)
+            try:
+                crash = run("crash", "--fail-at-step", "12")
+                check(crash.returncode == 42,
+                      ("crash exit", crash.returncode, crash.stderr[-2000:]))
+                resumed = result(run("crash"))
+                clean_proc.wait(timeout=300)
+            finally:
+                if clean_proc.poll() is None:
+                    clean_proc.kill()
+                    clean_proc.wait()
+            texts = []
+            for f in outs:
+                with open(f) as fh:
+                    texts.append(fh.read())
+            clean = result(subprocess.CompletedProcess(
+                clean_proc.args, clean_proc.returncode, *texts))
         check(resumed["resumed_from"] == 10, resumed)
         gap = abs(resumed["last_loss"] - clean["last_loss"])
         if gap >= RESUME_TOL:
@@ -5015,8 +5201,7 @@ class Smoke:
         sb, sq, sh, sn, sp = (sr[k] for k in ("b", "q", "h", "n", "p"))
 
         def ssd_bytes(b):  # x, B, C (bf16) in, dt, da, state in, y, state out
-            return (2 * 2 * b * sq * sh * sp + 2 * 2 * b * sq * sh * sn
-                    + 4 * 2 * b * sq * sh + 4 * 2 * b * sh * sn * sp)
+            return ssd_nbytes(b, sq, sh, sn, sp, 2)
         cases = [
             ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode.py:71",
@@ -5045,6 +5230,9 @@ class Smoke:
                                       + 4 * sq * sn * sp), FP32_FLOP_PER_S)
         serve_ms, serve_by = ssd_bound(SSD_SERVE_B, sq, sh, sn, sp,
                                        ssd_bytes(SSD_SERVE_B))
+        tr = tuple(SSD_TRAIN[k] for k in ("b", "q", "h", "n", "p"))
+        train_ms, train_by = ssd_bound(*tr, ssd_nbytes(*tr, 2))
+        train32_ms, train32_by = ssd_bound_f32(*tr, ssd_nbytes(*tr, 4))
         self.ssd_extra = {
             "timed": {"ms_serve_shape": lambda: sc.ssd_chunk(*s2),
                       "plain_ms_serve_shape": lambda: ref.ssd_chunk(*s2)},
@@ -5052,7 +5240,12 @@ class Smoke:
                        "bound_ms_serve_shape": serve_ms,
                        "bound_by_serve_shape": serve_by,
                        "bound_ms_fp32_fma": fma_ms,
-                       "bound_by_fp32_fma": fma_by}}
+                       "bound_by_fp32_fma": fma_by,
+                       "shape_train": SSD_TRAIN,
+                       "bound_ms_train_shape": train_ms,
+                       "bound_by_train_shape": train_by,
+                       "bound_ms_train_shape_f32": train32_ms,
+                       "bound_by_train_shape_f32": train32_by}}
         library = {}
         sdpa = sdpa_of(fq, fk, fv)
         try:

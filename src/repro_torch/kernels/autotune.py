@@ -68,7 +68,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -83,6 +82,7 @@ from repro_torch.kernels import binary_mvm as _bm
 from repro_torch.kernels import encode_fused as _ef
 from repro_torch.kernels import qail_update as _qu
 from repro_torch.kernels import ref
+from repro_torch.obs.torchmon import power_limit_w
 
 SCHEMA_VERSION = 1
 CACHE_ENV = "MEMHD_TORCH_AUTOTUNE_CACHE"
@@ -483,14 +483,6 @@ def _assert_parity(got, want, label: str) -> None:
             raise RuntimeError(label)
 
 
-def _power_limit_w(index: int) -> Optional[float]:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return float(out.stdout.strip().splitlines()[0])
-
-
 def _smem_limit(device: torch.device) -> int:
     """The dynamic shared memory a block may opt into on ``device``."""
     if device.type != "cuda":
@@ -611,7 +603,7 @@ def autotune_kernel(kernel: str, dims: Dict[str, int], *,
         "smem_bytes": int(max(p["smem"] for p in plans[won].values())),
         "plan": {str(b): p for b, p in plans[won].items()},
         "sms": sms if on_gpu else None,
-        "power_limit_w": (_power_limit_w(device.index or 0) if on_gpu
+        "power_limit_w": (power_limit_w(device.index or 0) if on_gpu
                           else None),
         "timing": ("cuda events, median of 21 samples" if on_gpu
                    else "cpu wall clock (plain versions; not a "

@@ -27,7 +27,10 @@ holds the port's dispatch tiers (``cuda`` / ``torch-ref``), the kernel
 builds and graph captures (``compiles_total``, ``obs.torchmon``) and
 those of the timed pass (``recompiles_steady_state``, 0 in steady
 state). ``--metrics-out`` writes the metrics registry's snapshot,
-``--trace-out`` the host spans as a Chrome trace.
+``--trace-out`` the host spans as a Chrome trace, ``--record-dir`` the
+report as a ``BENCH_serve_memhd.json`` record (``obs.record``: numeric
+fields as metrics, the rest in ``meta``, with the device's name and
+power limit).
 
 Usage (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_memhd --smoke --fused \
@@ -329,10 +332,6 @@ def shard(deployed, n: int, device):
     return ShardedArtifact(deployed, mesh=serving_mesh(devices, n=n))
 
 
-def _not_ported(flag: str, item: str):
-    raise NotImplementedError(f"{flag} is not ported yet ({item})")
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
@@ -370,7 +369,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                          "--device cpu (default: no wrapper)")
     ap.add_argument("--depth", type=int, default=2,
                     help="pipeline depth (batches in flight)")
-    ap.add_argument("--record-dir", default=None)
+    ap.add_argument("--record-dir", default=None,
+                    help="also persist the report as a schema-versioned "
+                         "BENCH_serve_memhd.json (obs.record) in this "
+                         "directory")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--log-json", action="store_true",
@@ -393,9 +395,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if (args.groups or args.shortlist) and target != "hierarchical":
         ap.error("--groups/--shortlist only apply to "
                  "--target hierarchical")
-    if args.record_dir:
-        _not_ported("--record-dir", "ROADMAP queue 1, item 16")
-
     from repro_torch import resolve_device
     from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
     from repro_torch.data import load_dataset
@@ -452,6 +451,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.trace_out:
         obs.export_chrome_trace(args.trace_out)
         log.info("chrome trace -> %s", args.trace_out)
+    if args.record_dir:
+        from repro_torch.obs import record
+        path = record.from_report("serve_memhd", report,
+                                  out_dir=args.record_dir, device=device)
+        log.info("recorded -> %s", path)
     return report
 
 

@@ -32,6 +32,8 @@ Examples (on the GPU; ``--device cpu`` for the plain path on the CPU):
 ``--devices N`` serves through ``deploy.ShardedArtifact`` (N GPUs, or N
 CPU shards with ``--device cpu``); each fold's new artifact is swapped
 in through the wrapper's ``refresh``, which keeps its mesh.
+``--record-dir DIR`` also writes the report as
+``DIR/BENCH_serve_online.json`` (``obs.record``).
 """
 from __future__ import annotations
 
@@ -124,7 +126,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--metrics-out", default=None,
                     help="write the obs metrics-registry snapshot here")
     ap.add_argument("--record-dir", default=None,
-                    help="persist the report (not ported yet)")
+                    help="persist the report as BENCH_serve_online.json "
+                         "(obs.record) in this directory")
     ap.add_argument("--log-json", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device; default the GPU (raises without "
@@ -132,9 +135,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = ap.parse_args(argv)
     obs.setup_logging(json_mode=args.log_json)
     obs.install()
-    if args.record_dir:
-        raise NotImplementedError(
-            "--record-dir is not ported yet (ROADMAP queue 1, item 16)")
 
     from repro_torch import resolve_device
     from repro_torch.core import EncoderConfig, MemhdConfig, MemhdModel
@@ -247,6 +247,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         with open(args.metrics_out, "w") as f:
             json.dump(obs.snapshot(), f, indent=1)
         log.info("metrics snapshot -> %s", args.metrics_out)
+    if args.record_dir:
+        from repro_torch.obs import record
+        path = record.from_report("serve_online", report,
+                                  out_dir=args.record_dir, device=device)
+        log.info("recorded -> %s", path)
     return report
 
 

@@ -18,13 +18,18 @@ loop that is not in steady state would pay for:
     device into ``torch_device_memory_bytes{device=..., stat=...}``; the
     CPU has no allocator stats and is skipped, not faked;
   * ``assert_no_rebuilds()`` — raises ``SteadyStateError`` when a region
-    that must be in steady state built or captured anything.
+    that must be in steady state built or captured anything;
+  * ``power_limit_w(index)`` — the card's power limit from
+    ``nvidia-smi`` (the autotuner's cache entries and the serving
+    record carry it beside their times); it raises where ``nvidia-smi``
+    fails.
 
 ``install()`` registers the counters (idempotent); everything here is
 safe to import without a GPU.
 """
 from __future__ import annotations
 
+import subprocess
 import threading
 from contextlib import contextmanager
 from typing import Dict
@@ -119,3 +124,13 @@ def update_memory_gauges() -> Dict[str, Dict[str, float]]:
             gauge.set(val, device=label, stat=stat)
         out[label] = kept
     return out
+
+
+def power_limit_w(index: int) -> float:
+    """The power limit of GPU ``index`` in watts, as ``nvidia-smi`` reads
+    it; raises when ``nvidia-smi`` is missing or fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])

@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)",
+                       re.M)
 
 
 def _port_files():
@@ -77,8 +78,13 @@ eng = OnlineEngine(StreamingUpdater(m, dep), max_batch=16)
 eng.serve(poisson_arrivals(ds.test_x.numpy(), n_requests=4, rate_qps=1000,
                            max_size=3))
 obs.update_memory_gauges()
+import tempfile
+from repro_torch.obs import record
+with tempfile.TemporaryDirectory() as d:
+    record.from_report("serve_memhd", {"qps": 1.0, "backend": "packed"}, d)
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
-             or k == "repro" or k.startswith("repro."))
+             or k == "repro" or k.startswith("repro.")
+             or k == "benchmarks" or k.startswith("benchmarks."))
 assert not bad, bad
 print("OK")
 """

@@ -2241,3 +2241,21 @@ def test_expert_parallel_moe_on_one_card_twice(dev):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(aux["expert_counts"], aux0["expert_counts"])
     assert got.device == x.device
+
+
+def test_record_names_the_card_and_its_power_limit(dev, tmp_path):
+    import json
+    import subprocess
+    from repro_torch.obs import record
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.splitlines()[0]
+    name, limit = (v.strip() for v in out.split(","))
+    path = record.from_report("demo", {"qps": 2.0, "backend": "packed"},
+                              str(tmp_path), device=dev)
+    rec = json.loads(open(path).read())
+    assert rec["device"] == {"platform": "gpu", "name": name,
+                             "power_limit_w": float(limit),
+                             "count": torch.cuda.device_count()}
+    assert rec["device"]["name"] == torch.cuda.get_device_name(dev)

@@ -227,7 +227,7 @@ def test_serving_cli_writes_metrics_and_trace(tmp_path):
     obs.TRACER.reset()
     rep = serve_memhd.main(["--smoke", "--device", "cpu", "--requests", "6",
                             "--metrics-out", str(m), "--trace-out",
-                            str(tr)])
+                            str(tr), "--record-dir", str(tmp_path / "rec")])
     assert rep["metrics"]["recompiles_steady_state"] == 0
     assert rep["metrics"]["compiles_total"] == torchmon.rebuilds()
     assert "dispatch_tiers" in rep["metrics"]
@@ -238,3 +238,18 @@ def test_serving_cli_writes_metrics_and_trace(tmp_path):
     names = {e["name"] for e in json.loads(tr.read_text())["traceEvents"]}
     assert {"warmup", "serve", "host_prep", "pad", "dispatch",
             "device_wait"} <= names
+    # The --record-dir record: the report's numbers as metrics, its
+    # dispatch tiers in meta, on the CPU.
+    rec = json.loads((tmp_path / "rec" / "BENCH_serve_memhd.json")
+                     .read_text())
+    assert rec["bench"] == "serve_memhd" and rec["schema_version"] == 1
+    assert rec["metrics"]["rows_per_s"]["value"] == rep["rows_per_s"]
+    assert (rec["metrics"]["lat_ms_p50"]["us_per_call"]
+            == rep["lat_ms_p50"] * 1e3)
+    assert rec["metrics"]["lat_ms_p50"]["value"] == rep["lat_ms_p50"]
+    assert (rec["meta"]["metrics"]["dispatch_tiers"]
+            == rep["metrics"]["dispatch_tiers"])
+    assert rec["meta"]["obs"] == {"compiles_total": torchmon.rebuilds(),
+                                  "dispatch_tiers": {}}
+    assert rec["device"] == {"platform": "cpu", "name": "cpu",
+                             "power_limit_w": None, "count": 1}

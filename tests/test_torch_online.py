@@ -448,7 +448,8 @@ def test_serve_online_cli_appends_a_class_with_zero_steady_rebuilds(
     mpath = tmp_path / "metrics.json"
     rep = serve_online.main(["--smoke", "--append-class", "--device", "cpu",
                              "--requests", "16", "--metrics-out",
-                             str(mpath)])
+                             str(mpath), "--record-dir",
+                             str(tmp_path / "rec")])
     assert rep["model_generation"] == 2
     assert rep["recompiles_steady_state"] == 0
     assert [g["shape_stable"] for g in rep["generations"]] == [True, False]
@@ -456,8 +457,17 @@ def test_serve_online_cli_appends_a_class_with_zero_steady_rebuilds(
     assert set(rep["phases"]) == {"A", "B", "C"}
     snap = json.loads(mpath.read_text())
     assert snap["model_generation"]["values"][""] == 2.0
-    # --devices is ported (tests/test_torch_sharded.py); --record-dir is
-    # not.
-    with pytest.raises(NotImplementedError, match="item 16"):
-        serve_online.main(["--smoke", "--device", "cpu", "--record-dir",
-                           str(tmp_path)])
+    # --record-dir writes the report as a record: its numbers as metrics,
+    # the rest in meta (the report has no dispatch tiers, as the
+    # reference's has none).
+    rec = json.loads((tmp_path / "rec" / "BENCH_serve_online.json")
+                     .read_text())
+    assert rec["bench"] == "serve_online" and rec["schema_version"] == 1
+    assert rec["metrics"]["rows_per_s"]["value"] == rep["rows_per_s"]
+    assert (rec["metrics"]["lat_ms_p50"]["us_per_call"]
+            == rep["lat_ms_p50"] * 1e3)
+    assert rec["metrics"]["model_generation"]["value"] == 2.0
+    assert rec["meta"]["generations"] == rep["generations"]
+    assert rec["meta"]["phases"] == rep["phases"]
+    assert rec["meta"]["obs"]["dispatch_tiers"] == {}
+    assert rec["device"]["platform"] == "cpu"
