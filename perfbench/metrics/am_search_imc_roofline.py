@@ -1,0 +1,7 @@
+"""Percent of ``am_search_imc``'s roofline in the traced slice
+(``counts/am_search_imc.py``)."""
+from perfbench import trace
+
+
+def read(ctx):
+    return trace.roofline(ctx, ctx.module("counts", "am_search_imc"))
