@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from repro_torch import on_device
+from repro_torch.obs.trace import traced
 
 
 class DeployedArtifact:
@@ -34,6 +35,7 @@ class DeployedArtifact:
         """(B, D) bipolar queries -> (B,) predicted class."""
         raise NotImplementedError
 
+    @traced("serve.predict", batch_arg=1)
     def predict(self, feats) -> torch.Tensor:
         """(B, f) raw features -> (B,) classes, staged encode + search."""
         from repro_torch.core import encoding
@@ -41,6 +43,7 @@ class DeployedArtifact:
         q = encoding.encode_query(self.enc_params, self.enc_cfg, feats)
         return self.predict_query(q)
 
+    @traced("serve.predict_features", batch_arg=1)
     def predict_features(self, feats) -> torch.Tensor:
         """Raw-feature serving entry point; backends with a fused
         feature->prediction pipeline override it."""

@@ -29,6 +29,7 @@ from repro_torch.core.types import EncoderConfig, MemhdConfig
 from repro_torch.deploy.base import DeployedArtifact
 from repro_torch.deploy.registry import register_backend
 from repro_torch.kernels.am_search_packed import MODES
+from repro_torch.obs.trace import traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +61,7 @@ class DeployedMemhd(DeployedArtifact):
         return (self.packed and self.enc_cfg.kind == "projection"
                 and self.enc_cfg.binarize_query)
 
+    @traced("serve.predict_features", batch_arg=1)
     def predict_features(self, feats) -> torch.Tensor:
         """(B, f) raw features -> (B,) classes: fused encode/sign/pack
         kernel chained into the packed search; bit-exact with the staged

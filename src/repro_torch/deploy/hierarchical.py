@@ -39,6 +39,7 @@ from repro_torch import on_device, resolve_device
 from repro_torch.deploy.base import DeployedArtifact
 from repro_torch.deploy.padding import round_up
 from repro_torch.deploy.registry import register_backend
+from repro_torch.obs.trace import traced
 
 TILE = 128  # packed-slab column tile (the am_search_packed contract)
 
@@ -371,6 +372,7 @@ class HierarchicalMemhd(DeployedArtifact):
                           self.centroid_class[idx.long().clamp_min(0)], -1)
         return cls, idx, sims
 
+    @traced("serve.predict_topk", batch_arg=1)
     def predict_topk(self, feats, k: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(B, f) raw features -> top-k (classes, centroid ids, sims)."""

@@ -34,6 +34,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._search_pass import (  # noqa: F401
     BLOCK_ROWS, FP32_STEP, SMEM, int8_route, launch_args, search_plan,
 )
+from repro_torch.obs.trace import traced
 
 ROUTES = _build.RouteCounts.NAMES
 _ROUTES = _build.RouteCounts()
@@ -80,6 +81,7 @@ def check_readout(d: int, c: int, tile_rows: int, tile_cols: int,
                          f"grid {grid}")
 
 
+@traced("launch.am_search_imc")
 def am_search_imc(q: torch.Tensor, am_t: torch.Tensor,
                   offsets: torch.Tensor | None = None, *,
                   tile_rows: int = 128, tile_cols: int = 128,

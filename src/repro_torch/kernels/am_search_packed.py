@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.pack_bits import pack_bits
+from repro_torch.obs.trace import traced
 
 # Queries per block: the rows of a query tile, rounded up to whole m16
 # tiles of mma.sync, max(16, block_b), in both modes.
@@ -140,6 +141,7 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str,
             "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
 
 
+@traced("launch.am_search_packed")
 def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
                      n_dims: int, block_b: int | None = DEFAULT_BLOCK_B,
                      mode: str = "popcount",

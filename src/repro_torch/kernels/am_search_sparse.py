@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.am_shortlist import check_packed, keys_fit
+from repro_torch.obs.trace import traced
 
 TILE = 128  # slab columns per tile (the am_search_packed contract)
 # csrc/am_search_sparse.cu: threads per block (one block per query), ring
@@ -197,6 +198,7 @@ def am_search_sparse_gathered(q_packed: torch.Tensor,
 am_search_sparse_gathered.launches = 0
 
 
+@traced("launch.am_search_sparse")
 def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
                      col_ids: torch.Tensor, shortlist: torch.Tensor,
                      tile_start: torch.Tensor, tile_count: torch.Tensor, *,

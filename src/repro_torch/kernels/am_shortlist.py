@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.obs.trace import traced
 
 NEG = ref.NEG
 _SENT = ref._SENT
@@ -167,6 +168,7 @@ def keys_fit(slots: int, reserved: int = 0) -> bool:
     return 8 * slots + reserved <= 8 * SMEM_SLOTS
 
 
+@traced("launch.am_shortlist")
 def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
                  n_dims: int, s: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Score packed queries against G packed super-centroids, keep top S.

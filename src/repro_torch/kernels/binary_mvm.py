@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.obs.trace import traced
 
 TILE = 128  # IMC array dim: one (K, N) tile pass is one array cycle
 
@@ -49,6 +50,7 @@ def binary_mvm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return binary_mvm_tiled(x, w, SGEMM_TILE)
 
 
+@traced("launch.binary_mvm")
 def binary_mvm_tiled(x: torch.Tensor, w: torch.Tensor,
                      tile: int) -> torch.Tensor:
     """``binary_mvm`` through block tile ``SGEMM_TILES[tile]`` (the

@@ -21,6 +21,7 @@ from repro_torch.kernels.am_search_packed import (
 )
 from repro_torch.kernels.binary_mvm import SGEMM_TILE, SGEMM_TILES
 from repro_torch.kernels.binary_mvm import imc_cycles_for as _mvm_cycles
+from repro_torch.obs.trace import traced
 
 # The rows of the kernel's block tile: its only query tile (the
 # reference's autotuned batch tile has no other counterpart here).
@@ -43,6 +44,7 @@ def encode_pack(feats: torch.Tensor, projection: torch.Tensor,
     return encode_pack_tiled(feats, projection, SGEMM_TILE)
 
 
+@traced("launch.encode_pack")
 def encode_pack_tiled(feats: torch.Tensor, projection: torch.Tensor,
                       tile: int) -> torch.Tensor:
     """``encode_pack`` through block tile ``binary_mvm.SGEMM_TILES[tile]``

@@ -100,6 +100,7 @@ from repro_torch.kernels.qail_update import (
 from repro_torch.kernels.qail_update import qail_update as _qail_update
 from repro_torch.kernels.ssd_chunk import SsdChunk as _SsdChunk
 from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs.trace import traced
 
 _DISPATCH = _obs_metrics.counter(
     "kernel_dispatch_total",
@@ -324,6 +325,7 @@ def search_from_features(feats: torch.Tensor, projection: torch.Tensor,
                                  tile=tile)
 
 
+@traced("ops.predict_from_features")
 def predict_from_features(feats: torch.Tensor, projection: torch.Tensor,
                           am_packed_t: torch.Tensor,
                           centroid_class: torch.Tensor, *,
@@ -368,6 +370,7 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
                              mode=mode, block_b=block_b)
 
 
+@traced("ops.am_shortlist")
 def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
                  n_dims: int, s: int, use_kernel: bool | None = True,
                  block_b: int | None = None,
@@ -386,6 +389,7 @@ def am_shortlist(q_packed: torch.Tensor, super_packed_t: torch.Tensor, *,
     return _am_shortlist(q_packed, super_packed_t, n_dims=n_dims, s=s)
 
 
+@traced("ops.am_search_sparse")
 def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
                      col_ids: torch.Tensor, shortlist: torch.Tensor,
                      tile_start: torch.Tensor, tile_count: torch.Tensor, *,
@@ -414,6 +418,7 @@ def am_search_sparse(q_packed: torch.Tensor, am_slab_t: torch.Tensor,
                              max_tiles=max_tiles)
 
 
+@traced("ops.pack_rows")
 def pack_rows(x: torch.Tensor, *,
               use_kernel: bool | None = True) -> torch.Tensor:
     """(B, D) bipolar -> (B, ceil(D/8)) uint8, any D (tail bits 0)."""
@@ -479,6 +484,7 @@ def predict_classes(queries: torch.Tensor, am: torch.Tensor,
     return centroid_class[idx.long()]
 
 
+@traced("ops.am_search_imc")
 def am_search_imc(queries: torch.Tensor, am: torch.Tensor, *, sim,
                   offsets: torch.Tensor | None = None,
                   use_kernel: bool | None = True,
@@ -575,6 +581,7 @@ def qail_update(q: torch.Tensor, upd: torch.Tensor, am_t: torch.Tensor,
                         block_b=block_b)
 
 
+@traced("ops.predict_imc")
 def predict_imc(queries: torch.Tensor, am: torch.Tensor,
                 centroid_class: torch.Tensor, *, sim,
                 offsets: torch.Tensor | None = None,

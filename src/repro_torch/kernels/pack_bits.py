@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.obs.trace import traced
 
 # csrc/pack_bits.cu: threads of a block (a warp a chunk of 128 packed
 # bytes, 1024 floats), and blocks per SM before the grid strides.
@@ -37,6 +38,7 @@ def _plan(n_bytes: int, device) -> tuple:
     return p["grid"], p["threads"], p["sms"]
 
 
+@traced("launch.pack_bits")
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
     """(R, C) float32 bipolar, C % 8 == 0 -> (R, C // 8) uint8,
     LSB-first, bit 1 iff x > 0."""

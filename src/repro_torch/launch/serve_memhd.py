@@ -383,7 +383,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = ap.parse_args(argv)
     obs.setup_logging(json_mode=args.log_json)
     obs.install()
+    # The process tracer records nothing until asked: --trace-out turns
+    # it on for this run.
+    tracing = obs.TRACER.enabled
+    obs.TRACER.enabled = tracing or bool(args.trace_out)
+    try:
+        return _serve(ap, args)
+    finally:
+        obs.TRACER.enabled = tracing
 
+
+def _serve(ap: argparse.ArgumentParser, args) -> Dict:
+    """Build, deploy and serve as ``args`` say; returns the report."""
     if args.target and args.unpacked:
         ap.error("--unpacked is the legacy alias; drop it with --target")
     target = args.target or ("unpacked" if args.unpacked else "packed")

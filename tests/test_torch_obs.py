@@ -155,6 +155,98 @@ def test_device_span_shows_in_a_torch_profiler_trace():
     assert [e.name for e in tr.events()] == ["fold"]
 
 
+def count_bridges(monkeypatch) -> list:
+    """Names the tracer hands ``torch.profiler.record_function``."""
+    names, real = [], torch.profiler.record_function
+
+    def counting(name, *args, **kwargs):
+        names.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    return names
+
+
+def test_an_off_tracer_records_nothing_and_bridges_nothing(monkeypatch):
+    bridges = count_bridges(monkeypatch)
+    assert ttrace.TRACER.enabled is False   # the process tracer starts off
+    tr = ttrace.Tracer()
+    tr.enabled = False
+    rows = tr.traced("ops.rows", batch_arg=0)(len)
+    with tr.span("fold", device=True), tr.span("pad", rows=2):
+        assert rows([1, 2]) == 2 and tr.current_span_id() == 0
+    assert tr.span("a") is tr.span("b", device=True)   # one shared no-op
+    assert tr.events() == [] and bridges == []
+
+
+def test_a_capture_records_the_spans_of_an_off_tracer():
+    from torch.profiler import ProfilerActivity, profile
+    tr = ttrace.Tracer()
+    tr.enabled = False
+
+    @tr.traced("launch.k")
+    def launch():
+        return 1
+
+    @tr.traced("serve.predict", batch_arg=1)
+    def predict(artifact, feats):
+        with tr.span("ops.op"):
+            return launch()
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert predict(None, [0.0] * 3) == 1
+    predict(None, [0.0])   # after the capture: not recorded
+    evs = {e.name: e for e in tr.events()}
+    assert list(evs) == ["launch.k", "ops.op", "serve.predict"]
+    assert evs["launch.k"].parent_id == evs["ops.op"].span_id
+    assert evs["ops.op"].parent_id == evs["serve.predict"].span_id
+    assert evs["serve.predict"].args == {"rows": 3}
+    assert predict.__name__ == "predict" and launch.__wrapped__() == 1
+    # The decorator adds no range to the capture.
+    assert not {"launch.k", "serve.predict"} & {
+        ev.key for ev in prof.key_averages()}
+
+
+def test_spans_are_stamped_on_the_profilers_clock():
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    tr, n = ttrace.Tracer(), 20
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm"):
+            pass
+        for i in range(n):
+            with tr.span(f"s{i}"), record_function(f"r{i}"):
+                pass
+    ranges = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()}
+    spans = {e.name: (e.start_ns, e.start_ns + e.dur_ns)
+             for e in tr.events()}
+    lead, lag = [], []
+    for i in range(n):
+        (s0, s1), (r0, r1) = spans[f"s{i}"], ranges[f"r{i}"]
+        assert s0 <= r0 + 2_000 and r1 <= s1 + 2_000   # encloses it
+        lead.append(r0 - s0)
+        lag.append(s1 - r1)
+    # Both edges within 100 us (the median: one span may be preempted).
+    assert statistics.median(lead) <= 100_000
+    assert statistics.median(lag) <= 100_000
+
+
+def test_a_device_span_bridges_only_under_a_capture(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+    bridges = count_bridges(monkeypatch)
+    tr = ttrace.Tracer()
+    with tr.span("fold", device=True):
+        pass
+    assert bridges == [] and [e.name for e in tr.events()] == ["fold"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tr.span("fold", device=True):
+            torch.ones(4) + 1
+    assert bridges == ["fold"] and len(tr.events()) == 2
+    assert "fold" in {ev.key for ev in prof.key_averages()}
+
+
 # -- torchmon -----------------------------------------------------------------
 
 def test_torchmon_install_is_idempotent_and_gauges_skip_the_cpu(
