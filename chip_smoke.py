@@ -161,8 +161,15 @@ script exits non-zero without the final result line:
    queries, the int8 route, bound by the bytes) the fp32 route on dyadic
    queries (``ms_fp32_route``, ``bound_ms_fp32_route``) and ``routes``;
    the ``am_search_packed`` (popcount) row the time at each ``block_b``
-   (``ms_by_block_b``, ``grid_by_block_b``) and at a served request's
-   B = 32 (``ms_b32``, ``bound_ms_b32``, ``plan_b32``); the
+   (``ms_by_block_b``, ``grid_by_block_b``), at a served request's
+   B = 32 (``ms_b32``, ``bound_ms_b32``, ``plan_b32``) and at the
+   benchmark's B 4,096 x C 100,000 and B 256 there (``ms_b4096_c100000``,
+   ``ms_b256_c100000``, their bounds and plans: the sweep route), each
+   checked equal to the plain version, the launches by route of its timed
+   calls at each shape (``route_launches``: tile at B = C = 1024 and B =
+   32, sweep at C = 100,000), and both routes bit-exact and timed at B
+   256, 1,024, 4,096 x C 1,024, 100,000 (``ms_by_route``, the shapes the
+   sweep route's rule is set from); the
    ``am_search_imc`` row (``ms`` on the
    noisy instance, the fp32 route) the ideal instance's time and bound on
    the int8 route (``ms_int8_route``, ``bound_ms_int8_route``) and the
@@ -703,6 +710,66 @@ def bound(nbytes, ops, rate):
     and the operations over ``rate``."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+# am_search_packed (popcount) on both routes: B x C at D = 1024, the
+# shapes PERF.md's rule for the sweep route is set from (the benchmark's
+# B 4,096 x C 100,000 among them).
+ROUTE_BATCHES, ROUTE_COLUMNS = (256, 1024, 4096), (1024, 100_000)
+
+
+def packed_search_chunked(q, am_t, d):
+    """The plain packed search in row chunks (it builds a (rows, Dp, C)
+    int32 tensor)."""
+    import torch
+    from repro_torch.kernels import ref
+    rows = max(1, (1 << 30) // (4 * am_t.numel()))
+    parts = [ref.am_search_packed(q[i:i + rows], am_t, d)
+             for i in range(0, q.shape[0], rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def popcount_routes(dev, sms, d=1024) -> dict:
+    """Both routes of popcount mode at each B x C of ROUTE_BATCHES x
+    ROUTE_COLUMNS (``am_search_packed._launch`` of each route's plan,
+    launches not counted): each bit-exact against the plain version on
+    random packed operands with planted ties, then timed; with the route
+    ``launch_plan`` picks and the 1-bit bound."""
+    import torch
+    from repro_torch.kernels import am_search_packed as asp
+    gen = torch.Generator(device=dev).manual_seed(33)
+    dp = -(-d // 8)
+    out = {}
+    for c in ROUTE_COLUMNS:
+        am_t = torch.randint(0, 256, (dp, c), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        for b in ROUTE_BATCHES:
+            q = torch.randint(0, 256, (b, dp), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            a_t = am_t.clone()
+            cols = torch.randperm(c, generator=gen, device=dev)[:128]
+            a_t[:, cols[:64]] = q[:64].T
+            a_t[:, cols[64:]] = q[:64].T
+            want = packed_search_chunked(q, a_t, d)
+            row = {"route": asp.launch_plan(b, dp, c, asp.DEFAULT_BLOCK_B,
+                                            "popcount", sms)["route"],
+                   "bound_ms": bound(q.numel() + a_t.numel() + 8 * b,
+                                     2 * b * c * d, B1_OPS_PER_S)[0]}
+            for route, plan in (
+                    ("tile", asp.tile_plan(b, dp, c, asp.DEFAULT_BLOCK_B,
+                                           sms)),
+                    ("sweep", asp.sweep_plan(b, dp, c, sms))):
+                def run():
+                    return asp._launch(q, a_t, d, asp.DEFAULT_BLOCK_B,
+                                       "popcount", plan)
+                got = run()
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1]),
+                      ("popcount route != plain", route, b, c))
+                row[f"ms_{route}"] = time_device_ms(run)
+                row[f"grid_{route}"] = plan["grid"]
+            out[f"B{b}_C{c}"] = row
+    return out
 
 
 def check_int8_routes(launches, what) -> dict:
@@ -5442,7 +5509,12 @@ class Smoke:
 
     def popcount_extra(self, qp, am_t, sms) -> dict:
         """Popcount mode at every block_b (B = 1024) and at a served
-        request's B = 32 (default block_b), with the launch plans."""
+        request's B = 32 (default block_b), with the launch plans; at the
+        benchmark's B 4,096 x C 100,000 (``ms_b4096_c100000``) and B 256
+        there; the launches by route of the row's timed calls at each
+        shape (``route_launches``, each shape on one route); and both
+        routes at the rule's shapes (``ms_by_route``)."""
+        from repro_torch import kernels
         from repro_torch.kernels import am_search_packed as asp
         b, dp = qp.shape
         c = am_t.shape[1]
@@ -5450,18 +5522,57 @@ class Smoke:
         q32 = qp[:32].contiguous()
         ms32, by32 = bound(q32.numel() + am_t.numel() + 8 * 32,
                            2 * 32 * c * d, B1_OPS_PER_S)
-        return {
-            "ms_by_block_b": {bb: time_device_ms(
-                lambda: asp.am_search_packed(qp, am_t, n_dims=d, block_b=bb))
+        routes = {}
+
+        def timed(shape, fn):
+            before = kernels.route_launches()["am_search_packed"]
+            ms = time_device_ms(fn)
+            after = kernels.route_launches()["am_search_packed"]
+            used = {k: after[k] - before[k] for k in after}
+            routes[shape] = {k: routes.get(shape, {}).get(k, 0) + v
+                             for k, v in used.items()}
+            return ms
+
+        out = {
+            "ms_by_block_b": {bb: timed("B1024_C1024", lambda: (
+                asp.am_search_packed(qp, am_t, n_dims=d, block_b=bb)))
                 for bb in asp.BLOCK_B_CHOICES},
             "grid_by_block_b": {bb: asp.launch_plan(
                 b, dp, c, bb, "popcount", sms)["grid"]
                 for bb in asp.BLOCK_B_CHOICES},
-            "ms_b32": time_device_ms(
-                lambda: asp.am_search_packed(q32, am_t, n_dims=d)),
+            "ms_b32": timed("B32_C1024", lambda: asp.am_search_packed(
+                q32, am_t, n_dims=d)),
             "bound_ms_b32": ms32, "bound_by_b32": by32,
             "plan_b32": asp.launch_plan(32, dp, c, asp.DEFAULT_BLOCK_B,
                                         "popcount", sms)}
+        gen = self.torch.Generator(device=self.dev).manual_seed(4096)
+        big = self.torch.randint(0, 256, (dp, 100_000), generator=gen,
+                                 device=self.dev, dtype=self.torch.uint8)
+        for rows in (4096, 256):
+            qb = self.torch.randint(0, 256, (rows, dp), generator=gen,
+                                    device=self.dev, dtype=self.torch.uint8)
+            got = asp.am_search_packed(qb, big, n_dims=d)
+            want = packed_search_chunked(qb, big, d)
+            check(self.torch.equal(got[0], want[0])
+                  and self.torch.equal(got[1], want[1]),
+                  ("popcount != plain at C = 100,000", rows))
+            key = f"b{rows}_c100000"
+            out[f"ms_{key}"] = timed(f"B{rows}_C100000", lambda: (
+                asp.am_search_packed(qb, big, n_dims=d)))
+            out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound(
+                qb.numel() + big.numel() + 8 * rows,
+                2 * rows * 100_000 * d, B1_OPS_PER_S)
+            out[f"plan_{key}"] = asp.launch_plan(
+                rows, dp, 100_000, asp.DEFAULT_BLOCK_B, "popcount", sms)
+        check(all(sum(v.values()) == max(v.values())
+                  for v in routes.values()), ("one route a shape", routes))
+        check(set(routes["B4096_C100000"]) == {"tile", "sweep"}
+              and routes["B4096_C100000"]["tile"] == 0
+              and routes["B1024_C1024"]["sweep"] == 0
+              and routes["B32_C1024"]["sweep"] == 0, routes)
+        out["route_launches"] = routes
+        out["ms_by_route"] = popcount_routes(self.dev, sms)
+        return out
 
     def kernel_line(self):
         np, torch = self.np, self.torch

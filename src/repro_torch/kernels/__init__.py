@@ -42,14 +42,24 @@ CONFIG_COUNTS = {"am_search_packed": (_asp.am_search_packed,
                  "encode_pack": (_ef.encode_pack, "tile_launches")}
 
 
+# Launches by route, beside the launches by configuration:
+# {route: launches} of ``am_search_packed``'s popcount mode ("tile" or
+# "sweep", picked from the shape by ``am_search_packed.launch_plan``).
+ROUTE_COUNTS = {"am_search_packed": (_asp.am_search_packed,
+                                     "route_launches")}
+
+
 def reset_launches() -> None:
-    """Zero every launch counter, the launches by configuration and the
-    route counts of ``qail_update``, ``am_search``, ``am_search_imc``,
-    ``am_search_multibit`` and ``am_shortlist``."""
+    """Zero every launch counter, the launches by configuration and by
+    route, and the route counts of ``qail_update``, ``am_search``,
+    ``am_search_imc``, ``am_search_multibit`` and ``am_shortlist``."""
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
     for fn, attr in CONFIG_COUNTS.values():
         getattr(fn, attr).clear()
+    for fn, attr in ROUTE_COUNTS.values():
+        counts = getattr(fn, attr)
+        counts.update(dict.fromkeys(counts, 0))
     for mod in (_qu, _as, _asi, _asm, _asl):
         mod.reset_routes()
 
@@ -64,3 +74,10 @@ def config_launches() -> dict[str, dict[int, int]]:
     "encode_pack": {tile: n}}``."""
     return {name: dict(getattr(fn, attr))
             for name, (fn, attr) in CONFIG_COUNTS.items()}
+
+
+def route_launches() -> dict[str, dict[str, int]]:
+    """Launches by route since the last reset:
+    ``{"am_search_packed": {"tile": n, "sweep": n}}``."""
+    return {name: dict(getattr(fn, attr))
+            for name, (fn, attr) in ROUTE_COUNTS.items()}

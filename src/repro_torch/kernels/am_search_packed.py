@@ -20,7 +20,10 @@ launcher, which refuses a plan other than its own.
 A CPU tensor is searched by the plain version (``ref.am_search_packed``,
 ``ref.am_search_packed_unpack``); a CUDA tensor goes through the kernel
 or raises. ``am_search_packed.launches`` counts popcount-mode launches,
-``am_search_packed.unpack_launches`` unpack-mode launches.
+``am_search_packed.unpack_launches`` unpack-mode launches, and
+``am_search_packed.route_launches`` popcount mode's launches by route
+(``{"tile": n, "sweep": n}``, ``launch_plan``); the ``launch.
+am_search_packed`` span carries the route as its ``route`` arg.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.pack_bits import pack_bits
-from repro_torch.obs.trace import traced
+from repro_torch.obs.trace import annotate, traced
 
 # Queries per block: the rows of a query tile, rounded up to whole m16
 # tiles of mma.sync, max(16, block_b), in both modes.
@@ -46,6 +49,16 @@ _WARPS, _ASTR = 4, UNPACK_COLS + 16
 # have a block per SM of the device, ``popcount_cols``).
 POPCOUNT_COLS, _MIN_COLS = 128, 8
 _MAX_GRID_Y = 65535
+# popcount mode's sweep route (csrc/am_search_packed.cu search_sweep): a
+# block of 8 warps holds 128 query rows and walks a group of 128-column
+# tiles through a 4-stage ring; D <= 1024 (A fragments in registers). A
+# group walks 4 column tiles at least, and its columns fit a key's 20
+# bits. The route is taken from B >= 128 and B x C >= 2^21 (row, column)
+# pairs, where the grid of query tiles x groups fills a quarter of the
+# device at least (popcount_route).
+SWEEP_ROWS, SWEEP_COLS, SWEEP_WARPS, SWEEP_STAGES = 128, 128, 8, 4
+SWEEP_MAX_DP, SWEEP_MIN_PAIRS, SWEEP_MIN_WALK = 128, 1 << 21, 4
+_SWEEP_ASTR, _SWEEP_MAX_WALK = 144, ((1 << 20) - 1) // 128
 # The reference's IMC tiling: 128 centroid columns by 16 packed bytes
 # (128 dims) a cycle.
 _CYCLE_COLS, _CYCLE_BYTES = 128, 16
@@ -99,6 +112,56 @@ def popcount_cols(b: int, c: int, rows: int, sms: int) -> int:
     return cols
 
 
+def sweep_groups(b: int, c: int, sms: int) -> int:
+    """The sweep route's column groups (``popcount::sweep_groups``): one
+    wave of blocks, sms // query tiles, with at least ``SWEEP_MIN_WALK``
+    column tiles a group, at least 1, and at most ``_SWEEP_MAX_WALK``."""
+    tiles, ct = -(-b // SWEEP_ROWS), -(-c // SWEEP_COLS)
+    g = max(1, min(sms // tiles, ct // SWEEP_MIN_WALK))
+    return max(g, -(-ct // _SWEEP_MAX_WALK))
+
+
+def popcount_route(b: int, dp: int, c: int, sms: int) -> str:
+    """"sweep" where a resident 128-row query tile pays: D <= 1024, B >=
+    128, B x C of 2^21 (row, column) pairs or more, and query tiles x
+    column groups at least a quarter of the device's SMs; "tile"
+    elsewhere. On the H100 (PERF.md §6) the sweep takes 0.009 ms
+    at any B of 256 to 4,096 over C = 1,024 (one short walk a block) and
+    0.185 ms at B 4,096 x C 100,000; the tile route 0.0067 at B 256 x C
+    1,024 and 0.0089 at B = C = 1,024 (1 M pairs), but 0.020 at B 4,096
+    x C 1,024 (4 M pairs) and 1.48 ms at B 4,096 x C 100,000."""
+    if dp > SWEEP_MAX_DP or b < SWEEP_ROWS or b * c < SWEEP_MIN_PAIRS:
+        return "tile"
+    blocks = -(-b // SWEEP_ROWS) * sweep_groups(b, c, sms)
+    return "sweep" if 4 * blocks >= sms else "tile"
+
+
+def sweep_plan(b: int, dp: int, c: int, sms: int) -> dict:
+    """The sweep route's launch: ``popcount::search_sweep<ceil(Dp/32)>``."""
+    ks = -(-dp // 32)
+    tiles = -(-b // SWEEP_ROWS)
+    groups = sweep_groups(b, c, sms)
+    return {"route": "sweep", "rows": SWEEP_ROWS, "cols": SWEEP_COLS,
+            "warps": SWEEP_WARPS, "groups": groups, "grid": (tiles, groups),
+            "smem": (SWEEP_ROWS * (32 * ks + 16)
+                     + SWEEP_STAGES * 32 * ks * _SWEEP_ASTR
+                     + 4 * 4 * SWEEP_ROWS),
+            "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
+
+
+def tile_plan(b: int, dp: int, c: int, block_b: int, sms: int) -> dict:
+    """The tile route's launch: ``popcount::search<rows / 16, ...>``."""
+    rows = max(16, block_b)
+    cols = popcount_cols(b, c, rows, sms)
+    warps = min(4, cols // 8)
+    tiles = -(-b // rows)
+    return {"route": "tile", "rows": rows, "cols": cols, "warps": warps,
+            "grid": (tiles, -(-c // cols)),
+            "smem": (_STAGES * (rows * _QSTR + _SLAB * max(cols + 16, 32))
+                     + 8 * warps * rows),
+            "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
+
+
 def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str,
                 sms: int) -> dict:
     """The kernel's launch for B queries, Dp packed bytes and C columns on
@@ -109,12 +172,29 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str,
     and after a launch (``fold_scratch``). ``sms`` is part of the plan,
     and the launcher refuses a plan made for another device.
 
-    popcount: ``rows`` = max(16, block_b) queries (one or two m16 tiles
-    of ``mma.sync`` b1) by ``cols`` = ``popcount_cols`` columns, a block of
-    ``warps`` = min(4, cols / 8) warps. The dynamic shared memory is the
-    4-stage ring of 32-byte k slabs of both operands (rows of 48 query
-    bytes, then 32 AM byte rows of max(cols + 16, 32) bytes), the same at
-    any D, then the warps' uint64 keys of each row.
+    popcount, two routes of one algorithm (AND + popcount on the b1
+    tensor cores, then the first-wins key fold), picked by
+    ``popcount_route`` from (B, Dp, C, sms) alone (D <= 1024, B >= 128,
+    B x C >= 2^21 and a grid of a quarter of the SMs: sweep):
+
+    * "tile" (``tile_plan``): ``rows`` = max(16, block_b) queries (one or
+      two m16 tiles of ``mma.sync`` b1) by ``cols`` = ``popcount_cols``
+      columns, a block of ``warps`` = min(4, cols / 8) warps, each block
+      one column split. The dynamic shared memory is the 4-stage ring of
+      32-byte k slabs of both operands (rows of 48 query bytes, then 32
+      AM byte rows of max(cols + 16, 32) bytes), the same at any D, then
+      the warps' uint64 keys of each row. Tuned at B = C = 1024 (0.0086
+      ms) and B = 32 (0.0058 ms); at B 4,096 x C 100,000 its 200,192
+      blocks of 16 x 128 each read 16 KB of AM for 64 mma (1.50 ms).
+    * "sweep" (``sweep_plan``): ``rows`` = 128 queries held for the whole
+      launch by ``warps`` = 8 (64 x 32 warp tiles), ``cols`` = 128
+      columns a tile, a grid of (query tiles, ``groups`` =
+      ``sweep_groups``), each block walking its group's column tiles in
+      order through a 4-stage ring and folding once at the end. Dynamic
+      shared memory: the query tile (rows 32 ceil(Dp/32) + 16 bytes),
+      the ring (32 ceil(Dp/32) rows of 144 bytes a tile) and the column
+      warps' uint32 keys of each row: 94,208 bytes at D = 1024.
+      ``block_b`` does not enter it. 0.185 ms at B 4,096 x C 100,000.
 
     unpack: a block of 4 warps per ``rows`` = max(16, block_b) queries
     (one or two m16 tiles of ``mma.sync``) and ``cols`` = 128 columns. The
@@ -130,15 +210,40 @@ def launch_plan(b: int, dp: int, c: int, block_b: int, mode: str,
         return {"rows": rows, "cols": UNPACK_COLS,
                 "grid": (tiles, -(-c // UNPACK_COLS)), "smem": smem,
                 "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
-    rows = max(16, block_b)
-    cols = popcount_cols(b, c, rows, sms)
-    warps = min(4, cols // 8)
-    tiles = -(-b // rows)
-    return {"rows": rows, "cols": cols, "warps": warps,
-            "grid": (tiles, -(-c // cols)),
-            "smem": (_STAGES * (rows * _QSTR + _SLAB * max(cols + 16, 32))
-                     + 8 * warps * rows),
-            "scratch_bytes": 8 * b + 4 * tiles, "sms": sms}
+    if popcount_route(b, dp, c, sms) == "sweep":
+        return sweep_plan(b, dp, c, sms)
+    return tile_plan(b, dp, c, block_b, sms)
+
+
+def _launch(q_packed: torch.Tensor, am_packed_t: torch.Tensor, n_dims: int,
+            block_b: int, mode: str, plan: dict
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``plan`` (checked operands, any route; the launcher
+    refuses a plan that is not its own for the route). Counts nothing:
+    ``chip_smoke.py`` times both routes at one shape through it."""
+    b, dp = q_packed.shape
+    c = am_packed_t.shape[1]
+    if plan["grid"][1] > _MAX_GRID_Y:
+        raise ValueError(f"C={c} needs more column splits than a grid has")
+    idx = torch.empty((b,), dtype=torch.int32, device=q_packed.device)
+    sim = torch.empty((b,), dtype=torch.float32, device=q_packed.device)
+    if b == 0:
+        return idx, sim
+    stream = _build.stream_of(q_packed)
+    buf = fold_scratch(q_packed.device, stream, plan["scratch_bytes"])
+    code = 2 if plan.get("route") == "sweep" else MODES.index(mode)
+    lib = _build.lib()
+    with torch.cuda.device(q_packed.device):
+        err = lib.am_search_packed_launch(
+            q_packed.data_ptr(), am_packed_t.data_ptr(), idx.data_ptr(),
+            sim.data_ptr(), buf.data_ptr(), b, dp,
+            c, n_dims, block_b, code, plan["rows"],
+            plan["cols"], *plan["grid"], plan["smem"], plan["scratch_bytes"],
+            plan["sms"], stream)
+    if err:
+        _SCRATCH.pop((q_packed.device, stream), None)
+    _build.check(err, "am_search_packed")
+    return idx, sim
 
 
 @traced("launch.am_search_packed")
@@ -191,29 +296,17 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
     sms = torch.cuda.get_device_properties(
         q_packed.device).multi_processor_count
     plan = launch_plan(b, dp, c, block_b, mode, sms)
-    if plan["grid"][1] > _MAX_GRID_Y:
-        raise ValueError(f"C={c} needs more column splits than a grid has")
-    idx = torch.empty((b,), dtype=torch.int32, device=q_packed.device)
-    sim = torch.empty((b,), dtype=torch.float32, device=q_packed.device)
+    route = plan.get("route")
+    if route:
+        annotate(route=route)
+    idx, sim = _launch(q_packed, am_packed_t, n_dims, block_b, mode, plan)
     if b == 0:
         return idx, sim
-    stream = _build.stream_of(q_packed)
-    buf = fold_scratch(q_packed.device, stream, plan["scratch_bytes"])
-    lib = _build.lib()
-    with torch.cuda.device(q_packed.device):
-        err = lib.am_search_packed_launch(
-            q_packed.data_ptr(), am_packed_t.data_ptr(), idx.data_ptr(),
-            sim.data_ptr(), buf.data_ptr(), b, dp,
-            c, n_dims, block_b, MODES.index(mode), plan["rows"],
-            plan["cols"], *plan["grid"], plan["smem"], plan["scratch_bytes"],
-            plan["sms"], stream)
-    if err:
-        _SCRATCH.pop((q_packed.device, stream), None)
-    _build.check(err, "am_search_packed")
     if mode == "unpack":
         am_search_packed.unpack_launches += 1
     else:
         am_search_packed.launches += 1
+        am_search_packed.route_launches[route] += 1
     counts = am_search_packed.block_b_launches
     counts[block_b] = counts.get(block_b, 0) + 1
     return idx, sim
@@ -222,3 +315,4 @@ def am_search_packed(q_packed: torch.Tensor, am_packed_t: torch.Tensor, *,
 am_search_packed.launches = 0
 am_search_packed.unpack_launches = 0
 am_search_packed.block_b_launches = {}  # block_b -> launches (both modes)
+am_search_packed.route_launches = {"tile": 0, "sweep": 0}  # popcount mode

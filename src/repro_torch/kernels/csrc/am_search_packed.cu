@@ -29,8 +29,18 @@
 // the SMs' popc units, B*C*D/32 = 33.6 M __popc at 16 per clock per SM,
 // the first version's arithmetic had a floor of about 8 us.)
 //
-// Popcount mode (popcount::search): AND + popcount on the 1-bit tensor
-// cores. What held the first version back (0.0548 ms at the main shape):
+// Popcount mode runs one algorithm (AND + popcount on the 1-bit tensor
+// cores, then the first-wins key fold) by two routes, picked on the host
+// from (B, Dp, C, SMs) alone (kernels/am_search_packed.py popcount_route):
+// the tile route (popcount::search) below, tuned at B = C = 1024 and B =
+// 32, and the sweep route (popcount::search_sweep) after it, for large B
+// x C: D <= 1024, B >= 128, B x C >= 2^21 and a grid of query tiles x
+// column groups of a quarter of the SMs or more. On the H100: B = C =
+// 1024, tile 0.0089 ms, sweep 0.0091; B 4,096 x C 1,024, 0.020 / 0.0094;
+// B 4,096 x C 100,000, 1.48 / 0.185 (PERF.md §6).
+//
+// Tile route (popcount::search). What held the first version back (0.0548
+// ms at the main shape):
 // one block per block_b queries walked all C columns alone (128 blocks at
 // B = 1024, 4 at B = 32), each 64-column AM tile was staged byte by byte
 // with nothing in flight, and every thread did 1 + QPT shared loads per
@@ -65,6 +75,46 @@
 //   per tile) writes idx and sim = n_dims - 2 * hamming and restores the
 //   scratch to all ones (finish_tile), so no memset launch runs before
 //   the kernel.
+//
+// Sweep route (popcount::search_sweep). What held the tile route back at
+// the benchmark's B 4,096 x C 100,000 (1.46-1.50 ms against a 1-bit bound
+// of 0.053 ms): 200,192 blocks of 16 rows x 128 columns, each staging 16
+// KB of AM for 64 mma (the ring never in steady state), the 12.8 MB AM
+// read from L2 once per 16 query rows (3.7 GB a batch), B words gathered
+// byte by byte for one m16 tile each, and 3.2 M 64-bit atomics. Now:
+// * Grid: (query tiles of 128 rows) x (column groups): sms / query tiles
+//   groups, each walking at least 4 column tiles of 128, so the grid is
+//   one wave of 8-warp blocks (225 registers, one block an SM): (32, 4)
+//   at B = 4,096, (2, 66) at B = 256. The AM is read from L2 once per
+//   128 query rows (0.41 GB a batch).
+// * Resident queries: the block stages its 128 query rows once and each
+//   warp (64 rows x 32 columns of a tile: 4 m16 x 4 n8) holds its A
+//   fragments for all of D in registers (D <= 1024) for the whole walk.
+// * Column walk: whole column tiles (all of Dp x 128 columns) stream
+//   through a 4-stage cp.async ring in column order, one barrier a tile;
+//   each thread's KS copies of a tile come from pointers set once (a
+//   template instance for 16-byte aligned AM rows, C % 16 == 0, keeps the
+//   byte path out of the loop) and go out after the tile's products are
+//   issued (0.224 -> 0.187 ms at B 4,096 x C 100,000; an SM sub-partition
+//   issues a warp's b1 mma every 6 cycles, so the copies' and the fold's
+//   integer instructions do not hide under the products: taking the
+//   loads or the fold away each saved 0.048 ms, and neither a fold
+//   deferred into the next tile's products, nor the two row groups of
+//   warps taking the phases in turn, nor a 6-stage ring saved anything).
+//   A tile's byte rows are staged permuted (b1::sweep_row) so that one
+//   ldmatrix .x4 .trans and four byte permutes give a lane the B words of
+//   two n8 tiles at one k slab, no byte-by-byte gather, each B fragment
+//   feeding 4 m16 tiles; P_a comes from one more mma a fragment, of an
+//   all-ones A, so no popc of B words.
+// * Keys in registers: each (row, column) becomes the 32-bit key (P_a - 2
+//   popc(q AND a) + 1024) << 20 | column - the group's first column (one
+//   IMAD from the column's (P_a + 1024) << 20 | column) and the lane keeps
+//   each row's least with a three-way min: lexicographic on (hamming,
+//   column), so the lowest column wins a tie in any order.
+// * Fold: once a block, after the walk: the four lanes of a row, the four
+//   column warps in shared memory, then hamming = P_q + (key >> 20) -
+//   1024 and one 64-bit atomicMin a row on (hamming << 32) | idx, and
+//   finish_tile as the tile route: 4,096 x 4 atomics a batch.
 //
 // Unpack mode (am_search_packed_unpack_kernel). What held the SIMT version
 // back (0.31 ms at the main shape): one block per 8 queries walked all C
@@ -332,6 +382,251 @@ int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
   return (int)cudaGetLastError();
 }
 
+// -- The sweep route (search_sweep) ------------------------------------------
+constexpr int SW_ROWS = 128;     // query rows of a block, resident
+constexpr int SW_COLS = 128;     // columns of a tile of the walk
+constexpr int SW_WARPS = 8;      // 2 x 4 warps of 64 rows x 32 columns
+constexpr int SW_STAGES = 4;     // column tiles in the ring
+constexpr int SW_MAX_DP = 128;   // D <= 1024: the A fragments in registers
+constexpr int SW_MIN_WALK = 4;   // column tiles a group walks at least
+constexpr int SW_LOCAL = 20;     // bits of a key's column within its group
+constexpr int SW_OFS = 1024;     // >= any P_q >= 2 popc(q AND a) - P_a
+constexpr int SW_MAX_WALK = ((1 << SW_LOCAL) - 1) / SW_COLS;
+
+// Column groups: one wave of blocks (sms / query tiles), each walking at
+// least SW_MIN_WALK column tiles, and each group's columns within
+// SW_LOCAL bits (kernels/am_search_packed.py: sweep_groups mirrors it).
+inline int sweep_groups(int B, int C, int sms) {
+  const int tiles = (B + SW_ROWS - 1) / SW_ROWS;
+  const int ct = (C + SW_COLS - 1) / SW_COLS;
+  int g = sms / tiles < ct / SW_MIN_WALK ? sms / tiles : ct / SW_MIN_WALK;
+  if (g < 1) g = 1;
+  const int need = (ct + SW_MAX_WALK - 1) / SW_MAX_WALK;
+  return g < need ? need : g;
+}
+// Dynamic shared memory: the query tile (rows 32 KS + 16 bytes apart), the
+// ring of column tiles, the four column warps' keys of each row.
+inline int sweep_smem(int ks) {
+  return SW_ROWS * (32 * ks + 16) + SW_STAGES * 32 * ks * b1::SWEEP_ASTR +
+         4 * 4 * SW_ROWS;
+}
+
+// KS: 32-byte k slabs of D (Dp <= 32 KS); AVEC: the AM's rows are 16-byte
+// aligned (C % 16 == 0), so its copies are cp.async. Grid: (query tiles
+// of 128 rows) x (column groups); group g walks column tiles
+// [g ct / G, (g+1) ct / G).
+template <int KS, bool AVEC>
+__global__ void __launch_bounds__(32 * SW_WARPS, 1)
+search_sweep(const uint8_t* __restrict__ q, const uint8_t* __restrict__ am_t,
+             unsigned long long* __restrict__ keys,
+             unsigned* __restrict__ tickets, int32_t* __restrict__ out_idx,
+             float* __restrict__ out_sim, int B, int Dp, int C, int n_dims,
+             bool q_vec) {
+  constexpr int QS = 32 * KS + 16;  // query row stride: 8 bank groups
+  constexpr int AROWS = 32 * KS;    // AM byte rows of a column tile
+  constexpr int ASTR = b1::SWEEP_ASTR;
+  constexpr int MI = 4, NI = 4;     // a warp's m16 and n8 tiles
+  constexpr unsigned LOCAL_MASK = (1u << SW_LOCAL) - 1u;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_last;
+  uint8_t* qt = smem;                                    // [128][QS]
+  uint8_t* ring = smem + SW_ROWS * QS;                   // [STAGES][AROWS][ASTR]
+  auto* red = reinterpret_cast<unsigned*>(
+      ring + SW_STAGES * AROWS * ASTR);                  // [4][128]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int b0 = blockIdx.x * SW_ROWS;
+  const int ct = (C + SW_COLS - 1) / SW_COLS;
+  const int t0 = (int)((long long)blockIdx.y * ct / gridDim.y);
+  const int n_t = (int)((long long)(blockIdx.y + 1) * ct / gridDim.y) - t0;
+  const int col0 = t0 * SW_COLS;  // the group's first column
+
+  // The query tile, once: bytes past Dp and rows past B are 0.
+  for (int e = tid; e < SW_ROWS * 2 * KS; e += 32 * SW_WARPS) {
+    const int r = e / (2 * KS), byte = 16 * (e % (2 * KS)), b = b0 + r;
+    const bool ok = b < B && byte < Dp;
+    b1::stage16(qt + r * QS + byte, ok ? q + (size_t)b * Dp + byte : q, ok,
+                Dp - byte, q_vec);
+  }
+  // Column tile t of the walk into ring stage st: byte row kb to row
+  // 32 (kb / 32) + sweep_row(kb % 32); bytes past Dp and columns past C
+  // are 0. KS 16-byte copies a thread: byte rows tid / 8 + 32 i, the 16
+  // columns at 16 (tid % 8), from pointers set once.
+  const int krow = tid >> 3, chunk = 16 * (tid & 7);
+  const uint8_t* src0 = am_t + (size_t)krow * C + col0 + chunk;
+  uint8_t* dst0 = ring + b1::sweep_row(krow) * ASTR + chunk;
+  auto load = [&](int t, int st) {
+    const int cc = col0 + t * SW_COLS + chunk;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const bool ok = krow + 32 * i < Dp && cc < C;
+      uint8_t* dst = dst0 + (st * AROWS + 32 * i) * ASTR;
+      const uint8_t* src = src0 + t * SW_COLS + (size_t)32 * i * C;
+      if (AVEC)
+        mma::cp_async16_zfill(dst, ok ? src : am_t, ok);
+      else
+        b1::stage16(dst, ok ? src : am_t, ok, C - cc, false);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < SW_STAGES - 1; ++t) {
+    if (t < n_t) load(t, t);
+    mma::cp_async_commit();  // the query tile rides in the first group
+  }
+  mma::cp_async_wait<SW_STAGES - 2>();
+  __syncthreads();
+  // The warp's 64 query rows over all of D, held for the whole walk.
+  uint32_t a[MI][KS][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+      b1::a_frag_at(a[mi][s], qt + (64 * wm + 16 * mi) * QS + 32 * s, lane,
+                    QS);
+  const uint32_t ones[4] = {~0u, ~0u, ~0u, ~0u};
+  // Running best key of rows gid, gid + 8 of each m16 tile:
+  // (P_a - 2 popc(q AND a) + SW_OFS) << SW_LOCAL | column - col0.
+  unsigned best[MI][2];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) best[mi][0] = best[mi][1] = ~0u;
+
+  for (int t = 0; t < n_t; ++t) {
+    mma::cp_async_wait<SW_STAGES - 2>();  // tile t landed (this thread's)
+    __syncthreads();  // ... everyone's copies; tile t-1's stage is free
+    const uint8_t* st = ring + (t % SW_STAGES) * AROWS * ASTR + 32 * wn;
+    int acc[MI][NI][4];  // popc(q AND a)
+    int pa[NI][4];       // P_a: an all-ones query row's popc(1 AND a)
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t b[NI][2];
+      b1::sweep_b_frags(b, st + 32 * s * ASTR, lane);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        if (s == 0) {
+          mma::mma_b1_and_init(pa[ni], ones, b[ni][0], b[ni][1]);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+            mma::mma_b1_and_init(acc[mi][ni], a[mi][s], b[ni][0], b[ni][1]);
+        } else {
+          mma::mma_b1_and(pa[ni], ones, b[ni][0], b[ni][1]);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+            mma::mma_b1_and(acc[mi][ni], a[mi][s], b[ni][0], b[ni][1]);
+        }
+      }
+    }
+    // The copies of tile t + 3 go out while the products are in flight.
+    if (t + SW_STAGES - 1 < n_t)
+      load(t + SW_STAGES - 1, (t + SW_STAGES - 1) % SW_STAGES);
+    mma::cp_async_commit();
+    // n8 tile ni = 2 p + e: accumulator entries 0 / 2 hold the warp's column
+    // 16 p + 4 tig + e, entries 1 / 3 column 16 p + 4 tig + 2 + e. A column's
+    // key base is (P_a + SW_OFS) << SW_LOCAL | its column - col0; a key is
+    // base - popc(q AND a) << (SW_LOCAL + 1): one IMAD, and the fold a
+    // three-way min, per (row, column). Columns past C: ~0, never least.
+    const unsigned kt = ((unsigned)SW_OFS << SW_LOCAL) +
+                        (unsigned)(t * SW_COLS + 32 * wn + 4 * tig);
+    const int cl = col0 + t * SW_COLS + 32 * wn + 4 * tig;
+    const bool ragged = col0 + (t + 1) * SW_COLS > C;
+    unsigned kc[NI][2];
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int off = 16 * (ni >> 1) + 2 * j + (ni & 1);
+        kc[ni][j] = ((unsigned)pa[ni][j] << SW_LOCAL) + kt + off;
+        if (ragged && cl + off >= C) kc[ni][j] = ~0u;
+      }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          best[mi][h] = __vimin3_u32(
+              best[mi][h],
+              kc[ni][0] - ((unsigned)acc[mi][ni][2 * h] << (SW_LOCAL + 1)),
+              kc[ni][1] -
+                  ((unsigned)acc[mi][ni][2 * h + 1] << (SW_LOCAL + 1)));
+  }
+  mma::cp_async_wait<0>();
+
+  // Each row's least key: its four lanes, then the four column warps;
+  // then hamming = P_q + (key >> SW_LOCAL) - SW_OFS, one 64-bit atomicMin
+  // a row into the query's (hamming << 32) | idx, and finish_tile.
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned v = best[mi][h];
+      v = min(v, __shfl_xor_sync(FULL, v, 1));
+      v = min(v, __shfl_xor_sync(FULL, v, 2));
+      if (tig == 0) red[wn * SW_ROWS + 64 * wm + 16 * mi + 8 * h + gid] = v;
+    }
+  __syncthreads();
+  if (tid < SW_ROWS && b0 + tid < B) {
+    const unsigned k = min(min(red[tid], red[SW_ROWS + tid]),
+                           min(red[2 * SW_ROWS + tid], red[3 * SW_ROWS + tid]));
+    const auto* row = reinterpret_cast<const uint32_t*>(qt + tid * QS);
+    int pq = 0;
+#pragma unroll
+    for (int w = 0; w < 8 * KS; ++w) pq += __popc(row[w]);
+    const int ham = pq + (int)(k >> SW_LOCAL) - SW_OFS;
+    atomicMin(&keys[b0 + tid], (unsigned long long)ham << 32 |
+                                   (unsigned)(col0 + (int)(k & LOCAL_MASK)));
+  }
+  finish_tile(keys, tickets, b0, SW_ROWS, B, n_dims, out_idx, out_sim,
+              &s_last);
+}
+
+template <int KS, bool AVEC>
+int launch_sweep(const uint8_t* q, const uint8_t* am_t, void* scratch,
+                 void* idx, void* sim, int B, int Dp, int C, int n_dims,
+                 int grid_x, int grid_y, int smem, long long scratch_bytes,
+                 int sms, cudaStream_t stream) {
+  const int tiles = (B + SW_ROWS - 1) / SW_ROWS;
+  if (grid_x != tiles || grid_y != sweep_groups(B, C, sms) ||
+      smem != sweep_smem(KS) ||
+      !scratch_is(scratch, scratch_bytes, B, tiles) || grid_y > 65535)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      search_sweep<KS, AVEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_smem(KS));
+  if (attr != cudaSuccess) return (int)attr;
+  auto* keys = static_cast<unsigned long long*>(scratch);
+  auto* tickets = reinterpret_cast<unsigned*>(keys + B);
+  const bool q_vec = Dp % 16 == 0 && (uintptr_t)q % 16 == 0;
+  search_sweep<KS, AVEC>
+      <<<dim3(grid_x, grid_y), 32 * SW_WARPS, smem, stream>>>(
+          q, am_t, keys, tickets, static_cast<int32_t*>(idx),
+          static_cast<float*>(sim), B, Dp, C, n_dims, q_vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_sweep_ks(const uint8_t* q, const uint8_t* am_t, void* scratch,
+                    void* idx, void* sim, int B, int Dp, int C, int n_dims,
+                    int rows, int cols, int grid_x, int grid_y, int smem,
+                    long long scratch_bytes, int sms, cudaStream_t stream) {
+  if (rows != SW_ROWS || cols != SW_COLS || Dp > SW_MAX_DP)
+    return (int)cudaErrorInvalidValue;
+  const bool a_vec = C % 16 == 0 && (uintptr_t)am_t % 16 == 0;
+#define SWEEP(KS)                                                            \
+  (a_vec ? launch_sweep<KS, true>(q, am_t, scratch, idx, sim, B, Dp, C,      \
+                                  n_dims, grid_x, grid_y, smem,              \
+                                  scratch_bytes, sms, stream)                \
+         : launch_sweep<KS, false>(q, am_t, scratch, idx, sim, B, Dp, C,     \
+                                   n_dims, grid_x, grid_y, smem,             \
+                                   scratch_bytes, sms, stream))
+  switch ((Dp + 31) / 32) {
+    case 1: return SWEEP(1);
+    case 2: return SWEEP(2);
+    case 3: return SWEEP(3);
+    default: return SWEEP(4);
+  }
+#undef SWEEP
+}
+
 }  // namespace popcount
 
 namespace unpack {
@@ -542,15 +837,18 @@ int launch(const uint8_t* q, const uint8_t* am_t, void* scratch, void* idx,
 }  // namespace
 
 // block_b (4, 8, 16 or 32) is the rows of a query tile, rounded up to
-// whole m16 tiles; mode 0 is popcount, 1 unpack. rows, cols, grid_x,
-// grid_y, smem and scratch_bytes are the wrapper's launch plan
-// (kernels/am_search_packed.py launch_plan), refused
-// (cudaErrorInvalidValue) unless it is this launcher's own for (B, Dp, C,
-// block_b, mode) on the current device: max(16, block_b) rows; popcount,
-// popcount::block_cols columns and the ring's dynamic shared memory;
-// unpack, 128 columns and the static Smem; both, a (query tiles, column
-// splits) grid, 8 B + 4 per query tile of scratch and sms the device's SM
-// count. Returns the cudaError_t of the launch (0 on success).
+// whole m16 tiles; mode 0 is popcount's tile route, 1 unpack, 2 popcount's
+// sweep route. rows, cols, grid_x, grid_y, smem and scratch_bytes are the
+// wrapper's launch plan (kernels/am_search_packed.py launch_plan),
+// refused (cudaErrorInvalidValue) unless it is this launcher's own for
+// (B, Dp, C, block_b, mode) on the current device: tile route,
+// max(16, block_b) rows, popcount::block_cols columns and the ring's
+// dynamic shared memory; unpack, max(16, block_b) rows, 128 columns and
+// the static Smem; sweep (Dp <= 128), 128 rows, 128 columns,
+// popcount::sweep_groups column groups and popcount::sweep_smem; all, a
+// (query tiles, column splits or groups) grid, 8 B + 4 per query tile of
+// scratch and sms the device's SM count. Which route a shape takes is the
+// wrapper's rule. Returns the cudaError_t of the launch (0 on success).
 extern "C" int am_search_packed_launch(
     const void* q, const void* am_t, void* idx, void* sim, void* scratch,
     int B, int Dp, int C, int n_dims, int block_b, int mode, int rows,
@@ -579,6 +877,10 @@ extern "C" int am_search_packed_launch(
                                           scratch_bytes, s)
                       : (int)cudaErrorInvalidValue;
   }
+  if (mode == 2)
+    return popcount::launch_sweep_ks(qb, ab, scratch, idx, sim, B, Dp, C,
+                                     n_dims, rows, cols, grid_x, grid_y, smem,
+                                     scratch_bytes, sms, s);
   if (mode != 0) return (int)cudaErrorInvalidValue;
   if (block_b == 32)
     return rows == 32 ? popcount::launch<2>(qb, ab, scratch, idx, sim, B, Dp,

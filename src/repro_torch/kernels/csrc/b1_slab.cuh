@@ -1,7 +1,7 @@
 // b1_slab.cuh: the staging and fragments of a search on the 1-bit tensor
 // cores straight from packed bytes (mma.sync.m16n8k256 .b1 .and.popc),
-// which am_search_packed.cu's popcount mode and am_shortlist.cu's tile
-// route share:
+// which am_search_packed.cu's popcount tile route and am_shortlist.cu's
+// tile route share:
 // * A ring of STAGES k slabs of SLAB packed bytes (256 dims, one m16n8k256
 //   step) of both operands: the query rows, QSTR bytes apart, then the
 //   AM's SLAB byte rows of the block's columns, am_stride(cols) bytes
@@ -14,6 +14,8 @@
 //   gathered byte by byte from the slab. With P_q and P_a the popcounts of
 //   the query's and the column's bits, hamming = P_q + P_a -
 //   2 popc(q AND a), exact.
+// * The sweep route's staging and fragments, at the end: a whole column
+//   tile for ldmatrix .trans, and A fragments at any row stride.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -147,6 +149,47 @@ __device__ __forceinline__ void b_frag(uint32_t (&b)[2], const uint8_t* col,
     b[h] = (uint32_t)pb[0] | (uint32_t)pb[KW * as_ld] << 8 |
            (uint32_t)pb[2 * KW * as_ld] << 16 |
            (uint32_t)pb[3 * KW * as_ld] << 24;
+  }
+}
+
+// -- The sweep route of am_search_packed.cu's popcount mode ---------------
+// A column tile of the AM (all of Dp, 128 columns) is staged whole, byte
+// row r of each 32-byte slab (r = 16 h + 4 a + 2 b + c) at the slab's row
+// sweep_row(r) = 16 h + 8 b + 2 a + c, SWEEP_ASTR bytes apart. Then one
+// ldmatrix .x4 .trans of the slab's 32 rows (lane l gives row l) at 16
+// columns hands lane (gid, tig) four registers, each two k bytes of the
+// columns 2 gid and 2 gid + 1: rows 2 tig and 2 tig + 1 of the four 8-row
+// matrices, that is k bytes 4 tig, 4 tig + 1 (r0), 4 tig + 2, 4 tig + 3
+// (r1), and the same plus 16 (r2, r3). Two byte permutes a register pair
+// give each column its B words tig and 4 + tig in the query's byte order,
+// with no byte-by-byte gather and no shuffle.
+constexpr int SWEEP_ASTR = 144;  // 128 columns + 16: 8 rows, 8 bank groups
+
+__host__ __device__ inline int sweep_row(int r) {
+  return (r & 16) | ((r >> 1) & 1) << 3 | ((r >> 2) & 3) << 1 | (r & 1);
+}
+
+// A fragment of the m16 query tile whose 16 rows start at qs, rows
+// `stride` bytes apart: as a_frag.
+__device__ __forceinline__ void a_frag_at(uint32_t (&a)[4], const uint8_t* qs,
+                                          int lane, int stride) {
+  mma::ldmatrix_x4(a, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * stride +
+                          16 * (lane >> 4));
+}
+
+// B words of a warp's 32 columns at one k slab (slab: the stage's row 32 s
+// at the warp's first column): n8 tile 2 p + e takes column 16 p + 2 gid +
+// e of the warp as its column gid.
+__device__ __forceinline__ void sweep_b_frags(uint32_t (&b)[4][2],
+                                              const uint8_t* slab, int lane) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t r[4];
+    mma::ldmatrix_x4_trans(r, slab + lane * SWEEP_ASTR + 16 * p);
+    b[2 * p][0] = __byte_perm(r[0], r[1], 0x6420);
+    b[2 * p][1] = __byte_perm(r[2], r[3], 0x6420);
+    b[2 * p + 1][0] = __byte_perm(r[0], r[1], 0x7531);
+    b[2 * p + 1][1] = __byte_perm(r[2], r[3], 0x7531);
   }
 }
 

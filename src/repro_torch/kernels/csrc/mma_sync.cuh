@@ -111,6 +111,18 @@ __device__ __forceinline__ void mma_b1_and(int (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = popc(a AND b) over k, from a zero accumulator (no register to clear).
+__device__ __forceinline__ void mma_b1_and_init(int (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(0));
+}
+
 // d += a (16x8 tf32, row) @ b (8x8 tf32, col), f32 accumulate.
 __device__ __forceinline__ void mma_tf32(float (&d)[4],
                                          const uint32_t (&a)[4], uint32_t b0,

@@ -32,7 +32,8 @@ read it.
 the serving routes: ``serve.<method>`` (the artifacts' public serving
 methods), ``ops.<op>`` (``kernels/ops.py``) and ``launch.<kernel>`` (the
 kernel launchers). It never bridges to ``record_function``, so it adds
-no event to a capture.
+no event to a capture. ``annotate(**args)`` adds args to the innermost
+open span from inside it (``launch.am_search_packed``'s ``route``).
 
 The recorder is bounded (``max_events``, default 100k): past the cap new
 events are counted in ``dropped`` instead of stored.
@@ -92,8 +93,8 @@ class _Span:
         tracer = self.tracer
         stack = tracer._stack()
         self.span_id = next(tracer._ids)
-        self.parent_id = stack[-1] if stack else 0
-        stack.append(self.span_id)
+        self.parent_id = stack[-1].span_id if stack else 0
+        stack.append(self)
         self.annotation = (torch.profiler.record_function(self.name)
                            if self.device and capturing() else None)
         self.start = time.time_ns()
@@ -126,7 +127,7 @@ class Tracer:
 
     # -- recording ----------------------------------------------------
 
-    def _stack(self) -> List[int]:
+    def _stack(self) -> List[_Span]:
         st = getattr(self._local, "stack", None)
         if st is None:
             st = self._local.stack = []
@@ -170,7 +171,18 @@ class Tracer:
     def current_span_id(self) -> int:
         """Id of the innermost open span on this thread (0 = none)."""
         stack = self._stack()
-        return stack[-1] if stack else 0
+        return stack[-1].span_id if stack else 0
+
+    def annotate(self, **args) -> None:
+        """Add ``args`` to the innermost open span of this thread, for
+        what a function learns inside its ``traced`` span (a launcher's
+        route); nothing where nothing records or no span is open."""
+        if not (self.enabled or capturing()):
+            return
+        stack = self._stack()
+        if stack:
+            top = stack[-1]
+            top.args = {**(top.args or {}), **args}
 
     # -- export -------------------------------------------------------
 
@@ -231,4 +243,5 @@ TRACER = Tracer()
 TRACER.enabled = False
 span = TRACER.span
 traced = TRACER.traced
+annotate = TRACER.annotate
 export_chrome_trace = TRACER.export

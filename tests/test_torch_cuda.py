@@ -234,6 +234,174 @@ def test_popcount_ties_across_column_splits_at_a_served_batch(dev, b,
     assert torch.equal(got, want)
 
 
+def ref_packed_chunked(q, am_t, d):
+    """ref.am_search_packed in row chunks: it builds a (rows, Dp, C) int32
+    tensor, 210 GB at B 4,096 x C 100,000."""
+    rows = max(1, (1 << 30) // (4 * am_t.numel()))
+    parts = [ref.am_search_packed(q[i:i + rows], am_t, d)
+             for i in range(0, q.shape[0], rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def packed_operands(seed, b, d, c, dev):
+    """Random packed queries (B, Dp) and AM (Dp, C), bits past d 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dp = -(-d // 8)
+    q = torch.randint(0, 256, (b, dp), generator=g, device=dev,
+                      dtype=torch.uint8)
+    am_t = torch.randint(0, 256, (dp, c), generator=g, device=dev,
+                         dtype=torch.uint8)
+    tail = (1 << (d % 8)) - 1 if d % 8 else 255
+    q[:, -1] &= tail
+    am_t[-1] &= tail
+    return q, am_t
+
+
+def search_on_route(q, am_t, d, route, **kw):
+    """One popcount-mode call, checked through route_launches to take
+    `route`, and equal to the plain version bit for bit."""
+    before = dict(asp.am_search_packed.route_launches)
+    got = asp.am_search_packed(q, am_t, n_dims=d, **kw)
+    after = asp.am_search_packed.route_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        "tile": int(route == "tile"), "sweep": int(route == "sweep")}
+    want = ref_packed_chunked(q, am_t, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+def sms_of(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("b,d,c", [(4096, 1024, 100_000), (300, 100, 50_000),
+                                   (257, 1024, 100_000), (1000, 500, 30_001),
+                                   (129, 777, 100_000), (4096, 1024, 1024)])
+def test_sweep_route_equals_the_plain_version(dev, b, d, c):
+    """Shapes the rule sends to the sweep route: the benchmark's B 4,096 x
+    D 1,024 x C 100,000, ragged B (not a multiple of 128), ragged C (not a
+    multiple of 128 nor of a column group), D = 100 (Dp 13), 500 and 777,
+    and B 4,096 x C 1,024 (two groups of four tiles);
+    on random columns and on an AM whose second half repeats its first
+    (every best tied with a later copy), at every block_b."""
+    q, am_t = packed_operands(33, b, d, c, dev)
+    assert asp.launch_plan(b, q.shape[1], c, 8, "popcount",
+                           sms_of(dev))["route"] == "sweep"
+    search_on_route(q, am_t, d, "sweep")
+    half = c // 2
+    am_t[:, half:2 * half] = am_t[:, :half]
+    for block_b in asp.BLOCK_B_CHOICES:
+        search_on_route(q, am_t, d, "sweep", block_b=block_b)
+
+
+def test_sweep_route_ties_lowest_index_wins(dev):
+    """Exact copies of a query (Hamming 0) planted inside one lane's walk
+    (two n8 tiles of one column tile, and a later tile of the group),
+    across the column warps of a block, and across column groups (the
+    last column of one group and the first of the next, and groups far
+    apart): the lowest index wins each time."""
+    b, d, c = 256, 1024, 100_000
+    q, am_t = packed_operands(34, b, d, c, dev)
+    plan = asp.launch_plan(b, d // 8, c, 8, "popcount", sms_of(dev))
+    assert plan["route"] == "sweep"
+    groups, ct = plan["groups"], -(-c // 128)
+    assert groups >= 8
+    first = [g * ct // groups * 128 for g in range(groups)]
+    want = {}
+    for r in range(60):
+        g, kind = r % (groups - 4), r % 4
+        base = first[g] + 128 * (r % 2)
+        lane = 32 * (r % 4) + 4 * (r % 3)     # warp r % 4, tig r % 3
+        if kind == 0:    # one lane: p 1 and p 0 of a tile, a later tile
+            cols = (base + lane + 16 + 3, base + lane + 1,
+                    base + 256 + lane)
+        elif kind == 1:  # column warps 3, 2 and 0 of one tile
+            cols = (base + 96 + r % 32, base + 64 + r % 32, base + r % 32)
+        elif kind == 2:  # a group's last column and the next one's first
+            cols = (first[g + 1], first[g + 1] - 1)
+        else:            # groups g + 3, g + 1 and g
+            cols = (first[g + 3] + 7, first[g + 1] + 300, first[g] + 9)
+        for col in cols:
+            am_t[:, col] = q[r]
+        want[r] = min(cols)
+    idx, sim = search_on_route(q, am_t, d, "sweep")
+    for r, col in want.items():
+        assert int(idx[r]) == col and float(sim[r]) == d
+
+
+@pytest.mark.parametrize("b,c", [(1024, 1024), (32, 1024), (1, 100_000),
+                                 (256, 1024)])
+def test_tile_route_keeps_its_shapes(dev, b, c):
+    """B = C = 1024, a served B = 32, B = 1 over 100,000 columns and B 256
+    x C 1,024 stay on the tile route, at every block_b."""
+    q, am_t = packed_operands(35, b, 1024, c, dev)
+    for block_b in asp.BLOCK_B_CHOICES:
+        search_on_route(q, am_t, 1024, "tile", block_b=block_b)
+
+
+def test_sweep_fold_scratch_is_left_all_ones(dev):
+    """Sweep launches leave the stream's fold scratch all ones, between
+    tile-route and unpack-mode launches of other B with no memset."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b, d, c, route in ((300, 1024, 50_000, "sweep"),
+                           (70, 1024, 50_000, "tile"),
+                           (4096, 100, 40_000, "sweep"),
+                           (129, 1024, 100_000, "sweep")):
+        q, am_t = packed_operands(36, b, d, c, dev)
+        search_on_route(q, am_t, d, route)
+        assert bool((asp.fold_scratch(dev, stream, 0) == 255).all())
+        got = asp.am_search_packed(q, am_t, n_dims=d, mode="unpack")
+        want = ref_packed_chunked(q, am_t, d)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool((asp.fold_scratch(dev, stream, 0) == 255).all())
+
+
+@pytest.mark.parametrize("field", ["rows", "cols", "grid_x", "grid_y",
+                                   "smem", "scratch_bytes", "sms"])
+@pytest.mark.parametrize("delta", [1, -1])
+def test_sweep_launcher_refuses_another_plan(dev, monkeypatch, field, delta):
+    """The launcher refuses a sweep plan with any field off by one; the
+    refused launch drops the stream's fold scratch, and the next launch
+    equals the plain version."""
+    b, d, c = 300, 1024, 50_000
+    q, am_t = packed_operands(37, b, d, c, dev)
+    plan = asp.launch_plan(b, d // 8, c, 8, "popcount", sms_of(dev))
+    assert plan["route"] == "sweep"
+    bad = dict(plan)
+    if field.startswith("grid"):
+        i = field == "grid_y"
+        bad["grid"] = tuple(v + delta * (k == i)
+                            for k, v in enumerate(plan["grid"]))
+    else:
+        bad[field] = plan[field] + delta
+    monkeypatch.setattr(asp, "launch_plan", lambda *a: bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        asp.am_search_packed(q, am_t, n_dims=d)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert (q.device, stream) not in asp._SCRATCH
+    monkeypatch.undo()
+    search_on_route(q, am_t, d, "sweep")
+
+
+def test_launch_span_carries_the_route(dev):
+    """The launch.am_search_packed span's args name the route."""
+    from repro_torch.obs import trace
+    tr = trace.TRACER
+    was = tr.enabled
+    tr.reset()
+    tr.enabled = True
+    try:
+        for b, c in ((300, 50_000), (32, 1024)):
+            q, am_t = packed_operands(38, b, 1024, c, dev)
+            asp.am_search_packed(q, am_t, n_dims=1024)
+        events = [e for e in tr.events()
+                  if e.name == "launch.am_search_packed"]
+    finally:
+        tr.enabled = was
+        tr.reset()
+    assert [e.args["route"] for e in events] == ["sweep", "tile"]
+
+
 @pytest.mark.parametrize("b,f,d,c", GEOMS)
 def test_am_search_with_ties_and_views(dev, b, f, d, c):
     """±1 queries take the int8 route and dyadic float queries the fp32

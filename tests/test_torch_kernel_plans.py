@@ -611,6 +611,310 @@ def test_unpack_fragments_give_the_hamming_distance(d):
     assert np.array_equal(pop - acc, ham)
 
 
+# -- am_search_packed, popcount mode's sweep route ----------------------------
+
+TUNER_GEOMETRIES = ((128, 128), (256, 256), (1024, 1024))  # (D, C)
+
+
+@pytest.mark.parametrize("b,d,c,route", [
+    (4096, 1024, 100_000, "sweep"), (1024, 1024, 100_000, "sweep"),
+    (256, 1024, 100_000, "sweep"), (128, 1024, 100_000, "sweep"),
+    (300, 100, 50_000, "sweep"), (4096, 1024, 1024, "sweep"),
+    (2048, 1024, 1024, "tile"), (1024, 1024, 1024, "tile"),
+    (300, 1024, 5000, "tile"), (1024, 1024, 2047, "tile"),
+    (32, 1024, 1024, "tile"), (1, 1024, 100_000, "tile"),
+    (127, 1024, 100_000, "tile"), (256, 1024, 1024, "tile"),
+    (128, 1024, 2048, "tile"), (128, 1024, 16_384, "tile"),
+    (4096, 1032, 100_000, "tile"), (4096, 8192, 100_000, "tile")])
+def test_popcount_route_follows_the_shape(b, d, c, route):
+    """The route comes from (B, Dp, C, sms) alone, at every block_b: the
+    sweep at the benchmark's B 4,096 x C 100,000 and wherever 128-row
+    query tiles of D <= 1024 meet 2^21 (row, column) pairs or more with a
+    grid of a quarter of the SMs (B 4,096 x C 1,024 among them); the tile
+    route at B = C = 1024, a served B = 32, B = 1, B 256 x C 1,024,
+    grids under a quarter of the SMs (B 2,048 x C 1,024: 16 x 2 blocks;
+    B 128 x C 16,384: 1 x 32) and D > 1024."""
+    for block_b in asp.BLOCK_B_CHOICES:
+        pl = asp.launch_plan(b, -(-d // 8), c, block_b, "popcount",
+                             H100_SMS)
+        assert pl["route"] == route
+        assert asp.popcount_route(b, -(-d // 8), c, H100_SMS) == route
+        if route == "tile":
+            assert pl == asp.tile_plan(b, -(-d // 8), c, block_b, H100_SMS)
+        else:
+            assert pl == asp.sweep_plan(b, -(-d // 8), c, H100_SMS)
+
+
+@pytest.mark.parametrize("d,c", TUNER_GEOMETRIES)
+def test_popcount_tuner_geometries_stay_on_the_tile_route(d, c):
+    """The autotuner's three geometries, at the batches it times, keep
+    the tile route (``block_b`` keeps its meaning there)."""
+    from repro_torch.kernels import autotune
+    assert {"D": d, "C": c} in autotune.DEFAULT_GEOMETRIES[
+        "am_search_packed"]
+    for b in autotune.KERNELS["am_search_packed"].batches:
+        for block_b in asp.BLOCK_B_CHOICES:
+            assert asp.launch_plan(b, d // 8, c, block_b, "popcount",
+                                   H100_SMS)["route"] == "tile"
+
+
+def _group_tiles(c, groups):
+    """search_sweep's column groups: group g walks column tiles
+    [g ct // G, (g + 1) ct // G)."""
+    ct = -(-c // 128)
+    return [(g * ct // groups, (g + 1) * ct // groups)
+            for g in range(groups)]
+
+
+@pytest.mark.parametrize("b,c", [(128, 2048), (129, 100_000),
+                                 (256, 100_000), (1023, 50_001),
+                                 (4096, 100_000), (4097, 99_999),
+                                 (20_000, 100_000), (300, 1_100_000)])
+@pytest.mark.parametrize("dp", [13, 63, 98, 128])
+def test_sweep_grid_covers_b_and_groups_partition_c_in_order(b, c, dp):
+    """Sweep plan: query tiles of 128 rows cover B; the column groups are
+    contiguous runs of 128-column tiles, in order, none empty, that
+    together cover C once; each walks 4 tiles at least (where C has them)
+    and at most 8,191, so a key's column fits its 20 bits; the grid is
+    one wave of the SMs where the query tiles leave room; the scratch is
+    a uint64 key per query and a ticket word per query tile."""
+    pl = asp.sweep_plan(b, dp, c, H100_SMS)
+    tiles, groups = pl["grid"]
+    assert pl["rows"] == 128 and pl["cols"] == 128 and pl["warps"] == 8
+    assert tiles * 128 >= b > (tiles - 1) * 128
+    assert pl["groups"] == groups == asp.sweep_groups(b, c, H100_SMS)
+    ct = -(-c // 128)
+    runs = _group_tiles(c, groups)
+    assert runs[0][0] == 0 and runs[-1][1] == ct
+    assert all(lo < hi for lo, hi in runs)
+    assert all(runs[i][1] == runs[i + 1][0] for i in range(groups - 1))
+    assert min(hi - lo for lo, hi in runs) >= min(4, ct)
+    assert max(hi - lo for lo, hi in runs) * 128 < 1 << 20
+    assert tiles * groups <= max(H100_SMS, tiles * -(-ct // 8191))
+    assert pl["scratch_bytes"] == 8 * b + 4 * tiles
+
+
+@pytest.mark.parametrize("dp", [1, 13, 32, 33, 64, 98, 128])
+def test_sweep_shared_memory_fits_an_h100_block(dp):
+    """The query tile (128 rows of 32 ks + 16 bytes), a 4-stage ring of
+    whole column tiles (32 ks rows of 144 bytes) and the four column
+    warps' uint32 keys of each row, ks = ceil(Dp / 32): 94,208 bytes at
+    D = 1024, under the 227 KB (232,448 bytes) a block may opt into; one
+    block of 8 warps per SM."""
+    ks = -(-dp // 32)
+    pl = asp.sweep_plan(4096, dp, 100_000, H100_SMS)
+    assert pl["smem"] == 128 * (32 * ks + 16) + 4 * 32 * ks * 144 + 2048
+    assert pl["smem"] <= SMEM_LIMIT
+    assert asp.sweep_plan(4096, 128, 100_000, H100_SMS)["smem"] == 94208
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132, 144, 10_000])
+def test_sweep_plan_follows_the_devices_sm_count(sms):
+    """The column groups are picked for the SM count the plan is made for:
+    sms // query tiles, at least one and at most a 4-tile walk each; the
+    route needs a quarter of the device's SMs in the grid."""
+    for b, c in ((4096, 100_000), (256, 100_000), (1024, 100_000),
+                 (128, 20_000)):
+        pl = asp.sweep_plan(b, 128, c, sms)
+        tiles, ct = -(-b // 128), -(-c // 128)
+        assert pl["sms"] == sms
+        assert pl["groups"] == max(1, min(sms // tiles, ct // 4))
+        blocks = tiles * pl["groups"]
+        route = asp.popcount_route(b, 128, c, sms)
+        assert route == ("sweep" if 4 * blocks >= sms else "tile")
+    assert asp.sweep_plan(4096, 128, 100_000, 132)["grid"] == (32, 4)
+    assert asp.sweep_plan(256, 128, 100_000, 132)["grid"] == (2, 66)
+
+
+def _prmt(x, y, sel):
+    """__byte_perm(x, y, sel): byte j of the result is byte sel[j] of the
+    eight bytes of y:x (x bytes 0-3)."""
+    src = np.stack([(x >> np.uint32(8 * i)) & np.uint32(0xff)
+                    for i in range(4)]
+                   + [(y >> np.uint32(8 * i)) & np.uint32(0xff)
+                      for i in range(4)])
+    out = np.zeros_like(x)
+    for j in range(4):
+        out |= src[(sel >> (4 * j)) & 7] << np.uint32(8 * j)
+    return out
+
+
+def _words(b4):
+    """(32, 4) bytes -> (32,) little-endian uint32."""
+    return np.ascontiguousarray(b4.astype(np.uint8)).view("<u4")[:, 0]
+
+
+def _mma_b1(a, b):
+    """mma.sync.m16n8k256 .and.popc on the lanes' fragments: A (16 rows x
+    8 words) from a[0..3], B (8 words x 8 columns) from b[0..1]; returns
+    the four accumulator entries of each lane."""
+    lanes = np.arange(32)
+    gid, tig = lanes >> 2, lanes & 3
+    am = np.zeros((16, 8), np.uint32)
+    bm = np.zeros((8, 8), np.uint32)
+    am[gid, tig], am[gid + 8, tig] = a[0], a[1]
+    am[gid, 4 + tig], am[gid + 8, 4 + tig] = a[2], a[3]
+    bm[tig, gid], bm[4 + tig, gid] = b[0], b[1]
+    dm = _popc(am[:, :, None] & bm[None, :, :]).sum(1)
+    return [dm[gid, 2 * tig], dm[gid, 2 * tig + 1], dm[gid + 8, 2 * tig],
+            dm[gid + 8, 2 * tig + 1]]
+
+
+def _sweep_block(q, am_t, b0, t0, n_t):
+    """A model of one search_sweep block, lane by lane: the query tile
+    (rows b0 ..) and the A fragments by ldmatrix, each column tile of the
+    group (tiles t0 ..) staged at sweep_row, the B words by ldmatrix
+    .trans and two byte permutes, P_a from an all-ones A, the 32-bit keys
+    with a three-way min, then the four lanes, the four column warps and
+    the 64-bit key of each row. Returns {row: (hamming, idx)}."""
+    b, dp = q.shape
+    c = am_t.shape[1]
+    ks = -(-dp // 32)
+    qs_ld, astr = 32 * ks + 16, 144
+    qt = np.zeros((128, qs_ld), np.uint8)
+    n = max(0, min(128, b - b0))
+    qt[:n, :dp] = q[b0:b0 + n]
+    lanes = np.arange(32)
+    gid, tig = lanes >> 2, lanes & 3
+    u = np.uint32
+    red = np.full((4, 128), 0xffffffff, np.uint32)
+    col0 = 128 * t0
+    rows_of = {}
+    for warp in range(8):
+        wm, wn = warp >> 2, warp & 3
+        a = {}
+        for mi in range(4):
+            for s in range(ks):
+                base = 64 * wm + 16 * mi
+                regs = []
+                for m in range(4):  # ldmatrix .x4: lanes 8m .. 8m + 7
+                    r = base + 8 * (m & 1) + gid
+                    cb = 32 * s + 16 * (m >> 1) + 4 * tig
+                    regs.append(_words(np.stack(
+                        [qt[r, cb + i] for i in range(4)], 1)))
+                a[mi, s] = regs
+        best = np.full((4, 2, 32), 0xffffffff, np.uint32)
+        for t in range(n_t):
+            stage = np.zeros((32 * ks, astr), np.uint8)
+            c_t = col0 + 128 * t
+            for kb in range(min(dp, 32 * ks)):
+                row = (kb & ~31) + int(_sweep_row(kb & 31))
+                part = am_t[kb, c_t:c_t + 128]
+                stage[row, :part.shape[0]] = part
+            acc = {}
+            pa = {}
+            for s in range(ks):
+                bq = {}
+                for p in range(2):
+                    regs = []
+                    for m in range(4):  # .trans: lane l gives row 32 s + l
+                        mat = stage[32 * s + 8 * m:32 * s + 8 * m + 8,
+                                    32 * wn + 16 * p:32 * wn + 16 * p + 16]
+                        regs.append(_words(np.stack(
+                            [mat[2 * tig, 2 * gid], mat[2 * tig, 2 * gid + 1],
+                             mat[2 * tig + 1, 2 * gid],
+                             mat[2 * tig + 1, 2 * gid + 1]], 1)))
+                    bq[2 * p] = (_prmt(regs[0], regs[1], 0x6420),
+                                 _prmt(regs[2], regs[3], 0x6420))
+                    bq[2 * p + 1] = (_prmt(regs[0], regs[1], 0x7531),
+                                     _prmt(regs[2], regs[3], 0x7531))
+                ones = [np.full(32, 0xffffffff, np.uint32)] * 4
+                for ni in range(4):
+                    d1 = _mma_b1(ones, bq[ni])
+                    pa[ni] = [x + pa.get(ni, [0] * 4)[i]
+                              for i, x in enumerate(d1)]
+                    for mi in range(4):
+                        d2 = _mma_b1(a[mi, s], bq[ni])
+                        acc[mi, ni] = [x + acc.get((mi, ni), [0] * 4)[i]
+                                       for i, x in enumerate(d2)]
+            kt = u((1024 << 20) + 128 * t + 32 * wn) + (4 * tig).astype(u)
+            cl = c_t + 32 * wn + 4 * tig
+            kc = {}
+            for ni in range(4):
+                for j in range(2):
+                    off = 16 * (ni >> 1) + 2 * j + (ni & 1)
+                    k = (pa[ni][j].astype(u) << u(20)) + kt + u(off)
+                    kc[ni, j] = np.where(cl + off >= c, u(0xffffffff), k)
+            for mi in range(4):
+                for ni in range(4):
+                    for h in range(2):
+                        k0 = kc[ni, 0] - (acc[mi, ni][2 * h].astype(u) << u(21))
+                        k1 = kc[ni, 1] - (acc[mi, ni][2 * h + 1].astype(u)
+                                          << u(21))
+                        best[mi, h] = np.minimum(best[mi, h],
+                                                 np.minimum(k0, k1))
+        for mi in range(4):
+            for h in range(2):
+                v = best[mi, h]
+                v = np.minimum(v, v[lanes ^ 1])
+                v = np.minimum(v, v[lanes ^ 2])
+                for g in range(8):
+                    red[wn, 64 * wm + 16 * mi + 8 * h + g] = v[4 * g]
+    for r in range(n):
+        k = int(red[:, r].min())
+        pq = int(_popc(qt[r]).sum())
+        rows_of[b0 + r] = (pq + (k >> 20) - 1024, col0 + (k & 0xfffff))
+    return rows_of
+
+
+def _sweep_row(r):
+    """b1_slab.cuh sweep_row: slab byte row 16 h + 4 a + 2 b + c at row
+    16 h + 8 b + 2 a + c."""
+    return (r & 16) | ((r >> 1) & 1) << 3 | ((r >> 2) & 3) << 1 | (r & 1)
+
+
+def test_sweep_rows_put_each_lanes_k_bytes_in_order():
+    """sweep_row is a permutation of a slab's 32 byte rows such that an
+    ldmatrix .x4 .trans of rows 0-31 gives lane tig the k bytes 4 tig +
+    (0, 1), (2, 3), 16 + 4 tig + (0, 1), (2, 3) from its four matrices'
+    rows 2 tig, 2 tig + 1; and 8 consecutive rows of 144 bytes lie in 8
+    distinct 16-byte bank groups."""
+    perm = [_sweep_row(r) for r in range(32)]
+    assert sorted(perm) == list(range(32))
+    inv = {p: r for r, p in enumerate(perm)}
+    for tig in range(4):
+        for m in range(4):
+            got = [inv[8 * m + 2 * tig], inv[8 * m + 2 * tig + 1]]
+            want = [16 * (m >> 1) + 4 * tig + 2 * (m & 1) + i
+                    for i in range(2)]
+            assert got == want
+    assert len({(r * 144 // 16) % 8 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("d", [100, 500, 1024])
+def test_sweep_block_model_gives_the_first_wins_winner(d):
+    """The model of one search_sweep block (``_sweep_block``) over a group
+    of two column tiles that starts at the AM's second tile and ends
+    ragged (C 328), for a ragged query tile (B 100): every row's
+    (hamming, idx) is the plain version's over the group's columns, with
+    exact copies planted inside one lane's walk (tiles 0 and 1, and two n8
+    tiles of one tile), across column warps and across the two tiles."""
+    rng = np.random.default_rng([33, d])
+    dp, b, c = -(-d // 8), 100, 328
+    tail = np.uint8((1 << (d % 8)) - 1) if d % 8 else np.uint8(255)
+    q = rng.integers(0, 256, (b, dp), dtype=np.uint8)
+    am_t = rng.integers(0, 256, (dp, c), dtype=np.uint8)
+    q[:, -1] &= tail
+    am_t[-1] &= tail
+    g0 = 128   # the group's first column
+    plant = {0: (g0 + 128 + 5, g0 + 5),            # one lane, two tiles
+             1: (g0 + 40, g0 + 10),                # column warps 1 and 0
+             2: (g0 + 17, g0 + 16),                # one lane, n8 tiles 1, 0
+             3: (g0 + 199, g0 + 130, g0 + 131),    # the ragged tile
+             4: (c - 1, g0 + 127)}                 # the last column
+    for r, cols in plant.items():
+        for col in cols:
+            am_t[:, col] = q[r]
+    got = _sweep_block(q, am_t, 0, 1, 2)
+    bits_q = np.unpackbits(q, axis=1, bitorder="little")
+    bits_a = np.unpackbits(am_t[:, g0:].T, axis=1, bitorder="little")
+    ham = (bits_q[:, None, :] != bits_a[None, :, :]).sum(-1)
+    for r in range(b):
+        assert got[r] == (int(ham[r].min()), g0 + int(ham[r].argmin()))
+    for r, cols in plant.items():
+        assert got[r] == (0, min(cols))
+
+
 # -- am_search_sparse ------------------------------------------------------
 
 @pytest.mark.parametrize("dp,rows,chunks", [(1, 4, 1), (13, 16, 1),

@@ -179,6 +179,34 @@ def test_an_off_tracer_records_nothing_and_bridges_nothing(monkeypatch):
     assert tr.events() == [] and bridges == []
 
 
+def test_annotate_adds_args_to_the_innermost_open_span():
+    """``annotate`` adds args to the innermost open span (what a launcher
+    learns inside its ``traced`` span: the packed search's route), keeps
+    the span's own args, and does nothing with no span open or with the
+    tracer off."""
+    tr = ttrace.Tracer()
+
+    def launch(rows):
+        tr.annotate(route="sweep")
+        return len(rows)
+
+    call = tr.traced("launch.k", batch_arg=0)(launch)
+    tr.annotate(route="none")           # no span open: nothing
+    with tr.span("outer", gen=2):
+        assert call([1, 2, 3]) == 3
+        tr.annotate(step=7)
+    inner, outer = tr.events()
+    assert (inner.name, inner.args) == ("launch.k",
+                                        {"rows": 3, "route": "sweep"})
+    assert inner.parent_id == outer.span_id
+    assert (outer.name, outer.args) == ("outer", {"gen": 2, "step": 7})
+    tr.reset()
+    tr.enabled = False
+    with tr.span("off"):
+        tr.annotate(route="tile")
+    assert call([1]) == 1 and tr.events() == []
+
+
 def test_a_capture_records_the_spans_of_an_off_tracer():
     from torch.profiler import ProfilerActivity, profile
     tr = ttrace.Tracer()
