@@ -5,11 +5,12 @@
 one JSON line. Everything a cell needs is found by name under this folder:
 ``workloads/<cell>.json`` names a configuration (``configs/``) and a
 traffic mix (``traffic/``), whose ``kind`` is the loop that serves it
-(``loops/``); the configuration names the maker of its weights and
-features (``inputs/``) and holds deploy options, typed by ``options/``;
-the mix's route names the plain reference of the served answers
-(``reference/<target>.py``); a per-layer metric is the reader
-``metrics/<name>.py`` and a kernel's operations and bytes are
-``counts/<kernel>.py``. Nothing here imports jax or the JAX
-package ``repro``; ``reference/`` imports nothing of ``repro_torch``.
+(``loops/``); the configuration names its program (``programs/``, MEMHD
+where it names none) and the maker of its weights and input rows
+(``inputs/``) and holds deploy options, typed by ``options/``; the mix's
+route names the plain reference of the served answers, which also judges
+when a row agrees (``reference/<target>.py``); a per-layer metric is the
+reader ``metrics/<name>.py`` and a kernel's operations and bytes are
+``counts/<kernel>.py``. Nothing here imports jax or the JAX package
+``repro``; ``reference/`` imports nothing of ``repro_torch``.
 """

@@ -4,12 +4,12 @@
         [--seconds 3] [--out FILE]
 
 For each seed it makes a whole run of the cell (``harness.run``), with
-the plain reference, its float32 products in TF32, the nearest precision
-below the one the configurations state, put in the program's place. The
-run's own check then has to come out not correct. One JSON line a seed on
-standard output (and appended to ``--out``): ``correct``, the rows the
-check counted wrong and the rows it checked. The benchmark's own runs do
-not run this.
+the plain reference one precision lower than the one the configuration
+states (``lower=True``: TF32 products for a float32 configuration) put
+in the program's place. The run's own check then has to come out not
+correct. One JSON line a seed on standard output (and appended to
+``--out``): ``correct``, the rows the check counted wrong and the rows
+it checked. The benchmark's own runs do not run this.
 """
 import time
 
@@ -25,7 +25,8 @@ CHECKOUT = Path(__file__).resolve().parent.parent
 
 def run(name: str, seed: int, seconds: float, *, t_start=None,
         root=None, device: str = "cuda", strict: bool = True) -> dict:
-    """A run of the cell with the TF32 reference serving the window."""
+    """A run of the cell with the reference one precision lower serving
+    the window."""
     from perfbench import harness
 
     return harness.run(name, seed, seconds, False, t_start=t_start,

@@ -3,10 +3,13 @@
 A mix file names its ``kind``, and the loop of that kind is the module
 ``loops/<kind>.py``, found by name: its ``run(call, pool, mix, seconds,
 on_back, like, *, trace_seconds)`` serves the mix's batches of the
-device-resident feature ``pool`` through ``call`` for ``seconds``, hands
-each batch's answers on the host to ``on_back(slot, outputs)``, and
+device-resident ``pool`` of input rows through ``call`` for ``seconds``,
+hands each batch's answers on the host to ``on_back(slot, outputs)``, and
 returns a ``Window``: what it measured on the host's clock, the
 end-to-end readings among it. A new kind of traffic is a new file there.
+
+A row is one input of the cell's call: for MEMHD one feature row, for a
+language model one sequence at the lengths its traffic file states.
 
 ``ragged_requests`` is the ragged request stream of the program's serving
 CLI (``launch/serve_memhd.synthetic_requests``), kept here for a mix of

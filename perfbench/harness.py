@@ -2,18 +2,18 @@
 
 ``run(name, seed, seconds, trace)`` resolves the cell by name
 (``workloads/<name>.json``, its ``configs/`` and ``traffic/`` files),
-makes the inputs from the seed on the device, builds and deploys the
-program's model from them, warms the batch shape up, runs the window
-with the loop of the mix's kind (``loops/<kind>.py``) and then checks
-every pool row the window served against the plain reference
-(``reference/<target>.py``), after the program's state is freed. It
-returns the result line's fields; ``run.py`` prints them.
+makes the inputs from the seed on the device, deploys the
+configuration's program (``programs/<name>.py``) from them, warms the
+batch shape up, runs the window with the loop of the mix's kind
+(``loops/<kind>.py``) and then checks every pool row the window served
+against the plain reference (``reference/<target>.py``), which also
+decides when a row's answers agree, after the program's state is freed.
+It returns the result line's fields; ``run.py`` prints them.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
-import inspect
 import json
 import time
 from pathlib import Path
@@ -45,6 +45,11 @@ class Cell:
         return self.traffic["route"]
 
     @property
+    def program(self) -> str:
+        """The program family that serves the cell (``programs/``)."""
+        return self.config.get("program", "memhd")
+
+    @property
     def deploy_opts(self) -> dict:
         """The configuration's options for the route's deploy target."""
         return dict(self.config.get("deploy", {}).get(self.route["target"],
@@ -67,13 +72,15 @@ def benchmark_metrics(root: Path, cell: str, kind: str) -> list:
 
 class Answers:
     """The first answer the window returned for each pool row, and which
-    rows ever came back different from it. A batch equal to its slot's
-    first answers byte for byte costs one comparison of bytes."""
+    rows ever came back different from it by ``differ`` (the reference's
+    ``rows_differ``). A batch equal to its slot's first answers byte for
+    byte costs one comparison of bytes."""
 
-    def __init__(self, n_slots: int):
+    def __init__(self, n_slots: int, differ):
         self.first = [None] * n_slots
         self.first_bytes = [None] * n_slots
         self.changed = [None] * n_slots
+        self.differ = differ
 
     def add(self, slot: int, host) -> None:
         outs = [h.numpy() for h in host]
@@ -84,19 +91,32 @@ class Answers:
             return
         for o, f, fb in zip(outs, self.first[slot], self.first_bytes[slot]):
             if o.tobytes() != fb:
-                self.changed[slot] |= _rows_differ(o, f)
+                self.changed[slot] |= self.differ(o, f)
 
 
 def _rows_differ(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Rows of one answer that are not equal element for element."""
     d = a != b
     return d.reshape(d.shape[0], -1).any(axis=1)
 
 
+def judge(ref):
+    """How the reference module ``ref`` judges one answer, ``(got, want)
+    -> (rows,) bool``, true where a row differs: its own ``rows_differ``
+    or, where it defines none, exact equality.
+
+    A reference that defines ``rows_differ`` states its tolerance beside
+    the reason for it, and its control (the reference one precision
+    lower, ``lower=True``) must still fail that tolerance.
+    """
+    return getattr(ref, "rows_differ", _rows_differ)
+
+
 @dataclasses.dataclass
 class Setup:
-    inputs: object        # inputs.Inputs
-    pool: torch.Tensor    # (pool_rows, f) feature rows
-    call: object          # (rows, f) -> tuple of answers
+    inputs: object        # what inputs/<name>.py built
+    pool: torch.Tensor    # (pool_rows, ...) input rows
+    call: object          # a batch of input rows -> tuple of answers
     like: tuple           # one call's answers (shapes, types)
     seconds: float        # set-up time, process start to here
     parts: dict           # seconds of each part of the set-up
@@ -104,7 +124,8 @@ class Setup:
 
 def make_inputs(cell: Cell, seed: int, device: torch.device,
                 root: Path = ROOT) -> tuple:
-    """(the configuration's ``Inputs``, the feature pool), from the seed."""
+    """(the configuration's inputs, the pool of input rows), from the
+    seed."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     cfg = cell.config
@@ -115,47 +136,24 @@ def make_inputs(cell: Cell, seed: int, device: torch.device,
 
 
 def deploy(cell: Cell, inputs, seed: int, root: Path = ROOT):
-    """The program's model of ``inputs``, deployed for the cell's route:
-    a callable from a batch of feature rows to the tuple of answers."""
-    from repro_torch.core import am as am_lib
-    from repro_torch.core.memhd import MemhdModel
-    from repro_torch.core.types import EncoderConfig, MemhdConfig
-    from repro_torch.deploy import registry
-
-    cfg, route = cell.config, cell.route
-    enc = EncoderConfig(kind=cfg["encoder"], features=cfg["features"],
-                        dim=cfg["dim"], binarize_query=cfg["binarize_query"])
-    amc = MemhdConfig(dim=cfg["dim"], columns=cfg["columns"],
-                      classes=cfg["classes"], threshold=cfg["threshold"])
-    model = MemhdModel({"projection": inputs.projection},
-                       am_lib.make_am_state(inputs.am, inputs.owners,
-                                            amc.threshold), enc, amc)
-    opts = {}
-    for key, value in cell.deploy_opts.items():
-        typed = trace.load_module(root, "options", key)
-        opts[key] = typed.make(value) if typed else value
-    if "seed" in inspect.signature(registry.get_backend(
-            route["target"])).parameters:
-        opts["seed"] = seed
-    artifact = model.deploy(target=route["target"], **opts)
-    method, kwargs = getattr(artifact, route["call"]), route.get("kwargs", {})
-
-    def call(x):
-        out = method(x, **kwargs)
-        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
-
-    return call
+    """The configuration's program, deployed from ``inputs`` for the
+    cell's route by ``programs/<cell.program>.py``: a callable from a
+    batch of pool rows to the tuple of answers."""
+    program = trace.load_module(root, "programs", cell.program)
+    if program is None:
+        raise ValueError(f"no program {cell.program!r}")
+    return program.deploy(cell, inputs, seed, root)
 
 
 def control_call(cell: Cell, inputs, seed: int, root: Path = ROOT):
     """The control, a serving call to stand in the program's place: the
-    plain reference with its float32 products in TF32, the nearest
-    precision below the one the configurations state."""
+    plain reference one precision lower (``lower=True``) than the one the
+    configuration states; TF32 products for a float32 configuration."""
     ref = trace.load_module(root, "reference", cell.route["target"])
     state = ref.prepare(inputs, cell.deploy_opts, seed)
 
     def call(x):
-        return ref.answers(state, x, cell.route, tf32=True)[0]
+        return ref.answers(state, x, cell.route, lower=True)[0]
 
     return call
 
@@ -197,8 +195,9 @@ def check(cell: Cell, s: Setup, answers: Answers, seed: int,
           root: Path = ROOT) -> tuple[int, int, list]:
     """(rows wrong, rows checked, the reference's work a pool slot): a
     pool row is wrong when any answer the window returned for it differs
-    from the reference's."""
+    from the reference's, as the reference's ``rows_differ`` judges."""
     ref = trace.load_module(root, "reference", cell.route["target"])
+    differ = judge(ref)
     state = ref.prepare(s.inputs, cell.deploy_opts, seed)
     rows = cell.traffic["batch_rows"]
     wrong = checked = 0
@@ -210,7 +209,7 @@ def check(cell: Cell, s: Setup, answers: Answers, seed: int,
             state, s.pool[slot * rows:(slot + 1) * rows], cell.route)
         bad = answers.changed[slot].copy()
         for got, w in zip(first, want):
-            bad |= _rows_differ(got, w.cpu().numpy())
+            bad |= differ(got, w.cpu().numpy())
         wrong += int(bad.sum())
         checked += rows
     return wrong, checked, works
@@ -243,7 +242,8 @@ def run(name: str, seed: int, seconds: float, traced: bool, *,
     s = setup(cell, seed, dev, t_start, root, make_call)
     mix = cell.traffic
     n_slots = mix["pool_rows"] // mix["batch_rows"]
-    answers = Answers(n_slots)
+    answers = Answers(n_slots, judge(trace.load_module(
+        root, "reference", cell.route["target"])))
     builds = torchmon.rebuilds()
     win = generator.loop(root, mix["kind"]).run(
         s.call, s.pool, mix, seconds, answers.add, s.like,

@@ -1,9 +1,11 @@
 """``closed_bulk``: a closed loop over a device-resident pool of rows.
 
-The pool of ``pool_rows`` feature rows is cut into batches of
-``batch_rows`` taken in order (batch i is pool slot i mod pool_rows /
-batch_rows, so every seed serves the same sizes in the same order), with
-up to ``in_flight`` batches dispatched and not yet back. Each batch's
+The pool of ``pool_rows`` input rows (a row is one input of the cell's
+call: a feature row for MEMHD, for a language model one sequence at the
+lengths its traffic file states) is cut into batches of ``batch_rows``
+taken in order (batch i is pool slot i mod pool_rows / batch_rows, so
+every seed serves the same sizes in the same order), with up to
+``in_flight`` batches dispatched and not yet back. Each batch's
 answers are copied to pinned host memory behind its call and a CUDA event
 is recorded behind the copy; the oldest batch is drained on its event
 before the next is dispatched.

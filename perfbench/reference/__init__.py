@@ -4,15 +4,18 @@
 of that target, written from the model's definition: ``prepare(inputs,
 opts, seed)`` works out again what the program's deploy derives from the
 benchmark's inputs (a device instance, a cluster layout), and
-``answers(state, feats, route, tf32)`` returns, for a block of feature
+``answers(state, rows, route, lower)`` returns, for a block of input
 rows, the tuple the route's call returns, plus a dict of what these rows
-need of each kernel (read by ``counts/``). Nothing here imports
-``repro_torch`` or the JAX package.
+need of each kernel (read by ``counts/``). It may define ``rows_differ(got,
+want)``, the rows of one answer (numpy arrays) that it does not accept;
+without it the harness holds every answer to exact equality. Nothing here
+imports ``repro_torch`` or the JAX package.
 
-The configurations state float32 with TF32 off. ``tf32=True`` is the
-control: the same answers with the float32 products in TF32, the nearest
-precision below (on the CPU, which has no TF32, the operands of each
-product are rounded to TF32's 10-bit mantissa, to nearest even).
+``lower=True`` is the control: the same answers one precision below the
+one the configuration states. The MEMHD configurations state float32
+with TF32 off, so theirs has the float32 products in TF32 (on the CPU,
+which has no TF32, the operands of each product are rounded to TF32's
+10-bit mantissa, to nearest even).
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ NEG = float(torch.finfo(torch.float32).min)  # an exhausted top-k slot
 
 
 @contextlib.contextmanager
-def precision(tf32: bool):
-    """Float32 products in full precision, or in TF32 for the control."""
+def precision(lower: bool):
+    """Float32 products in full precision, or in TF32, one precision
+    lower, for the control."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = lower
+    torch.backends.cudnn.allow_tf32 = lower
     try:
         yield
     finally:
@@ -44,19 +48,19 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor, lower: bool) -> torch.Tensor:
     """``a @ b`` in float32, or in TF32 for the control."""
-    if tf32 and a.device.type == "cpu":
+    if lower and a.device.type == "cpu":
         a, b = round_tf32(a), round_tf32(b)
-    with precision(tf32):
+    with precision(lower):
         return a @ b
 
 
 def queries(feats: torch.Tensor, projection: torch.Tensor,
-            tf32: bool = False) -> torch.Tensor:
+            lower: bool = False) -> torch.Tensor:
     """The projection encoder: sign(feats @ projection), sign(0) = +1,
     as float32 {-1, +1} rows."""
-    h = matmul(feats.float(), projection, tf32)
+    h = matmul(feats.float(), projection, lower)
     return torch.where(h >= 0, 1.0, -1.0)
 
 

@@ -149,16 +149,16 @@ def prepare(inputs, opts: dict, seed: int) -> dict:
 
 
 def answers(state: dict, feats: torch.Tensor, route: dict,
-            tf32: bool = False) -> tuple[tuple, dict]:
+            lower: bool = False) -> tuple[tuple, dict]:
     if route["call"] != "predict_topk":
         raise ValueError(f"hierarchical: no reference for "
                          f"{route['call']!r}")
     k = route["kwargs"]["k"]
-    q = ref.queries(feats, state["projection"], tf32)
+    q = ref.queries(feats, state["projection"], lower)
     d = q.shape[1]
     groups = state["supers_t"].shape[1]
     every = torch.ones((1, groups), dtype=torch.bool, device=q.device)
-    short, _ = ref.top_by_key(ref.matmul(q, state["supers_t"], tf32),
+    short, _ = ref.top_by_key(ref.matmul(q, state["supers_t"], lower),
                               every, state["shortlist"], d)
     chosen = torch.zeros((q.shape[0], groups), dtype=torch.bool,
                          device=q.device)
@@ -170,7 +170,7 @@ def answers(state: dict, feats: torch.Tensor, route: dict,
     for i in range(0, q.shape[0], rows):
         member = chosen[i:i + rows][:, state["assign"]]
         idx, best = ref.top_by_key(
-            ref.matmul(q[i:i + rows], state["am_t"], tf32), member, k, d)
+            ref.matmul(q[i:i + rows], state["am_t"], lower), member, k, d)
         ids.append(idx)
         sims.append(best)
         cls.append(torch.where(idx >= 0,

@@ -66,10 +66,10 @@ def prepare(inputs, opts: dict, seed: int) -> dict:
 
 
 def answers(state: dict, feats: torch.Tensor, route: dict,
-            tf32: bool = False) -> tuple[tuple, dict]:
+            lower: bool = False) -> tuple[tuple, dict]:
     if route["call"] != "predict_features":
         raise ValueError(f"imc: no reference for {route['call']!r}")
-    q = ref.queries(feats, state["projection"], tf32)
+    q = ref.queries(feats, state["projection"], lower)
     cells = state["cells"]
     gd, rows, cp = cells.shape
     b = q.shape[0]

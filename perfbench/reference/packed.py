@@ -20,13 +20,13 @@ def prepare(inputs, opts: dict, seed: int) -> dict:
 
 
 def answers(state: dict, feats: torch.Tensor, route: dict,
-            tf32: bool = False) -> tuple[tuple, dict]:
+            lower: bool = False) -> tuple[tuple, dict]:
     if route["call"] != "predict_features":
         raise ValueError(f"packed: no reference for {route['call']!r}")
-    q = ref.queries(feats, state["projection"], tf32)
+    q = ref.queries(feats, state["projection"], lower)
     c = state["am_t"].shape[1]
     rows = max(1, BLOCK // c)
     best = torch.cat([torch.argmax(ref.matmul(q[i:i + rows], state["am_t"],
-                                              tf32), dim=-1)
+                                              lower), dim=-1)
                       for i in range(0, q.shape[0], rows)])
     return (state["owners"][best],), {"columns": q.shape[0] * c}

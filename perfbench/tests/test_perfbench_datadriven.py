@@ -1,11 +1,15 @@
 """The harness is data: a configuration, a traffic mix, the loop of a new
-kind of traffic with an end-to-end reading of its own, a cell and a
-per-layer metric added as files are found by name and run, with no file
-that was there edited."""
+kind of traffic with an end-to-end reading of its own, a cell, a
+per-layer metric, and a program family with its inputs and its reference
+added as files are found by name and run, with no file that was there
+edited."""
+import functools
 import hashlib
 import json
 
-from perfbench import harness, trace
+import pytest
+
+from perfbench import control, harness, trace
 from perfbench.tests.conftest import make_tiny
 
 
@@ -87,5 +91,123 @@ def test_added_files_are_found_and_run(tmp_path, counted_clock):
     assert set(out["metrics"]) == {"rows_per_s", "setup_s",
                                    "batches_per_s"}
     assert out["metrics"]["batches_per_s"]["value"] > 0
+    after = digests(root)
+    assert all(after[p] == d for p, d in before.items())
+
+
+# A second program family, added as new files alone: int32 token rows in,
+# float next-token logits out, judged by its reference's tolerance.
+TOKEN_INPUTS = """
+import types
+import torch
+
+
+def build(cfg, gen):
+    dev = gen.device
+    emb = torch.randn((cfg["vocab"], cfg["d_model"]), generator=gen,
+                      device=dev)
+    head = torch.randn((cfg["d_model"], cfg["vocab"]), generator=gen,
+                       device=dev)
+
+    def sample(n):
+        return torch.randint(0, cfg["vocab"], (n, cfg["seq_len"]),
+                             generator=gen, device=dev, dtype=torch.int32)
+
+    return types.SimpleNamespace(emb=emb, head=head, sample=sample)
+"""
+
+# The program: mean-pooled embeddings through the head, its answers moved
+# by ``shift`` of each row's largest logit from call ``shift_after`` on.
+TOKEN_PROGRAM = """
+def deploy(cell, inputs, seed, root):
+    cfg, calls = cell.config, [0]
+
+    def call(tokens):
+        logits = inputs.emb[tokens.long()].mean(dim=1) @ inputs.head
+        calls[0] += 1
+        if calls[0] > cfg["shift_after"]:
+            logits = logits + cfg["shift"] * logits.abs().amax(
+                dim=1, keepdim=True)
+        return (logits,)
+
+    return call
+"""
+
+# The reference: the same logits by token counts, in float32; the control
+# (``lower``) rounds the operands to TF32.
+TOKEN_REFERENCE = """
+import numpy as np
+import torch
+
+from perfbench import reference as ref
+
+# A row agrees when no logit is off by more than 2**-13 of the row's
+# largest: float32 sums in another order differ by a few ulps (2**-24) of
+# it, and TF32 operands (the control, 11 significant bits) by about 2**-11.
+TOL = 2.0 ** -13
+
+
+def prepare(inputs, opts, seed):
+    return {"emb": inputs.emb, "head": inputs.head}
+
+
+def answers(state, tokens, route, lower=False):
+    emb = state["emb"]
+    counts = torch.nn.functional.one_hot(tokens.long(), emb.shape[0]).sum(1)
+    pooled = ref.matmul(counts.float(), emb, lower) / tokens.shape[1]
+    return (ref.matmul(pooled, state["head"], lower),), {}
+
+
+def rows_differ(got, want):
+    scale = np.abs(want).max(axis=1)
+    return np.abs(got - want).max(axis=1) > TOL * scale
+"""
+
+# (shift, whether it starts on the slots' later visits, control, correct)
+TOKEN_CASES = {
+    "sound": (0.0, False, False, True),
+    "past_the_tolerance": (2.0 ** -8, False, False, False),
+    "later_visit_within": (2.0 ** -17, True, False, True),
+    "later_visit_past": (2.0 ** -8, True, False, False),
+    "the_control": (0.0, False, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOKEN_CASES))
+def test_another_program_family_by_new_files(tmp_path, counted_clock,
+                                             case):
+    """Token rows served by a program of its own, judged by its
+    reference's ``rows_differ``: within the tolerance correct, on a first
+    visit or a later one; past it, or the control, not correct."""
+    shift, later, use_control, want = TOKEN_CASES[case]
+    root = make_tiny(tmp_path, {})
+    before = digests(root)
+    mix = {"kind": "closed_bulk", "pool_rows": 64, "batch_rows": 16,
+           "in_flight": 2, "route": {"target": "tokens", "call": "logits"}}
+    n_slots = mix["pool_rows"] // mix["batch_rows"]
+    cfg = {"name": "tokens-tiny", "program": "tokens", "inputs": "tokens",
+           "vocab": 96, "d_model": 64, "seq_len": 12, "shift": shift,
+           "shift_after": harness.WARMUP_CALLS + n_slots if later else 0}
+    cell = {"config": "tokens-tiny", "traffic": "tokens-bulk", "chips": 1,
+            "why": "token rows of one length"}
+    for folder, name, text in (
+            ("configs", "tokens-tiny.json", json.dumps(cfg)),
+            ("traffic", "tokens-bulk.json", json.dumps(mix)),
+            ("workloads", "tokens-bulk.json", json.dumps(cell)),
+            ("inputs", "tokens.py", TOKEN_INPUTS),
+            ("programs", "tokens.py", TOKEN_PROGRAM),
+            ("reference", "tokens.py", TOKEN_REFERENCE)):
+        assert not (root / folder / name).exists()
+        (root / folder / name).write_text(text)
+
+    counted_clock(root)
+    run = control.run if use_control else functools.partial(harness.run,
+                                                            traced=False)
+    out = run("tokens-bulk", 2 ** 33 + 11, 0.05, root=root, device="cpu",
+              strict=False)
+    assert out["info"]["batches"] > n_slots
+    assert out["info"]["checked_rows"] == mix["pool_rows"]
+    assert out["correct"] is want, out["checks"]
+    assert set(out["metrics"]) == {"rows_per_s", "setup_s"}
     after = digests(root)
     assert all(after[p] == d for p, d in before.items())

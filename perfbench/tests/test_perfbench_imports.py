@@ -45,3 +45,24 @@ def test_the_check_compares_whole_top_level_names(monkeypatch):
     assert "repro_torch_fake.x" not in run.forbidden_modules()
     monkeypatch.setitem(sys.modules, "repro.core", object())
     assert "repro.core" in run.forbidden_modules()
+
+
+def imported_modules(path: Path) -> set:
+    """Full names of the modules ``path`` imports absolutely."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_the_harness_leaves_the_program_to_programs():
+    """``harness.py`` builds no program itself: the MEMHD model and its
+    deploy are imported by ``programs/memhd.py``."""
+    family = ("repro_torch.core", "repro_torch.deploy")
+    assert not [n for n in imported_modules(HERE / "harness.py")
+                if n.startswith(family)]
+    assert "repro_torch.deploy" in imported_modules(
+        HERE / "programs" / "memhd.py")
